@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # the whole run
-    python3 chip_smoke.py --quick    # build + kernel checks + n=64 only
+    python3 chip_smoke.py --quick    # build + kernel checks + card-vs-CPU runs only
 
 It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 
@@ -10,19 +10,30 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 2. builds the port's CUDA kernels from ``ringpop_tpu_torch/csrc`` and
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card, on
-   random inputs from a seed at n=1024 and at the ragged n=1000, for every
-   option combination the engine uses: every output must be bitwise equal
-   (tolerance: none — all integer arithmetic); prints each kernel's time;
-4. runs the n=64 32-tick churn schedule on the card (kernels) and on the
-   CPU (plain versions) in fast and farmhash modes and requires every
-   state and metric field bitwise equal on every tick;
-5. drives the main path — ``SimCluster(n=1024)``: bootstrap,
+   random inputs from a seed, for every option combination the engines
+   use: every output must be bitwise equal (tolerance: none — all integer
+   arithmetic); ``apply_updates``, ``pb_budget`` and ``fused_stream`` at
+   n=1024 and the ragged n=1000, ``exchange`` at the 1M-node storm shape
+   (N=1,000,000, W=16) and at N=1000 with W in {1, 3, 16, 40}, with and
+   without counts; prints each kernel's time, its plain version's time
+   and its bound;
+4. runs the n=64 32-tick churn schedule of the full engine on the card
+   (kernels) and on the CPU (plain versions) in fast and farmhash modes,
+   and an n=4096, u=512 scalable storm (10% churn, 5% packet loss, a
+   partition split at tick 5 healed at tick 20) likewise, once more on the
+   card with TF32 matmuls allowed: every state and metric field must be
+   equal on every tick (the scalable ``mean_heard_frac``, a float32 mean,
+   within a relative 1e-6); the storm's FarmHash truth checksum on the
+   card must equal the host FarmHash32 of the truth checksum string;
+5. drives the main paths, each with every kernel's launch count reset
+   just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
-   256-tick ``run`` — in fast and farmhash modes, with every kernel's
-   launch count reset just before and read just after; prints
-   ``converged_in``, node-ticks/s and replays, and checks that all
-   converged checksums are equal and, in farmhash mode, that node 0's
-   checksum is the host FarmHash32 of its checksum string;
+   256-tick ``run``) in fast and farmhash modes, and the 1M-node churn
+   storm of ``benchmarks/storm_1m.py`` (``ScalableCluster``, 60 ticks,
+   10% killed at tick 2 and revived at tick 30; a cold run, then a warm
+   run on a fresh cluster with seed + 1, ring digest before and after);
+   requires one ``exchange`` launch per storm tick, every node live at the
+   end and the incremental checksums equal to the full recompute;
 6. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +54,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_HEAD = 1024
 TICKS = 256
+N_STORM = 1_000_000
+STORM_TICKS = 60
+N_MID = 4096
+MEAN_FRAC_RTOL = 1e-6  # the scalable mean_heard_frac: a float32 mean
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 peak)
 
@@ -301,7 +316,169 @@ def check_e2e(n=64, ticks=32):
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the scalable engine's exchange kernel
+
+
+def _exchange_inputs(n, w, seed, dev):
+    """Seeded masks: heard at bit density 1/2, pulled and pushed rows at
+    1/8 (a storm tick's partner rows add a few bits per word), and a
+    full-range delta table."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import u32
+
+    rng = np.random.default_rng(seed)
+
+    def words(k):
+        out = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+        for _ in range(k - 1):
+            out &= rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+        return u32.from_numpy(out, dev)
+
+    delta = u32.from_numpy(rng.integers(0, 2**32, w * 32, dtype=np.uint32), dev)
+    return words(1), words(3), words(3), delta
+
+
+def check_exchange(dev) -> dict:
+    """Phase 3, ``exchange``: the kernel against its plain version at the
+    storm shape and at ragged shapes, with and without counts; its time,
+    its plain version's time and its bound at the storm shape."""
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    err = 0
+    storm_args = None
+    for n, w in ((N_STORM, 16), (1000, 1), (1000, 3), (1000, 16), (1000, 40)):
+        args = _exchange_inputs(n, w, 7 + w, dev)
+        for counts in (True, False):
+            got = ex.exchange(*args, want_counts=counts)
+            want = ex.exchange_plain(*args, want_counts=counts)
+            torch.cuda.synchronize()
+            err = max(err, _same(tuple(got), tuple(want),
+                                 "exchange n=%d w=%d counts=%s" % (n, w, counts)))
+        if n == N_STORM:
+            storm_args = args
+    print("exchange bitwise equal to its plain version at N=%d W=16 and N=1000 "
+          "W in (1, 3, 16, 40), with and without counts" % N_STORM, flush=True)
+    # the engine's call: counts off
+    out = ex.exchange(*storm_args, want_counts=False)
+    new_bits = int(ex.popcount_u32(out[0] ^ storm_args[0]).sum())
+    n, w = storm_args[0].shape
+    # per word: two ORs, an XOR, a store and a popcount; one add per new
+    # bit; the per-row reduction (about one add per word)
+    ops = 5.0 * n * w + new_bits + n * w
+    r = dict(
+        ms=_time_ms(lambda: ex.exchange(*storm_args, want_counts=False), 50),
+        plain_ms=_time_ms(lambda: ex.exchange_plain(*storm_args, want_counts=False), 5),
+        bound=_bound(_nbytes(storm_args) + _nbytes(out), ops),
+        max_abs_err=err,
+        new_bits=new_bits,
+    )
+    print("exchange: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) at N=%d W=%d, "
+          "%d new bits" % (r["ms"], r["plain_ms"], r["bound"][0], r["bound"][1], n, w,
+                           new_bits), flush=True)
+    return r
+
+
+# ---------------------------------------------------------------------------
+# n=4096 scalable storm: card (kernel) vs CPU (plain versions)
+
+
+def _mid_storm_schedule(n, ticks):
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+
+    sched = StormSchedule.churn_storm(ticks, n, 0.10, fail_tick=2, seed=1)
+    part = np.full((ticks, n), -1, np.int32)
+    part[5] = 0
+    part[5, n // 2:] = 1
+    part[20] = 0
+    sched.partition = part
+    return sched
+
+
+def _truth_string_hash(state, universe, params) -> int:
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+    from ringpop_tpu_torch.ops import farmhash32
+
+    status = state.truth_status.to("cpu").numpy()
+    inc = state.truth_inc.to("cpu").numpy()
+    members = sorted(
+        (a, ce.STATUS_STRINGS[int(status[j])],
+         params.epoch + (int(inc[j]) - 1) * 200 if inc[j] > 0 else 0)
+        for j, a in enumerate(universe.addresses)
+    )
+    return farmhash32.hash32(";".join("%s%s%d" % m for m in members))
+
+
+def check_storm_e2e(n=N_MID, ticks=40):
+    """Phase 4, scalable: the storm on the card equals the CPU on every
+    state and metric field of every tick, with TF32 matmuls off and on;
+    the truth checksum equals the host string hash."""
+    import numpy as np
+
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.cluster import _tick_at, default_addresses
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+    from ringpop_tpu_torch.ops import u32
+
+    params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5)
+    sched = _mid_storm_schedule(n, ticks)
+    cpu = ScalableCluster(n=n, params=params, seed=2, device="cpu")
+    assert cpu.params.fused_exchange == "plain"
+    ins = sched.as_inputs(cpu.device)
+    want = []
+    for t in range(ticks):
+        m = cpu.step(_tick_at(ins, t))
+        want.append((convert.scalable_state_to_numpy(cpu.state), m))
+    fired = {f: int(sum(getattr(m, f) for _, m in want))
+             for f in ("suspects_published", "faulties_published", "refutes_published")}
+    if min(fired.values()) == 0:
+        raise AssertionError("the n=%d storm did not fire every batch: %r" % (n, fired))
+    universe = ce.Universe.from_addresses(default_addresses(n))
+    host_truth = _truth_string_hash(cpu.state, universe, cpu.params)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            card = ScalableCluster(n=n, params=params, seed=2, device="cuda")
+            assert card.params.fused_exchange == "kernel"
+            cins = sched.as_inputs(card.device)
+            for t in range(ticks):
+                m = card.step(_tick_at(cins, t))
+                ws, wm = want[t]
+                label = "n=%d storm tf32=%s tick %d" % (n, tf32, t)
+                for f in es.ScalableMetrics._fields:
+                    a, b = getattr(m, f), getattr(wm, f)
+                    ok = (abs(float(a) - float(b)) <= MEAN_FRAC_RTOL * abs(float(b))
+                          if f == "mean_heard_frac" else a == b)
+                    if not ok:
+                        raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
+                got = convert.scalable_state_to_numpy(card.state)
+                for f in es.ScalableState._fields:
+                    if (got[f] is None) != (ws[f] is None) or (
+                        got[f] is not None and not np.array_equal(got[f], ws[f])
+                    ):
+                        raise AssertionError("%s: state %s differs" % (label, f))
+            full = es.compute_checksums(card.state, card.params)
+            if not torch.equal(full, card.state.checksum):
+                raise AssertionError("n=%d tf32=%s: incremental checksums != recompute" % (n, tf32))
+            truth = int(u32.to_numpy(es.farmhash_truth_checksum(card.state, universe, card.params)))
+            if truth != host_truth:
+                raise AssertionError("n=%d tf32=%s: truth checksum %#x != host FarmHash32 %#x"
+                                     % (n, tf32, truth, host_truth))
+            print("n=%d storm tf32=%s: %d ticks, card == cpu on every state and metric "
+                  "field; truth checksum %#010x == host FarmHash32; fired %s"
+                  % (n, tf32, ticks, truth, json.dumps(fired)), flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+# ---------------------------------------------------------------------------
+# the main paths
 
 
 def headline(mode: str) -> dict:
@@ -353,6 +530,61 @@ def headline(mode: str) -> dict:
     return out
 
 
+def storm_headline() -> list:
+    """The 1M-node churn storm as benchmarks/storm_1m.py runs it: a cold
+    run, then a warm run on a fresh cluster with seed + 1."""
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    n, ticks = N_STORM, STORM_TICKS
+    params = es.ScalableParams(n=n, u=512, checksum_in_tick=True)
+    sched = StormSchedule.churn_storm(ticks, n, fraction=0.10, fail_tick=2, seed=0)
+    runs = []
+    for label, seed in (("cold", 0), ("warm", 1)):
+        cluster = ScalableCluster(n=n, params=params, seed=seed, device="cuda")
+        ring_before = cluster.ring_checksum()
+        torch.cuda.synchronize()
+        launches0, reads0 = ex.exchange.launches, es.host_read.count
+        t0 = time.perf_counter()
+        metrics = cluster.run(sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ex.exchange.launches - launches0
+        reads = es.host_read.count - reads0
+        if launches != ticks:
+            raise AssertionError("storm %s: %d exchange launches in %d ticks" % (label, launches, ticks))
+        live = int(metrics.live_nodes[-1])
+        if live != n:
+            raise AssertionError("storm %s: %d of %d nodes live at the end" % (label, live, n))
+        if not torch.equal(es.compute_checksums(cluster.state, cluster.params),
+                           cluster.state.checksum):
+            raise AssertionError("storm %s: incremental checksums != the full recompute" % label)
+        out = dict(
+            run=label,
+            seed=seed,
+            n=n,
+            ticks=ticks,
+            wall_s=wall,
+            node_ticks_per_s=n * ticks / wall,
+            ms_per_tick=wall / ticks * 1e3,
+            host_syncs_per_tick=reads / ticks,
+            exchange_launches=launches,
+            final_distinct_checksums=int(metrics.distinct_checksums[-1]),
+            final_live_nodes=live,
+            suspects_published=int(metrics.suspects_published.sum()),
+            faulties_published=int(metrics.faulties_published.sum()),
+            refutes_published=int(metrics.refutes_published.sum()),
+            ring_checksum_before="%#010x" % ring_before,
+            ring_checksum_after="%#010x" % cluster.ring_checksum(),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        print("storm %s" % json.dumps(out), flush=True)
+        runs.append(out)
+        del cluster
+    return runs
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -362,7 +594,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         from ringpop_tpu_torch.ops import _build, toolkit
-        from ringpop_tpu_torch.ops import fused_apply, fused_piggyback, stream_hash
+        from ringpop_tpu_torch.ops import exchange, fused_apply, fused_piggyback, stream_hash
     except ImportError as e:
         print("chip_smoke: run from a checkout of the repo (%s)" % e, file=sys.stderr)
         return 2
@@ -376,25 +608,33 @@ def main(argv) -> int:
                                             lib.path.name), flush=True)
     dev = torch.device("cuda")
     report = check_kernels(dev)
+    report["exchange"] = check_exchange(dev)
     check_e2e()
+    check_storm_e2e()
 
     wrappers = {
         "apply_updates": fused_apply.apply_updates,
         "pb_budget": fused_piggyback.pb_budget,
         "fused_stream": stream_hash.fused_stream,
+        "exchange": exchange.exchange,
     }
+    # each main path and the kernels it must launch
+    paths = (
+        ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
+         ("apply_updates", "pb_budget", "fused_stream")),
+        ("1M storm", storm_headline, ("exchange",)),
+    )
     launches = {k: 0 for k in wrappers}
-    heads = []
     if not quick:
-        for mode in ("fast", "farmhash"):
+        for name, drive, needed in paths:
             for w in wrappers.values():
                 w.launches = 0
-            heads.append(headline(mode))
+            drive()
             for k, w in wrappers.items():
                 launches[k] += w.launches
-        for k, v in launches.items():
-            if v == 0:
-                raise AssertionError("kernel %s was never launched on the main path" % k)
+            for k in needed:
+                if wrappers[k].launches == 0:
+                    raise AssertionError("kernel %s was never launched on the %s path" % (k, name))
     kernels = []
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]

@@ -6,7 +6,10 @@
 per-node ``rng`` keys and ``checksum``) become int32 views of the same
 bits.  ``params_from_jax_fields`` maps the protocol constants of a JAX
 ``SimParams._asdict()`` onto the port's ``SimParams`` and leaves the
-port's own kernel knobs at their defaults.
+port's own kernel knobs at their defaults.  ``scalable_state_from_numpy``,
+``scalable_state_to_numpy`` and ``scalable_params_from_jax_fields`` do the
+same for the scalable engine (uint32 fields: ``r_delta``, ``rng``,
+``checksum``, ``heard`` and the 0-d ``base_sum``).
 
 Nothing here imports JAX: the arrays are plain numpy.
 """
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch.models.sim import engine
+from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.ops import u32
 
 U32_FIELDS = ("rng", "checksum")
@@ -95,3 +99,69 @@ def params_from_jax_fields(fields: dict) -> engine.SimParams:
         "auto" if shape == "auto" else "full"
     )
     return engine.SimParams(**kw)
+
+
+# ---------------------------------------------------------------------------
+# the scalable engine
+
+SCALABLE_U32_FIELDS = ("r_delta", "rng", "checksum", "heard", "base_sum")
+_SCALABLE_UNPORTED_FIELDS = ("first_heard", "hist", "exch", "exch_hist")
+
+SCALABLE_PROTOCOL_FIELDS = (
+    "n", "u", "ping_req_size", "suspicion_ticks", "piggyback_factor",
+    "age_slack", "packet_loss", "epoch", "checksum_in_tick", "enable_leave",
+    "gate_phases", "perm_impl",
+)
+
+
+def scalable_state_from_numpy(
+    arrays: Dict[str, Optional[np.ndarray]], device="cpu"
+) -> es.ScalableState:
+    """The port's ScalableState from numpy copies of a JAX ScalableState's
+    fields (``{name: np.asarray(getattr(state, name))}``)."""
+    for f in _SCALABLE_UNPORTED_FIELDS:
+        if arrays.get(f) is not None:
+            raise NotImplementedError(
+                "state field %r (an obs plane) is not ported yet (ROADMAP.md)" % f
+            )
+    out = {}
+    for f in es.ScalableState._fields:
+        a = arrays.get(f)
+        if a is None:
+            out[f] = None
+        elif f in SCALABLE_U32_FIELDS:
+            out[f] = u32.from_numpy(a, device).reshape(np.shape(a))
+        else:
+            a = np.asarray(a)
+            dtype = torch.bool if a.dtype == np.bool_ else torch.int32
+            out[f] = torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return es.ScalableState(**out)
+
+
+def scalable_state_to_numpy(state: es.ScalableState) -> Dict[str, Optional[np.ndarray]]:
+    """numpy arrays of every field; uint32 fields as uint32."""
+    out = {}
+    for f in es.ScalableState._fields:
+        t = getattr(state, f)
+        if t is None:
+            out[f] = None
+        elif f in SCALABLE_U32_FIELDS:
+            out[f] = u32.to_numpy(t)
+        else:
+            out[f] = t.detach().to("cpu").numpy()
+    return out
+
+
+def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
+    """The port's ScalableParams for a JAX ``ScalableParams._asdict()``:
+    the protocol constants carried over; ``fused_exchange`` "xla" maps to
+    the plain version, "pallas" to the kernel, "off" and "auto" as they
+    are (every mode gives the same trajectory)."""
+    if fields.get("wavefront") or fields.get("histograms") or fields.get("exchange_metrics"):
+        raise NotImplementedError(
+            "wavefront / histograms / exchange_metrics are not ported yet (ROADMAP.md)"
+        )
+    kw = {k: fields[k] for k in SCALABLE_PROTOCOL_FIELDS if k in fields}
+    fe = fields.get("fused_exchange", "auto")
+    kw["fused_exchange"] = {"xla": "plain", "pallas": "kernel"}.get(fe, fe)
+    return es.ScalableParams(**kw)

@@ -92,12 +92,14 @@ class EventSchedule(DeviceScheduleMixin):
         return sched
 
 
-def _tick_at(inputs: engine.TickInputs, t: int) -> engine.TickInputs:
-    return engine.TickInputs(*(None if x is None else x[t] for x in inputs))
+def _tick_at(inputs, t: int):
+    """Tick ``t``'s row of a ``[T, N]`` input tuple (either engine's)."""
+    return type(inputs)(*(None if x is None else x[t] for x in inputs))
 
 
-def metrics_to_numpy(metrics: engine.TickMetrics) -> engine.TickMetrics:
-    return engine.TickMetrics(*(x.to("cpu").numpy() for x in metrics))
+def metrics_to_numpy(metrics):
+    """A metrics tuple (either engine's) with every field as numpy."""
+    return type(metrics)(*(x.to("cpu").numpy() for x in metrics))
 
 
 class SimCluster:

@@ -46,6 +46,7 @@ class KernelLibrary:
             ("ringpop_apply_updates", [vp, ci, ci, vp]),
             ("ringpop_pb_budget", [vp, ci, vp]),
             ("ringpop_fused_stream", [vp, ci, ci, ci, vp]),
+            ("ringpop_exchange", [vp, ci, ci, vp]),
         ):
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes

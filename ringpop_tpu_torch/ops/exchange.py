@@ -1,0 +1,160 @@
+"""Fused push-pull exchange of the scalable engine: plain version and CUDA
+kernel.
+
+Counterpart of ``ringpop_tpu/ops/exchange.py`` (lines 73-338).  The
+scalable engine's gossip exchange ORs the pulled and pushed partner rows
+into the ``[N, U/32]`` heard bitmask and adds, per row, the rumor deltas
+of the bits that turned on (the incremental checksum update)::
+
+    new  = heard | pulled | pushed
+    diff = new ^ heard                       # bits only turn ON
+    row_delta[i] = sum of r_delta[b] over the set bits b of diff[i]  (mod 2^32)
+    new_bits[i]  = popcount(diff[i])         # optional
+
+Every implementation computes the same exact mod-2^32 integer sum, so they
+agree bit for bit with each other and with the engine's
+``_bit_delta_sum``.  :func:`exchange` launches ``csrc/exchange.cu`` on CUDA
+tensors and runs :func:`exchange_plain` on CPU tensors.  The partner-row
+gathers stay outside the op, as in the JAX package.
+
+uint32 values are int32 bit patterns (:mod:`ringpop_tpu_torch.ops.u32`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ringpop_tpu_torch.ops import _build, toolkit
+from ringpop_tpu_torch.ops.u32 import from_u64
+
+WORD = 32
+
+
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per uint32 word, as int32."""
+    return toolkit.popcount(x).to(torch.int32)
+
+
+def _delta_table(r_delta: torch.Tensor, w: int) -> torch.Tensor:
+    """[W, 32] int64 unsigned deltas: entry (w, b) is rumor w*32+b's."""
+    return (r_delta.to(torch.int64) & 0xFFFFFFFF).reshape(w, WORD)
+
+
+def delta_sum_plain(
+    words: torch.Tensor, r_delta: torch.Tensor, _chunk_rows: int = 65536
+) -> torch.Tensor:
+    """[N] int32 (uint32): per-row sum of ``r_delta`` over the row's set
+    bits, mod 2^32.  An exact int64 sum over row chunks, so the ``[C, W,
+    32]`` bit expansion never exists at full ``[N, U]``; no floating point
+    (and so no dependence on the TF32 matmul switch)."""
+    n, w = words.shape
+    tbl = _delta_table(r_delta, w)
+    bit_ids = torch.arange(WORD, dtype=torch.int32, device=words.device)
+    out = torch.empty(n, dtype=torch.int32, device=words.device)
+    chunk = max(1, min(n, _chunk_rows))
+    for lo in range(0, n, chunk):
+        d = words[lo:lo + chunk]
+        bits = (d[:, :, None] >> bit_ids) & 1  # [C, W, 32]
+        out[lo:lo + chunk] = from_u64((bits * tbl).sum(dim=(1, 2)))
+    return out
+
+
+def exchange_plain(
+    heard: torch.Tensor,
+    pulled: torch.Tensor,
+    pushed: torch.Tensor,
+    r_delta: torch.Tensor,
+    _chunk_rows: int = 65536,
+    want_counts: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`exchange` (the counterpart of
+    ``exchange_xla``): the same arithmetic as chunked tensor ops."""
+    new = heard | pulled | pushed
+    diff = new ^ heard
+    acc = delta_sum_plain(diff, r_delta, _chunk_rows)
+    cnt = popcount_u32(diff).sum(dim=1, dtype=torch.int32) if want_counts else None
+    return new, acc, cnt
+
+
+def exchange(
+    heard: torch.Tensor,
+    pulled: torch.Tensor,
+    pushed: torch.Tensor,
+    r_delta: torch.Tensor,
+    *,
+    want_counts: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Fused push-pull exchange step.
+
+    ``heard``: [N, U/32] int32 (uint32) pre-exchange reception bitmask;
+    ``pulled`` / ``pushed``: [N, U/32] partner-row contributions, already
+    masked by delivery and active-rumor words; ``r_delta``: [U] int32
+    (uint32) rumor delta table.
+
+    Returns ``(new_heard [N, U/32], row_delta [N] (uint32 bits),
+    new_bits [N] int32 or None)``.  ``want_counts=False`` skips the
+    popcount output (the engine's hot path consumes only the delta).
+
+    CUDA tensors launch ``csrc/exchange.cu``; CPU tensors run
+    :func:`exchange_plain`."""
+    if heard.ndim != 2:
+        raise ValueError("exchange wants an [N, U/32] mask, got %r" % (tuple(heard.shape),))
+    n, w = heard.shape
+    if tuple(r_delta.shape) != (w * WORD,):
+        raise ValueError(
+            "delta table must cover the mask: [%d] for %d words, got %r"
+            % (w * WORD, w, tuple(r_delta.shape))
+        )
+    dev = heard.device
+    if dev.type == "cpu":
+        return exchange_plain(heard, pulled, pushed, r_delta, want_counts=want_counts)
+    name = "exchange"
+    for what, t, shape in (
+        ("heard", heard, (n, w)), ("pulled", pulled, (n, w)),
+        ("pushed", pushed, (n, w)), ("r_delta", r_delta, (w * WORD,)),
+    ):
+        _build.check("%s: %s" % (name, what), t, torch.int32, shape, dev)
+    new = torch.empty((n, w), dtype=torch.int32, device=dev)
+    acc = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty(n, dtype=torch.int32, device=dev) if want_counts else None
+    ptrs = [_build.ptr(t) for t in (heard, pulled, pushed, r_delta, new, acc, cnt)]
+    _build.library().call("ringpop_exchange", ptrs, n, w)
+    exchange.launches += 1
+    return new, acc, cnt
+
+
+exchange.launches = 0
+
+
+def exchange_local(heard, pulled, pushed, r_delta, *, impl: str):
+    """Shard-local entry: the exchange on one shard's ``[N/S, U/32]`` rows,
+    whose cross-shard partner rows the caller already delivered.  ``impl``
+    is "kernel" or "plain" (no resolution inside a shard's body); counts
+    are never requested.  Returns ``(new_heard, row_delta)``."""
+    if impl == "kernel":
+        new, delta, _ = exchange(heard, pulled, pushed, r_delta, want_counts=False)
+    elif impl == "plain":
+        new, delta, _ = exchange_plain(heard, pulled, pushed, r_delta, want_counts=False)
+    else:
+        raise ValueError("exchange_local impl must be kernel|plain, got %r" % (impl,))
+    return new, delta
+
+
+def step_traffic_bytes(n: int, w: int) -> int:
+    """Modeled device-memory bytes per exchange step: 3 mask reads (heard
+    and the two partner-row planes) + 1 mask write + the [N] delta and
+    count outputs; the delta table is negligible.  A lower bound."""
+    return (3 + 1) * n * w * 4 + 2 * n * 4
+
+
+def exchange_cap(local_rows: int, shards: int) -> int:
+    """Static per-(source shard, destination shard) row cap of the mesh
+    exchange plane's all-to-all buckets: mean + 6 sqrt(mean) + 8 of the
+    Binomial(L, 1/S) bucket occupancy, never above ``local_rows``."""
+    if shards <= 1:
+        return local_rows
+    mean = -(-local_rows // shards)
+    return min(local_rows, mean + 6 * math.isqrt(mean) + 8)

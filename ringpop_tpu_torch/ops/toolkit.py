@@ -113,4 +113,13 @@ TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
         "tests/test_torch_hash.py",
         "ringpop_tpu/ops/pallas_farmhash.py:243",
     ),
+    KernelTwin(
+        "exchange",
+        "exchange",
+        "exchange_plain",
+        "ringpop_tpu_torch/csrc/exchange.cu",
+        "ringpop_tpu.ops.exchange:exchange_xla",
+        "tests/test_torch_exchange.py",
+        "ringpop_tpu/ops/exchange.py:82",
+    ),
 )

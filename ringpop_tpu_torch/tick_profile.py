@@ -2,6 +2,7 @@
 under ``torch.profiler``.
 
     python3 -m ringpop_tpu_torch.tick_profile [--n 1024] [--ticks 64] [--out FILE]
+    python3 -m ringpop_tpu_torch.tick_profile --storm [--n 1000000] [--out FILE]
 
 For each checksum mode it builds ``SimCluster(n)`` on the card, bootstraps
 and converges it (as ``chip_smoke.py`` does), then measures two windows:
@@ -18,6 +19,14 @@ summed over kernels (busy share = device time / wall time of the profiled
 window), the top kernels by device time, and the number of host reads of
 device values (``aten::_local_scalar_dense``: one per gated phase). Prints
 one JSON object as its last line; needs a CUDA device.
+
+``--storm`` profiles the scalable engine's churn storm instead
+(``ScalableCluster(n)``, u=512, the 60-tick schedule of
+``benchmarks/storm_1m.py``): the ``fail`` window (ticks 0-11: the kill
+wave, suspicion and the indirect rounds) and the ``rejoin`` window (ticks
+28-39: suspicion expiry, the revive wave and its dissemination), each
+run once to warm up, then timed plain and under the profiler, all three
+from the same starting state.
 """
 
 from __future__ import annotations
@@ -105,11 +114,52 @@ def profile_mode(mode: str, n: int, ticks: int) -> dict:
     return out
 
 
+def profile_storm(n: int) -> dict:
+    import torch
+
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+
+    full = StormSchedule.churn_storm(60, n, fraction=0.10, fail_tick=2, seed=0)
+
+    def part(a, b):
+        return StormSchedule(ticks=b - a, n=n, kill=full.kill[a:b], revive=full.revive[a:b])
+
+    sim = ScalableCluster(n=n, params=es.ScalableParams(n=n, u=512), device="cuda")
+    out = dict(n=n, u=512)
+    pos = 0
+    for name, a, b in (("fail", 0, 12), ("rejoin", 28, 40)):
+        if pos < a:
+            sim.run(part(pos, a))
+        pre = sim.state
+        _window(sim, part(a, b))  # warm: the allocator's first-use growth
+        sim.state = pre
+        reads = es.host_read.count
+        wall = _window(sim, part(a, b))
+        reads = es.host_read.count - reads
+        sim.state = pre
+        prof = _profiled(sim, part(a, b))
+        pos = b
+        out[name] = dict(
+            ticks=b - a,
+            wall_s=wall,
+            ms_per_tick=wall / (b - a) * 1e3,
+            node_ticks_per_s=n * (b - a) / wall,
+            host_reads_per_tick=reads / (b - a),
+            **prof,
+        )
+        torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=1024)
+    ap.add_argument("--n", type=int, default=None,
+                    help="nodes (default 1024, or 1000000 with --storm)")
     ap.add_argument("--ticks", type=int, default=64)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--storm", action="store_true",
+                    help="profile the scalable churn storm")
     args = ap.parse_args(argv)
     import torch
 
@@ -120,8 +170,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, timeout=60,
     ).stdout.strip()
-    result = dict(card=card, modes=[profile_mode(m, args.n, args.ticks)
-                                    for m in ("fast", "farmhash")])
+    if args.storm:
+        result = dict(card=card, storm=profile_storm(args.n or 1_000_000))
+    else:
+        result = dict(card=card, modes=[profile_mode(m, args.n or 1024, args.ticks)
+                                        for m in ("fast", "farmhash")])
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(result, fh, indent=1)
