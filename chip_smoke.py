@@ -15,11 +15,18 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    arithmetic); ``apply_updates``, ``pb_budget`` and ``fused_stream`` at
    n=1024 and the ragged n=1000, ``exchange`` at the 1M-node storm shape
    (N=1,000,000, W=16) and at N=1000 with W in {1, 3, 16, 40}, with and
-   without counts; prints each kernel's time, its plain version's time
-   and its bound;
+   without counts, ``block_loop`` at B=1024 and B=256 rows of the real
+   n=1024 checksum strings (I=1843, as their word view, no copy) and at
+   the ragged B=1000 with I in {1, 7} and zero trip counts, and
+   ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows;
+   prints each kernel's time, its plain version's time and its bounds
+   (bytes or operations; for the two hash loops also the dependency
+   chain of one row);
 4. runs the n=64 32-tick churn schedule of the full engine on the card
-   (kernels) and on the CPU (plain versions) in fast and farmhash modes,
-   and an n=4096, u=512 scalable storm (10% churn, 5% packet loss, a
+   (kernels) and on the CPU (plain versions) in fast and farmhash modes
+   and in the classic unfused configuration (``fused_tick="off"``,
+   ``fused_checksum="off"``, "gated" recompute), and an n=4096, u=512
+   scalable storm (10% churn, 5% packet loss, a
    partition split at tick 5 healed at tick 20) likewise, once more on the
    card with TF32 matmuls allowed: every state and metric field must be
    equal on every tick (the scalable ``mean_heard_frac``, a float32 mean,
@@ -33,7 +40,13 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    10% killed at tick 2 and revived at tick 30; a cold run, then a warm
    run on a fresh cluster with seed + 1, ring digest before and after);
    requires one ``exchange`` launch per storm tick, every node live at the
-   end and the incremental checksums equal to the full recompute;
+   end and the incremental checksums equal to the full recompute; and the
+   classic configuration ``SimCluster(n=1024, fused_tick="off",
+   fused_checksum="off")`` (bootstrap, ``run_until_converged(96,
+   quiet_after=1)``, a timed 64-tick ``EventSchedule.churn_window``, one
+   warm and one timed 256-tick quiet window), which must launch
+   ``block_loop``, converge to one checksum and give node 0 the host
+   FarmHash32 of its checksum string;
 6. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -60,6 +73,14 @@ N_MID = 4096
 MEAN_FRAC_RTOL = 1e-6  # the scalable mean_heard_frac: a float32 mean
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 peak)
+# cycles on the carry path of one farmhashmk mixing round, read off the
+# SASS of csrc/block_loop.cu (sm_90a): g -> IADD (g + b), LOP3 (^), SHF
+# (rotate), IMAD (*5 + a), VIADD (+MAGIC), IADD3 (d + MAGIC + ng), IMAD
+# (nf), IMAD.IADD (ng + nf) -> g: 8 dependent integer ops of 4 cycles each.
+# The chain bound of a row of R rounds is R * ROUND_CYCLES at the card's
+# top SM clock.
+ROUND_CYCLES = 32
+CHURN_TICKS = 64
 
 
 def _card_line() -> str:
@@ -116,6 +137,20 @@ def _bound(bytes_moved: int, ops: float):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     to = ops / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _chain_ms(rounds: int) -> float:
+    """The dependency-chain bound of a row of ``rounds`` mixing rounds."""
+    return rounds * ROUND_CYCLES / _sm_clock_hz() * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +218,105 @@ def _stream_inputs(n, seed, dev):
         for _ in range(3)
     )
     return h0, g0, f0, words.contiguous(), rec_l.contiguous(), tb
+
+
+def _checksum_rows(n, rows, seed, dev):
+    """The real checksum strings of ``rows`` random views of an n-node
+    universe (nearly every member known, every status, 13-digit
+    incarnations): ``(buf [rows, W] uint8, lens [rows] int32)``."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim.cluster import default_addresses
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+
+    rng = np.random.default_rng(seed)
+    uni = ce.Universe.from_addresses(default_addresses(n))
+    present = torch.as_tensor(rng.random((rows, n)) < 0.97, device=dev)
+    status = torch.as_tensor(rng.integers(0, 4, (rows, n), dtype=np.int32), device=dev)
+    inc = torch.as_tensor(rng.integers(10**12, 2 * 10**12, (rows, n)), device=dev)
+    return ce.membership_rows(uni, present, status, inc, max_digits=14)
+
+
+def _block_inputs(rows, seed, dev):
+    """``block_loop``'s operands as ``hash32_rows`` builds them from the
+    real n=1024 checksum rows: the [rows, I, 5] word view (rows 9217 words
+    apart, no copy) and the per-row trip counts, with seeded carries."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import farmhash as fh
+
+    mat, lens = _checksum_rows(N_HEAD, rows, seed, dev)
+    words = fh.pack_words(mat)
+    n_iter = (mat.shape[1] - 1) // 20
+    blocks = words[:, : 5 * n_iter].reshape(rows, n_iter, 5)
+    iters = torch.div(lens - 1, 20, rounding_mode="floor").to(torch.int32)
+    rng = np.random.default_rng(seed)
+    h0, g0, f0 = (
+        torch.as_tensor(rng.integers(-2**31, 2**31, rows, dtype=np.int64).astype(np.int32),
+                        device=dev)
+        for _ in range(3)
+    )
+    return h0, g0, f0, blocks, iters
+
+
+def check_block_loop(dev) -> dict:
+    """Phase 3, ``block_loop``: the kernel against its plain version at the
+    main path's shapes (B=1024 for init and full recomputes, B=256 for a
+    gated chunk) and ragged ones; ``hash32_rows`` kernel vs plain on the
+    real rows; times and bounds at B=1024."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.ops import farmhash as fh
+    from ringpop_tpu_torch.ops import u32
+
+    err = 0
+    cases = {}
+    for rows in (N_HEAD, 256):
+        args = _block_inputs(rows, 11 + rows, dev)
+        err = max(err, _same(bl.block_loop(*args), bl.block_loop_plain(*args),
+                             "block_loop B=%d I=%d" % (rows, args[3].shape[1])))
+        cases[rows] = args
+    rng = np.random.default_rng(5)
+    for n_iter in (1, 7):
+        B = 1000
+        blocks = u32.from_numpy(rng.integers(0, 2**32, (B, n_iter, 5), dtype=np.uint32), dev)
+        iters = rng.integers(0, n_iter + 1, B).astype(np.int32)
+        iters[::3] = 0
+        carries = [u32.from_numpy(rng.integers(0, 2**32, B, dtype=np.uint32), dev)
+                   for _ in range(3)]
+        args = (*carries, blocks, torch.as_tensor(iters, device=dev))
+        err = max(err, _same(bl.block_loop(*args), bl.block_loop_plain(*args),
+                             "block_loop B=1000 I=%d" % n_iter))
+    mat, lens = _checksum_rows(N_HEAD, N_HEAD, 17, dev)
+    got = fh.hash32_rows(mat, lens, impl="kernel")
+    err = max(err, _same(got, fh.hash32_rows(mat, lens, impl="plain"), "hash32_rows n=1024"))
+    print("block_loop bitwise equal to its plain version at B=1024 and 256 (I=%d, real "
+          "checksum rows, strided view) and B=1000 I in (1, 7); hash32_rows kernel == plain "
+          "on %d real rows of %d bytes" % (cases[N_HEAD][3].shape[1], N_HEAD,
+                                           int(lens.max())), flush=True)
+    out = {}
+    for rows, args in cases.items():
+        iters = args[4].clamp(0, args[3].shape[1])
+        rounds = int(iters.sum())
+        # each round's 20 bytes read once, the carries and counts read and
+        # the carries written once; ~31 integer ops a round
+        r = dict(
+            ms=_time_ms(lambda: bl.block_loop(*args), 20),
+            bound=_bound(20 * rounds + 7 * 4 * rows, 31.0 * rounds),
+            chain_bound_ms=_chain_ms(int(iters.max())),
+            rounds_max=int(iters.max()),
+        )
+        r["plain_ms"] = _time_ms(lambda: bl.block_loop_plain(*args), 1, warm=0)
+        print("block_loop B=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), chain bound "
+              "%.4f ms (%d rounds x %d cycles)" % (rows, r["ms"], r["plain_ms"], r["bound"][0],
+                                                  r["bound"][1], r["chain_bound_ms"],
+                                                  r["rounds_max"], ROUND_CYCLES), flush=True)
+        out[rows] = r
+    report = out[N_HEAD]
+    report["max_abs_err"] = err
+    report["b256"] = out[256]
+    return report
 
 
 def check_kernels(dev):
@@ -259,6 +393,8 @@ def check_kernels(dev):
             ms=_time_ms(lambda: sh.fused_stream(*sargs), 10),
             plain_ms=stream_plain_s * 1e3,
             bound=_bound(s_bytes, s_ops),
+            # one sequential chain per row: its block rounds
+            chain_bound_ms=_chain_ms(int(sargs[5].max())),
         )
     for name, r in report.items():
         print("%s: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
@@ -292,10 +428,17 @@ def check_e2e(n=64, ticks=32):
     from ringpop_tpu_torch.models.sim import engine
     from ringpop_tpu_torch.models.sim.cluster import SimCluster, _tick_at
 
-    for mode in ("fast", "farmhash"):
-        p = engine.SimParams(n=n, checksum_mode=mode, suspicion_ticks=6)
+    for mode in ("fast", "farmhash", "classic"):
+        p = engine.SimParams(n=n, checksum_mode="fast" if mode == "fast" else "farmhash",
+                             suspicion_ticks=6)
+        if mode == "classic":
+            p = p._replace(fused_tick="off", fused_checksum="off")
         sims = [SimCluster(n=n, params=p, seed=1, device=d) for d in ("cuda", "cpu")]
-        assert sims[0].params.fused_tick == "kernel" and sims[1].params.fused_tick == "plain"
+        assert sims[0].params.hash_impl == "kernel" and sims[1].params.hash_impl == "plain"
+        if mode == "classic":
+            assert sims[0].params.parity_recompute == "gated"
+        else:
+            assert sims[0].params.fused_tick == "kernel" and sims[1].params.fused_tick == "plain"
         sched = _churn_schedule(n, ticks)
         ins = [sched.as_inputs(s.device) for s in sims]
         ms = [s.bootstrap() for s in sims]
@@ -585,6 +728,75 @@ def storm_headline() -> list:
     return runs
 
 
+def classic_headline() -> dict:
+    """The classic tick and the unfused farmhash checksum path at n=1024:
+    bootstrap, converge, a timed churn window, a warm and a timed quiet
+    window; node 0's checksum against the host FarmHash32."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
+    from ringpop_tpu_torch.ops import block_loop, farmhash32
+
+    n = N_HEAD
+    params = engine.SimParams(n=n, checksum_mode="farmhash", fused_tick="off",
+                              fused_checksum="off")
+    sim = SimCluster(n=n, params=params, device="cuda")
+    p = sim.params
+    assert (p.fused_tick, p.fused_checksum, p.parity_recompute, p.hash_impl) == (
+        "off", "off", "gated", "kernel"), p
+    t0 = time.perf_counter()
+    sim.bootstrap()
+    converged_in = sim.run_until_converged(max_ticks=96, quiet_after=1)
+    if converged_in < 0:
+        raise AssertionError("classic: n=%d did not converge within 96 ticks" % n)
+    torch.cuda.synchronize()
+    converge_s = time.perf_counter() - t0
+    churn = EventSchedule.churn_window(CHURN_TICKS, n)
+    t0 = time.perf_counter()
+    cm = sim.run(churn)
+    torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t0
+    quiet = EventSchedule(ticks=TICKS, n=n)
+    sim.run(quiet)  # warm
+    torch.cuda.synchronize()
+    replays = sim.parity_replays
+    launches = block_loop.block_loop.launches
+    t0 = time.perf_counter()
+    metrics = sim.run(quiet)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    groups = sim.checksum_groups()
+    if len(groups) != 1 or not bool(np.asarray(metrics.converged)[-1]):
+        raise AssertionError("classic: %d checksum groups after the window" % len(groups))
+    want = farmhash32.hash32(sim.checksum_string_of(0))
+    got = int(sim.checksums()[0])
+    if got != want:
+        raise AssertionError("classic: node 0 checksum %#x != host farmhash32 %#x" % (got, want))
+    out = dict(
+        mode="classic",
+        n=n,
+        ticks=TICKS,
+        converged_in=converged_in,
+        converge_s=converge_s,
+        churn_ticks=CHURN_TICKS,
+        churn_s=churn_s,
+        churn_node_ticks_per_s=n * CHURN_TICKS / churn_s,
+        churn_dirty_rows=int(np.asarray(cm.dirty_rows).sum()),
+        churn_suspects=int(np.asarray(cm.suspects_marked).sum()),
+        churn_faulties=int(np.asarray(cm.faulties_marked).sum()),
+        window_s=elapsed,
+        node_ticks_per_s=n * TICKS / elapsed,
+        window_block_loop_launches=block_loop.block_loop.launches - launches,
+        replays=sim.parity_replays - replays,
+        checksum_groups=len(groups),
+        node0_checksum="%#010x" % got,
+        checksum_string_bytes=len(sim.checksum_string_of(0)),
+    )
+    print("headline %s" % json.dumps(out), flush=True)
+    return out
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -594,7 +806,9 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         from ringpop_tpu_torch.ops import _build, toolkit
-        from ringpop_tpu_torch.ops import exchange, fused_apply, fused_piggyback, stream_hash
+        from ringpop_tpu_torch.ops import (
+            block_loop, exchange, fused_apply, fused_piggyback, stream_hash,
+        )
     except ImportError as e:
         print("chip_smoke: run from a checkout of the repo (%s)" % e, file=sys.stderr)
         return 2
@@ -609,6 +823,7 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     report = check_kernels(dev)
     report["exchange"] = check_exchange(dev)
+    report["block_loop"] = check_block_loop(dev)
     check_e2e()
     check_storm_e2e()
 
@@ -617,12 +832,14 @@ def main(argv) -> int:
         "pb_budget": fused_piggyback.pb_budget,
         "fused_stream": stream_hash.fused_stream,
         "exchange": exchange.exchange,
+        "block_loop": block_loop.block_loop,
     }
     # each main path and the kernels it must launch
     paths = (
         ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
          ("apply_updates", "pb_budget", "fused_stream")),
         ("1M storm", storm_headline, ("exchange",)),
+        ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
     )
     launches = {k: 0 for k in wrappers}
     if not quick:
@@ -630,6 +847,8 @@ def main(argv) -> int:
             for w in wrappers.values():
                 w.launches = 0
             drive()
+            print("launches on the %s path: %s" % (
+                name, json.dumps({k: w.launches for k, w in wrappers.items()})), flush=True)
             for k, w in wrappers.items():
                 launches[k] += w.launches
             for k in needed:
@@ -638,6 +857,9 @@ def main(argv) -> int:
     kernels = []
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]
+        extra = {k: r[k] for k in ("chain_bound_ms",) if k in r}
+        if twin.also_replaces:
+            extra["also_replaces"] = list(twin.also_replaces)
         kernels.append(dict(
             name=twin.kernel_entry,
             route="cuda",
@@ -651,6 +873,7 @@ def main(argv) -> int:
             bound_by=r["bound"][1],
             library_ms=None,
             checked=True,
+            **extra,
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

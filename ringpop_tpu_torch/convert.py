@@ -4,9 +4,10 @@
 (``{name: np.asarray(getattr(state, name))}``) and returns the port's
 ``SimState``; ``state_to_numpy`` goes the other way.  uint32 fields (the
 per-node ``rng`` keys and ``checksum``) become int32 views of the same
-bits.  ``params_from_jax_fields`` maps the protocol constants of a JAX
-``SimParams._asdict()`` onto the port's ``SimParams`` and leaves the
-port's own kernel knobs at their defaults.  ``scalable_state_from_numpy``,
+bits; an unfused farmhash state carries no record cache (``rec_bytes`` and
+``rec_len`` None).  ``params_from_jax_fields`` maps the protocol constants
+and the kernel knobs of a JAX ``SimParams._asdict()`` onto the port's
+``SimParams``.  ``scalable_state_from_numpy``,
 ``scalable_state_to_numpy`` and ``scalable_params_from_jax_fields`` do the
 same for the scalable engine (uint32 fields: ``r_delta``, ``rng``,
 ``checksum``, ``heard`` and the 0-d ``base_sum``).
@@ -65,8 +66,10 @@ def state_from_numpy(
         else:
             # np.array copies (keeping 0-d fields 0-d) into a writable buffer
             out[f] = torch.as_tensor(np.array(a), dtype=_dtype_of(f, a), device=device)
-    if params.checksum_mode == "farmhash" and out["rec_bytes"] is None:
-        raise ValueError("farmhash mode needs the record cache (rec_bytes, rec_len)")
+    if engine.resolve_fused_checksum(params) == "on" and out["rec_bytes"] is None:
+        raise ValueError(
+            "fused_checksum='on' needs the record cache (rec_bytes, rec_len)"
+        )
     return engine.SimState(**out)
 
 
@@ -84,20 +87,29 @@ def state_to_numpy(state: engine.SimState) -> Dict[str, Optional[np.ndarray]]:
     return out
 
 
+# JAX knob value -> the port's (the same program either way)
+FUSED_TICK_MAP = {"off": "off", "xla": "plain", "pallas": "kernel", "auto": "auto"}
+HASH_IMPL_MAP = {"scan": "plain", "pallas": "kernel", "pallas_nogrid": "kernel", "env": "auto"}
+
+
 def params_from_jax_fields(fields: dict) -> engine.SimParams:
     """The port's SimParams for a JAX ``SimParams._asdict()``: the protocol
-    constants carried over, ``parity_recompute`` mapped onto the port's
-    exact or bounded shapes (every exact shape gives the same trajectory),
-    the kernel knobs left at "auto"."""
+    constants, ``parity_recompute`` and ``fused_checksum`` carried over as
+    they are; ``fused_tick`` ("xla" -> "plain", "pallas" -> "kernel") and
+    ``hash_impl`` ("scan" -> "plain", either Pallas loop -> "kernel", "env"
+    -> "auto") mapped onto the port's values."""
     if fields.get("flight_recorder") or fields.get("histograms"):
         raise NotImplementedError(
             "flight_recorder / histograms are not ported yet (ROADMAP.md)"
         )
     kw = {k: fields[k] for k in PROTOCOL_FIELDS if k in fields}
-    shape = fields.get("parity_recompute", "auto")
-    kw["parity_recompute"] = "bounded" if shape == "bounded" else (
-        "auto" if shape == "auto" else "full"
-    )
+    for knob in ("parity_recompute", "fused_checksum"):
+        if knob in fields:
+            kw[knob] = fields[knob]
+    if "fused_tick" in fields:
+        kw["fused_tick"] = FUSED_TICK_MAP[fields["fused_tick"]]
+    if "hash_impl" in fields:
+        kw["hash_impl"] = HASH_IMPL_MAP[fields["hash_impl"]]
     return engine.SimParams(**kw)
 
 

@@ -12,7 +12,8 @@ their membership checksums.
 Under ``parity_recompute="bounded"`` a tick whose dirty rows or changed
 cells overflow the bounded chunk left stale checksums behind; the cluster
 then discards the whole step or window and replays it from the pre-run
-state under the exact "full" shape (``parity_replays`` counts these).
+state under an exact shape — "full" on the fused checksum pipeline,
+"gated" on the classic one (``parity_replays`` counts these).
 
 The cluster runs on the card unless ``device="cpu"`` is passed.
 """
@@ -121,6 +122,9 @@ class SimCluster:
         params = params or engine.SimParams(n=n)
         if params.n != n:
             params = params._replace(n=n)
+        # pin the hash kernels' knob at construction, as the JAX cluster
+        # pins hash_impl, then the tick and checksum knobs
+        params = params._replace(hash_impl=engine.resolve_hash_impl(params, self.device.type))
         self.params = engine.resolve_auto_parity(params, self.device.type)
         self.state = engine.init_state(
             self.params, seed=seed, universe=self.universe, device=self.device
@@ -139,8 +143,11 @@ class SimCluster:
         )
 
     def _exact_params(self) -> engine.SimParams:
-        """The exact-recompute twin config for overflow replays."""
-        return self.params._replace(parity_recompute="full")
+        """The exact-recompute twin config for overflow replays: "full" for
+        fused runs, "gated" for unfused ones (bit-identical trajectories)."""
+        return self.params._replace(
+            parity_recompute=engine.resolve_exact_recompute(self.params)
+        )
 
     def _tick(self, state, inputs, params=None):
         return engine.tick(state, inputs, params or self.params, self.universe)

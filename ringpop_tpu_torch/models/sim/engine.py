@@ -10,21 +10,28 @@ behaviour; this port reproduces that program bit for bit
 (tests/test_torch_engine.py compares every state and metric field per
 tick).
 
-What the port runs:
+What the port runs, by knob (``SimParams``):
 
-- the fused tick: the six membership-update sites go through
-  :func:`ringpop_tpu_torch.ops.fused_apply.apply_updates` and the four
-  piggyback-budget sites through
-  :func:`ringpop_tpu_torch.ops.fused_piggyback.pb_budget` — CUDA kernels
-  on the card (``fused_tick="kernel"``), their plain versions on the CPU;
-- in farmhash mode, the fused record-cache checksum pipeline
-  (``_fused_checksums_where``), hashing rows with the
-  :func:`ringpop_tpu_torch.ops.stream_hash.fused_stream` kernel.
+- ``fused_tick``: "kernel"/"plain" route the six membership-update sites
+  through :func:`ringpop_tpu_torch.ops.fused_apply.apply_updates` and the
+  four piggyback-budget sites through
+  :func:`ringpop_tpu_torch.ops.fused_piggyback.pb_budget` (CUDA kernels,
+  or their plain versions); "off" is the classic phase-by-phase tick
+  (``_apply_updates`` plus the caller-side deadline stamp, the budgets
+  inline), the JAX engine's "off" program;
+- ``fused_checksum`` (farmhash mode): "on" is the fused record-cache
+  pipeline (``_fused_checksums_where``, hashing rows with the
+  :func:`ringpop_tpu_torch.ops.stream_hash.fused_stream` kernel); "off" is
+  the classic ``membership_rows`` + ``hash32_rows`` recompute, whose
+  long-string block loop is the
+  :func:`ringpop_tpu_torch.ops.block_loop.block_loop` kernel, in the
+  "full", "bounded" and "gated" shapes of ``parity_recompute``;
+- ``hash_impl``: "kernel" or "plain" for both hash kernels
+  (``fused_stream`` and ``block_loop``).
 
+"auto" means the kernels on the card and the plain versions on the CPU.
 Not ported yet (asking for them raises NotImplementedError, see
-ROADMAP.md): the classic ``fused_tick="off"`` tick, the unfused gated
-checksum path (``fused_checksum="off"``, ``parity_recompute="gated"``),
-the flight recorder and the latency histograms.
+ROADMAP.md): the flight recorder and the latency histograms.
 
 uint32 values (``rng``, ``checksum``) are int32 bit patterns (ops/u32.py).
 Nothing here updates a state tensor in place: every phase builds new
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch.ops import checksum_encode as ce
+from ringpop_tpu_torch.ops import farmhash as fh
 from ringpop_tpu_torch.ops import fused_apply as fap
 from ringpop_tpu_torch.ops import fused_checksum as fc
 from ringpop_tpu_torch.ops import fused_piggyback as fpb
@@ -63,12 +71,15 @@ class SimParams(NamedTuple):
     """Static protocol constants and knobs (field names as in the JAX
     engine; see its SimParams for each one's meaning).
 
-    Port knob values: ``fused_tick`` takes "auto" | "kernel" | "plain"
-    and picks, for every kernel of the tick (the apply and budget sites and
-    the stream hash), the CUDA kernel or its plain PyTorch version ("auto"
-    = kernels on the card, plain versions on the CPU); ``fused_checksum`` is "auto" or
-    "on" in farmhash mode (the port's one checksum path) and "auto"/"off"
-    in fast mode; ``parity_recompute`` takes "auto", "bounded" or "full"."""
+    Port knob values: ``fused_tick`` takes "auto" | "kernel" | "plain" |
+    "off" and picks the CUDA kernels of the apply and budget sites, their
+    plain PyTorch versions, or the classic tick; ``hash_impl`` takes "auto"
+    | "kernel" | "plain" for the two hash kernels (``fused_stream`` and
+    ``block_loop``) — "auto" = the kernels on the card, the plain versions
+    on the CPU; ``fused_checksum`` takes "auto" | "on" | "off" ("on"
+    needs farmhash mode; "auto" = "on" in farmhash mode, "off" in fast
+    mode); ``parity_recompute`` takes "auto", "gated", "bounded" or
+    "full"."""
 
     n: int
     period_ms: int = 200  # gossip/index.js:194-196
@@ -86,6 +97,7 @@ class SimParams(NamedTuple):
     cell_batch: int = 16384
     gate_phases: bool = True
     fused_tick: str = "auto"
+    hash_impl: str = "auto"
     flight_recorder: bool = False
     histograms: bool = False
 
@@ -162,21 +174,13 @@ class TickMetrics(NamedTuple):
 
 def check_ported(params: SimParams) -> None:
     """Refuse, by name, every option this slice of the port lacks."""
-    if params.fused_tick == "off":
-        raise NotImplementedError("the classic fused_tick='off' tick is " + _NOT_PORTED)
-    if params.parity_recompute == "gated":
-        raise NotImplementedError("parity_recompute='gated' is " + _NOT_PORTED)
-    if params.checksum_mode == "farmhash" and params.fused_checksum == "off":
-        raise NotImplementedError(
-            "the unfused farmhash checksum path (fused_checksum='off') is " + _NOT_PORTED
-        )
-    if params.checksum_mode == "fast" and params.fused_checksum == "on":
-        raise ValueError(
-            "fused_checksum='on' requires checksum_mode='farmhash' "
-            "(fast mode has no checksum strings to fuse)"
-        )
     if params.checksum_mode not in ("fast", "farmhash"):
         raise ValueError("checksum_mode must be fast|farmhash, got %r" % (params.checksum_mode,))
+    resolve_fused_checksum(params)
+    if params.parity_recompute not in ("auto", "gated", "bounded", "full"):
+        raise ValueError(
+            "parity_recompute must be auto|gated|bounded|full, got %r" % (params.parity_recompute,)
+        )
     if params.flight_recorder:
         raise NotImplementedError("the flight recorder is " + _NOT_PORTED)
     if params.histograms:
@@ -184,32 +188,83 @@ def check_ported(params: SimParams) -> None:
 
 
 def resolve_fused_tick(params: SimParams, device_type: str) -> str:
-    """"kernel" (the CUDA kernels) or "plain" (their PyTorch versions)."""
-    if params.fused_tick == "off":
-        check_ported(params)
+    """"kernel" (the CUDA kernels), "plain" (their PyTorch versions) or
+    "off" (the classic tick)."""
     impl = toolkit.resolve_impl(
         "fused_tick", params.fused_tick, device_type,
         auto={"cuda": "kernel", "*": "plain"},
-        allowed=("kernel", "plain"),
+        allowed=("kernel", "plain", "off"),
     )
     if impl == "kernel" and device_type != "cuda":
         raise ValueError("fused_tick='kernel' needs a CUDA device (the kernels run on the card)")
     return impl
 
 
+def resolve_hash_impl(params: SimParams, device_type: str) -> str:
+    """The two hash kernels (``fused_stream``, ``block_loop``): "kernel" or
+    "plain" — the counterpart of the JAX engine's ``hash_impl`` knob."""
+    impl = toolkit.resolve_impl(
+        "hash_impl", params.hash_impl, device_type,
+        auto={"cuda": "kernel", "*": "plain"},
+        allowed=("kernel", "plain"),
+    )
+    if impl == "kernel" and device_type != "cuda":
+        raise ValueError("hash_impl='kernel' needs a CUDA device (the kernels run on the card)")
+    return impl
+
+
+def resolve_fused_checksum(params: SimParams) -> str:
+    """"on" (the fused record-cache pipeline) or "off" (the classic
+    ``membership_rows`` + ``hash32_rows`` recompute).  "auto" is "on" in
+    farmhash mode on every device — the fused pipeline is the port's
+    production shape, as it is the JAX engine's on the TPU — and "off" in
+    fast mode; "on" needs farmhash mode."""
+    if params.fused_checksum == "on" and params.checksum_mode != "farmhash":
+        raise ValueError(
+            "fused_checksum='on' requires checksum_mode='farmhash' "
+            "(fast mode has no checksum strings to fuse)"
+        )
+    return toolkit.resolve_impl(
+        "fused_checksum", params.fused_checksum, "*",
+        auto={"*": "on" if params.checksum_mode == "farmhash" else "off"},
+        allowed=("on", "off"),
+    )
+
+
+def resolve_parity_recompute() -> str:
+    """The exact unfused recompute shape — every dirty row covered, no
+    overflow possible: "gated", the JAX engine's non-TPU row (a Python loop
+    over K-row chunks here, one host read of the dirty count per call).
+    The overflow replays' shape and ``_checksums_where``'s "auto"."""
+    return "gated"
+
+
+def resolve_exact_recompute(params: SimParams) -> str:
+    """The exact recompute shape for overflow replays: "full" for fused
+    runs (the fused pipeline's only exact shape), else
+    :func:`resolve_parity_recompute`."""
+    if resolve_fused_checksum(params) == "on":
+        return "full"
+    return resolve_parity_recompute()
+
+
 def resolve_auto_parity(params: SimParams, device_type: str) -> SimParams:
     """Cluster-level resolution (SimCluster construction), as the JAX
-    engine's ``resolve_auto_parity`` resolves the fused pipeline: concrete
-    kernel knobs, and in farmhash mode ``parity_recompute="auto"`` ->
-    "bounded" with ``dirty_batch = min(n, 1024)`` (at n <= 1024 the row
-    chunk covers every row, so only cell overflow can replay)."""
+    engine's ``resolve_auto_parity``: concrete ``fused_tick`` and
+    ``fused_checksum``; ``parity_recompute="auto"`` becomes "bounded" with
+    ``dirty_batch = min(n, 1024)`` on the fused pipeline (at n <= 1024 the
+    row chunk covers every row, so only cell overflow can replay) and
+    "gated" otherwise (JAX's non-TPU row)."""
     check_ported(params)
     params = params._replace(
         fused_tick=resolve_fused_tick(params, device_type),
-        fused_checksum="on" if params.checksum_mode == "farmhash" else "off",
+        fused_checksum=resolve_fused_checksum(params),
     )
-    if params.parity_recompute == "auto" and params.checksum_mode == "farmhash":
-        params = params._replace(parity_recompute="bounded", dirty_batch=min(params.n, 1024))
+    if params.parity_recompute == "auto":
+        if params.fused_checksum == "on":
+            params = params._replace(parity_recompute="bounded", dirty_batch=min(params.n, 1024))
+        else:
+            params = params._replace(parity_recompute="gated")
     return params
 
 
@@ -377,7 +432,9 @@ def init_state(
         rng=u32.from_numpy(keys, dev),
         checksum=_zeros(n, torch.int32, dev),
     )
-    if params.checksum_mode == "farmhash":
+    # the fused pipeline's record cache: a pure function of (known,
+    # status, inc), seeded with every row's self-view records
+    if resolve_fused_checksum(params) == "on":
         rec_b, rec_l = fc.member_records(
             universe, state.known, state.status, stamp_to_ms(state.inc, params),
             params.max_digits,
@@ -387,27 +444,43 @@ def init_state(
 
 
 def compute_checksums(state: SimState, universe: ce.Universe, params: SimParams):
-    """Every row's checksum from scratch ([N] int32 uint32 patterns)."""
+    """Every row's checksum from scratch ([N] int32 uint32 patterns); in
+    farmhash mode the classic composition ``hash32_rows(*membership_rows(...))``,
+    the reference's own definition of a membership checksum."""
     if params.checksum_mode == "fast":
         n = state.known.shape[0]
         subject = torch.arange(n, dtype=torch.int32, device=state.known.device)[None, :]
         rec = record_mix(subject, state.status, state.inc)
         return u32.row_sum(torch.where(state.known, rec, 0), dim=1)
-    rec_b, rec_l = fc.member_records(
-        universe, state.known, state.status, stamp_to_ms(state.inc, params),
-        params.max_digits,
+    return _hash_rows(state.known, state.status, state.inc, universe, params)
+
+
+def _hash_rows(known, status, inc, universe, params):
+    """FarmHash32 of the checksum strings of the given view rows."""
+    bufs, lens = ce.membership_rows(
+        universe, known, status, stamp_to_ms(inc, params), max_digits=params.max_digits
     )
-    return fc.fused_hash_rows(
-        fc.pack_record_words(rec_b), rec_l,
-        impl=resolve_fused_tick(params, state.known.device.type),
-    )
+    return fh.hash32_rows(bufs, lens, impl=resolve_hash_impl(params, known.device.type))
 
 
 def _checksums_where(state, universe, params, dirty, cached, changed):
     """Per-row checksum with dirty-row caching: returns ``(checksum [N],
-    overflow [] int32, state)``.  Fast mode rehashes only when a row is
-    dirty (a clean row's recompute reproduces its cached sum); farmhash
-    mode runs the fused record-cache pipeline."""
+    overflow [] int32, state)``.  A row's checksum changes only when its
+    view changed, so clean rows keep ``cached``.  Fast mode rehashes only
+    when a row is dirty (a clean row's recompute reproduces its cached
+    sum); farmhash mode runs the fused record-cache pipeline when
+    ``fused_checksum`` is "on" (and the tick tracked the changed cells),
+    else the classic recompute in the ``parity_recompute`` shape:
+
+    - "full": every row, straight-line (a clean row reproduces its value);
+    - "bounded": ONE K-row chunk (``dirty_batch``) of the first K dirty
+      rows; more dirty rows overflow (the count is returned) and
+      SimCluster replays under an exact shape;
+    - "gated" (and "auto"): K-row chunks over every dirty row, a Python
+      loop that costs one host read of the dirty count."""
+    if resolve_fused_checksum(params) == "on" and changed is not None:
+        return _fused_checksums_where(state, universe, params, dirty, cached, changed)
+    no_overflow = torch.zeros((), dtype=torch.int32, device=cached.device)
     if params.checksum_mode == "fast":
         n_dirty = dirty.sum(dtype=torch.int32)
 
@@ -415,8 +488,43 @@ def _checksums_where(state, universe, params, dirty, cached, changed):
             return torch.where(dirty, compute_checksums(state, universe, params), cached)
 
         out = _phase(params.gate_phases, n_dirty > 0, recompute_all, lambda _: cached, None)
-        return out, torch.zeros((), dtype=torch.int32, device=cached.device), state
-    return _fused_checksums_where(state, universe, params, dirty, cached, changed)
+        return out, no_overflow, state
+
+    n = params.n
+    shape = params.parity_recompute
+    if shape == "auto":
+        shape = resolve_parity_recompute()
+    if shape == "full":
+        return compute_checksums(state, universe, params), no_overflow, state
+    n_dirty = dirty.sum(dtype=torch.int32)
+    k = min(params.dirty_batch, n)
+    lanes = torch.arange(k, dtype=torch.int32, device=cached.device)
+    if shape == "bounded":
+
+        def recompute_bounded(_):
+            idx = _nonzero_static(dirty, k, 0)
+            fresh = _hash_rows(state.known[idx], state.status[idx], state.inc[idx],
+                               universe, params)
+            tgt = torch.where(lanes < n_dirty, idx, n)
+            return _scatter_rows_drop(cached, tgt, fresh)
+
+        out = _phase(params.gate_phases, n_dirty > 0, recompute_bounded, lambda _: cached, None)
+        return out, (n_dirty - k).clamp(min=0), state
+    if shape != "gated":
+        raise ValueError("parity_recompute must be auto|gated|bounded|full, got %r" % (shape,))
+
+    # chunk c covers the dirty rows of rank [cK, cK + K); a chunk's padded
+    # lanes target the dropped slot n
+    nd = int(n_dirty)
+    rank = torch.cumsum(dirty.to(torch.int32), 0) - 1
+    out = cached
+    for lo in range(0, nd, k):
+        sel = dirty & (rank >= lo) & (rank < lo + k)
+        idx = _nonzero_static(sel, k, 0)
+        fresh = _hash_rows(state.known[idx], state.status[idx], state.inc[idx], universe, params)
+        tgt = torch.where(lanes < min(nd - lo, k), idx, n)
+        out = _scatter_rows_drop(out, tgt, fresh)
+    return out, no_overflow, state
 
 
 def _fused_checksums_where(state, universe, params, dirty, cached, changed):
@@ -425,11 +533,12 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
     Shapes: "bounded" (one cell chunk + one row chunk; more than
     ``cell_batch`` changed cells or ``dirty_batch`` dirty rows overflow and
     SimCluster replays) or "full" (dense re-encode of every cell, the exact
-    replay shape; "auto" means "full" here, as in the JAX engine)."""
+    replay shape; "auto" and "gated" mean "full" here, as in the JAX
+    engine)."""
     n = params.n
     dev = cached.device
     r = fc.record_width(universe, params.max_digits)
-    impl = resolve_fused_tick(params, dev.type)
+    impl = resolve_hash_impl(params, dev.type)
     no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if state.rec_bytes is None:
         raise ValueError(
@@ -437,8 +546,8 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
             "init_state(params, universe=...)"
         )
     shape = params.parity_recompute
-    if shape == "auto":
-        shape = "full"
+    if shape in ("auto", "gated"):
+        shape = "full"  # the fused pipeline's only exact shape
     if shape == "full":
         rec_b, rec_l = fc.member_records(
             universe, state.known, state.status, stamp_to_ms(state.inc, params),
@@ -502,9 +611,10 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
 
 
 def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_inc):
-    """Member.evaluateUpdate over (observer, subject) pairs without the
-    suspicion-deadline stamp — the join site's shape (its updates are all
-    ALIVE, so it never starts a timer).  Returns (state', applied)."""
+    """Vectorized Member.evaluateUpdate over (observer, subject) pairs.
+    Returns ``(state', applied, started, stopped, refuted)``, all [N, N]
+    bool: suspicion stops are applied here, starts are returned for the
+    caller to stamp with the deadline; refuted are the self-refute cells."""
     n = state.known.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=state.known.device)
     is_self = ids[:, None] == ids[None, :]
@@ -517,6 +627,7 @@ def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_in
     )
     status = torch.where(gate, eff_status, state.status)
     inc = torch.where(gate, eff_inc, state.inc)
+    start_t = gate & (status == SUSPECT) & ~is_self
     stop_t = gate & (status != SUSPECT)
     return (
         state._replace(
@@ -532,14 +643,36 @@ def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_in
             susp_deadline=torch.where(stop_t, -1, state.susp_deadline),
         ),
         gate,
+        start_t,
+        stop_t,
+        refute,
     )
 
 
 def _apply_site(ft, state, union, recv_mask, u_status, u_inc, u_source, u_source_inc,
                 now, deadline, *, want_masks, want_count=False, want_refute=True):
-    """One fused membership-update application site.  Returns
-    ``(state, union, applied_mask_or_None, applied_rows, refute_diag,
-    applied_count)``."""
+    """One membership-update application site.  Returns ``(state, union,
+    applied_mask_or_None, applied_rows, refute_diag, applied_count)``.
+
+    ``ft == "off"`` is the classic shape: ``_apply_updates`` plus the
+    caller-side deadline stamp of new suspicion timers (a no-op at the
+    expiry site, whose FAULTY updates never start one); it always returns
+    the dense applied mask, leaves ``union`` as it is, and derives the row
+    OR and the count from the mask.  Otherwise the fused op runs (its
+    kernel or plain version), which folds the stamp in."""
+    if ft == "off":
+        st2, applied, started, _, refuted = _apply_updates(
+            state, now, recv_mask, u_status, u_inc, u_source, u_source_inc
+        )
+        st2 = st2._replace(susp_deadline=torch.where(started, deadline, st2.susp_deadline))
+        return (
+            st2,
+            union,
+            applied,
+            applied.any(dim=1),
+            refuted.diagonal(),
+            applied.sum(dtype=torch.int32) if want_count else None,
+        )
     ast = fap.ApplyState(*(getattr(state, f) for f in fap.ApplyState._fields))
     fn = fap.apply_updates if ft == "kernel" else fap.apply_updates_plain
     out = fn(
@@ -591,10 +724,13 @@ def tick(
     dev = state.known.device
     gate = params.gate_phases
     ft = resolve_fused_tick(params, dev.type)
-    fused = params.checksum_mode == "farmhash"
+    ft_on = ft != "off"
+    fused = params.checksum_mode == "farmhash" and resolve_fused_checksum(params) == "on"
     # the fused-checksum cell tracker consumes dense per-site applied
-    # masks; fast mode emits only reductions
+    # masks; otherwise the fused sites emit only reductions.  The classic
+    # sites always produce the dense masks (its metrics sum them).
     want_masks = fused
+    dense = want_masks or not ft_on
     i32, b8 = torch.int32, torch.bool
     zero_i = torch.zeros((), dtype=i32, device=dev)
     zeros_n = _zeros(n, b8, dev)
@@ -673,7 +809,7 @@ def tick(
     # ---- phase 1: join/bootstrap --------------------------------------
     joiner = (inputs.join | rv) & state.proc_alive & ~state.ready
     # packed [N, ceil(N/32)] applied-cells accumulator (toolkit layout)
-    union0 = _zeros((n, toolkit.packed_width(n)), i32, dev)
+    union0 = _zeros((n, toolkit.packed_width(n)), i32, dev) if ft_on else None
 
     def _join_phase(state):
         can_join = (
@@ -730,7 +866,7 @@ def tick(
             )
             ja_mask = ja_mask | upd
         self_inc = state.inc.diagonal()[None, :].expand(n, n)
-        state, ja_applied = _apply_updates(
+        state, ja_applied, _, _, _ = _apply_updates(
             state,
             now,
             ja_mask,
@@ -742,9 +878,11 @@ def tick(
         return (
             state,
             joined,
-            ja_applied if want_masks else None,
+            ja_applied if dense else None,
             ja_applied.any(dim=1),
-            union0 | toolkit.pack_bool_rows(ja_applied),
+            # the fused tick's applied-cells union is seeded here; the
+            # classic tick sums its dense masks instead
+            union0 | toolkit.pack_bool_rows(ja_applied) if ft_on else union0,
         )
 
     state, joined, ja_applied, ja_rows, union = _phase(
@@ -754,7 +892,7 @@ def tick(
         lambda s: (
             s,
             zeros_n,
-            _zeros((n, n), b8, dev) if want_masks else None,
+            _zeros((n, n), b8, dev) if dense else None,
             zeros_n,
             union0,
         ),
@@ -835,8 +973,14 @@ def tick(
     max_pb = _max_piggyback(server_count, params.piggyback_factor)
 
     def _sender_piggyback(state):
-        out = _budget(ft, state.ch_active, state.ch_pb, valid_send.to(i32), max_pb)
-        return state._replace(ch_pb=out.ch_pb, ch_active=out.ch_active), out.content, out.drops
+        if ft_on:
+            out = _budget(ft, state.ch_active, state.ch_pb, valid_send.to(i32), max_pb)
+            return state._replace(ch_pb=out.ch_pb, ch_active=out.ch_active), out.content, out.drops
+        bump = valid_send[:, None] & state.ch_active
+        ch_pb = state.ch_pb + bump.to(i32)
+        over = state.ch_active & (ch_pb > max_pb[:, None])
+        state = state._replace(ch_pb=ch_pb, ch_active=state.ch_active & ~over)
+        return state, bump & ~over, over.sum(dtype=i32)
 
     state, sendable, pb_drops_send = _phase(
         gate,
@@ -885,7 +1029,7 @@ def tick(
         gate,
         msg_content.any(),
         _receive_phase,
-        lambda s, u: (s, u, _zeros((n, n), b8, dev) if want_masks else None, zeros_n, zeros_n),
+        lambda s, u: (s, u, _zeros((n, n), b8, dev) if dense else None, zeros_n, zeros_n),
         state,
         union,
     )
@@ -906,8 +1050,15 @@ def tick(
             & (target[src_c] == node)
             & (state.ch_source_inc == sent_self_inc[src_c])
         )
-        out = _budget(ft, state.ch_active, state.ch_pb, nrecv, max_pb, origin_hit.to(i32))
-        return state._replace(ch_pb=out.ch_pb, ch_active=out.ch_active), out.content, out.drops
+        if ft_on:
+            out = _budget(ft, state.ch_active, state.ch_pb, nrecv, max_pb, origin_hit.to(i32))
+            return state._replace(ch_pb=out.ch_pb, ch_active=out.ch_active), out.content, out.drops
+        bump_r = (nrecv[:, None] > 0) & state.ch_active
+        nbump = torch.where(bump_r, nrecv[:, None] - origin_hit.to(i32), 0)
+        ch_pb = state.ch_pb + nbump
+        over_r = state.ch_active & (ch_pb > max_pb[:, None])
+        state = state._replace(ch_pb=ch_pb, ch_active=state.ch_active & ~over_r)
+        return state, bump_r & ~over_r, over_r.sum(dtype=i32)
 
     state, respondable, pb_drops_recv = _phase(
         gate,
@@ -954,7 +1105,7 @@ def tick(
         resp_possible.any(),
         _response_phase,
         lambda s, u: (
-            s, u, _zeros((n, n), b8, dev) if want_masks else None,
+            s, u, _zeros((n, n), b8, dev) if dense else None,
             zeros_n, zeros_n, zeros_n, _zeros(n, i32, dev),
         ),
         state,
@@ -992,9 +1143,16 @@ def tick(
         # -- leg 1: sender piggyback (issueAsSender per selected slot) --
         pb0, active0 = state.ch_pb, state.ch_active
         n_slots = pr_valid.sum(dim=1, dtype=i32)
-        out1 = _budget(ft, active0, pb0, n_slots, max_pb, want_content=False)
-        state = state._replace(ch_pb=out1.ch_pb, ch_active=out1.ch_active)
-        pb_drops_pr = out1.drops
+        if ft_on:
+            # content unused here: slot-k content comes from the pre-bump planes
+            out1 = _budget(ft, active0, pb0, n_slots, max_pb, want_content=False)
+            state = state._replace(ch_pb=out1.ch_pb, ch_active=out1.ch_active)
+            pb_drops_pr = out1.drops
+        else:
+            new_pb = pb0 + torch.where(active0, n_slots[:, None], 0)
+            over_pr = active0 & (new_pb > max_pb[:, None])
+            state = state._replace(ch_pb=new_pb, ch_active=active0 & ~over_pr)
+            pb_drops_pr = over_pr.sum(dtype=i32)
 
         karange = torch.arange(K, dtype=i32, device=dev)
         send_k = (
@@ -1048,10 +1206,19 @@ def tick(
             torch.gather(cnt_sm, 1, src_c),
             0,
         )
-        out3 = _budget(ft, state.ch_active, state.ch_pb, prrecv, max_pb, hits)
-        respondable_pr = out3.content
-        state = state._replace(ch_pb=out3.ch_pb, ch_active=out3.ch_active)
-        pb_drops_pr = pb_drops_pr + out3.drops
+        if ft_on:
+            out3 = _budget(ft, state.ch_active, state.ch_pb, prrecv, max_pb, hits)
+            respondable_pr = out3.content
+            state = state._replace(ch_pb=out3.ch_pb, ch_active=out3.ch_active)
+            pb_drops_pr = pb_drops_pr + out3.drops
+        else:
+            bump_pr = (prrecv[:, None] > 0) & state.ch_active
+            nb = torch.where(bump_pr, prrecv[:, None] - hits, 0)
+            ch_pb2 = state.ch_pb + nb
+            over2 = state.ch_active & (ch_pb2 > max_pb[:, None])
+            respondable_pr = bump_pr & ~over2
+            state = state._replace(ch_pb=ch_pb2, ch_active=state.ch_active & ~over2)
+            pb_drops_pr = pb_drops_pr + over2.sum(dtype=i32)
 
         # response content per slot, winner-combined at the sender (max
         # key; ties keep the lowest slot)
@@ -1106,7 +1273,7 @@ def tick(
             cur_self[:, None].expand(n, n),
             now, deadline, want_masks=want_masks, want_count=True, want_refute=False,
         )
-        applied_pr = (applied_prm | applied_prr | applied_sus) if want_masks else None
+        applied_pr = (applied_prm | applied_prr | applied_sus) if dense else None
         return (
             state, union, applied_pr, rows_prm | rows_prr | rows_sus, sus_cnt,
             ping_req_count, pr_inconclusive, pb_drops_pr, refute_m, refute_rr,
@@ -1121,7 +1288,7 @@ def tick(
         need_pr.any(),
         _ping_req_phase,
         lambda s, u: (
-            s, u, _zeros((n, n), b8, dev) if want_masks else None, zeros_n,
+            s, u, _zeros((n, n), b8, dev) if dense else None, zeros_n,
             zero_i, zero_i, zero_i, zero_i, zeros_n, zeros_n, zero_i, zero_i,
         ),
         state,
@@ -1154,7 +1321,7 @@ def tick(
         gate,
         _expired(state).any(),
         _expiry_phase,
-        lambda s: (s, _zeros((n, n), b8, dev) if want_masks else None, zeros_n, zero_i),
+        lambda s: (s, _zeros((n, n), b8, dev) if dense else None, zeros_n, zero_i),
         state,
     )
 
@@ -1175,12 +1342,18 @@ def tick(
         + (cs_sorted[0] != sentinel).to(i32)
     )
 
+    if ft_on:
+        # the fused sites fed the applied-cells union in-pass
+        changes_applied = toolkit.popcount(union).sum(dtype=i32)
+    else:
+        # faulty marks are excluded, exactly like the fused union
+        changes_applied = (applied_ping | applied_resp | applied_pr | ja_applied).sum(dtype=i32)
     metrics = TickMetrics(
         pings_sent=valid_send.sum(dtype=i32),
         pings_delivered=delivered.sum(dtype=i32),
         ping_reqs=ping_req_count,
         full_syncs=full_sync.sum(dtype=i32) + pr_fs_count,
-        changes_applied=toolkit.popcount(union).sum(dtype=i32),
+        changes_applied=changes_applied,
         suspects_marked=sus_count,
         faulties_marked=faulty_count,
         distinct_checksums=distinct,

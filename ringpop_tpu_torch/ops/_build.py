@@ -47,6 +47,7 @@ class KernelLibrary:
             ("ringpop_pb_budget", [vp, ci, vp]),
             ("ringpop_fused_stream", [vp, ci, ci, ci, vp]),
             ("ringpop_exchange", [vp, ci, ci, vp]),
+            ("ringpop_block_loop", [vp, ci, ci, ci, vp]),
         ):
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes

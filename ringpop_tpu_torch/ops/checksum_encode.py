@@ -1,17 +1,22 @@
-"""Checksum-string encoding pieces over a static address universe.
+"""Checksum-string encoding over a static address universe.
 
-Counterpart of ``ringpop_tpu/ops/checksum_encode.py`` (lines 36-131): the
-sorted address :class:`Universe`, the ``STATUS_*`` wire tables and the
-decimal digit helpers the fused record encoder builds on.  The reference's
+Counterpart of ``ringpop_tpu/ops/checksum_encode.py``: the sorted address
+:class:`Universe`, the ``STATUS_*`` wire tables, the decimal digit helpers,
+and the row encoders :func:`membership_rows` and :func:`ring_rows`, which
+build each row's checksum string into a padded ``[B, W] uint8`` buffer for
+:func:`ringpop_tpu_torch.ops.farmhash.hash32_rows`.  The reference's
 membership checksum is FarmHash32 of ``addr+status+incarnation`` joined
-with ';' over members sorted by address (lib/membership/index.js:100-123).
-The classic row encoder ``membership_rows`` is not ported yet (ROADMAP.md).
+with ';' over members sorted by address (lib/membership/index.js:100-123);
+the ring checksum joins the sorted server names (lib/ring/index.js:96-105).
+
+The JAX package's gather encoders (``impl`` "gather" / "gather2") are not
+ported yet (ROADMAP.md); asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -77,6 +82,13 @@ class Universe:
     def index_of(self, address: str) -> int:
         return self.addresses.index(address)
 
+    def member_row_width(self, max_digits: int = MAX_DIGITS) -> int:
+        """Static buffer width for a full-membership checksum string."""
+        return int(self.addr_len.sum()) + self.n * (_STATUS_W + max_digits + 1) + 4
+
+    def ring_row_width(self) -> int:
+        return int(self.addr_len.sum()) + self.n + 4
+
 
 def _ndigits(x: torch.Tensor) -> torch.Tensor:
     """Decimal digit count of non-negative int64 (0 -> 1 digit)."""
@@ -96,3 +108,160 @@ def _digit_bytes(x: torch.Tensor, dlen: torch.Tensor, max_digits: int) -> torch.
     pow10 = torch.as_tensor(_POW10, device=x.device)[exp.long()]
     digit = torch.div(x[..., None], pow10, rounding_mode="floor") % 10
     return (digit + ord("0")).to(torch.uint8)
+
+
+def _tables(universe: Universe, device):
+    """(addr_bytes [N, A] uint8, addr_len [N] int32, status_bytes [4, 7]
+    uint8, status_len [4] int32) on ``device``, built once per device."""
+    cache = universe.__dict__.setdefault("_encode_tables", {})
+    key = str(device)
+    got = cache.get(key)
+    if got is None:
+        got = (
+            torch.as_tensor(universe.addr_bytes, device=device),
+            torch.as_tensor(universe.addr_len, device=device),
+            torch.as_tensor(STATUS_BYTES, device=device),
+            torch.as_tensor(STATUS_LEN, device=device),
+        )
+        cache[key] = got
+    return got
+
+
+def _scatter_rows(
+    width: int,
+    positions: torch.Tensor,  # [C, M] target position per byte, >= width drops
+    values: torch.Tensor,  # [C, M] uint8
+    unique: bool = False,
+) -> torch.Tensor:
+    """Scatter each row's bytes into a zeroed ``[C, width]`` buffer,
+    dropping positions at or past ``width``.  Live positions of a row are
+    disjoint by construction (member segments never overlap).  ``unique``
+    also sends every dropped byte to a slot of its own, so no two writes
+    share an index (JAX's ``unique_indices`` promise); otherwise a row's
+    dropped bytes share one sentinel slot."""
+    C, M = positions.shape
+    dev = positions.device
+    pos = positions.to(torch.int64)
+    row = torch.arange(C, dtype=torch.int64, device=dev)[:, None]
+    if unique:
+        sink = C * width + row * M + torch.arange(M, dtype=torch.int64, device=dev)[None, :]
+        size = C * width + C * M
+    else:
+        sink = C * width + row
+        size = C * width + C
+    idx = torch.where(pos < width, row * width + pos, sink)
+    buf = torch.zeros(size, dtype=torch.uint8, device=dev)
+    buf = buf.index_put((idx.reshape(-1),), values.reshape(-1).to(torch.uint8))
+    return buf[: C * width].reshape(C, width)
+
+
+def membership_rows(
+    universe: Universe,
+    present: torch.Tensor,  # [B, N] bool
+    status: torch.Tensor,  # [B, N] int codes
+    incarnation: torch.Tensor,  # [B, N] int64
+    max_digits: int = MAX_DIGITS,
+    width: Optional[int] = None,
+    chunk: int = 64,
+    impl: str = "scatter_unique",
+):
+    """Build per-row membership checksum strings; returns ``(buf [B, W]
+    uint8, lens [B] int32)``, ready for ``farmhash.hash32_rows``.
+
+    ``max_digits`` bounds the incarnation's decimal digits (a wider value
+    would silently corrupt the string).  ``impl``: "scatter_unique" (the
+    default) or "scatter" — each member segment's bytes scattered to its
+    cumsum offset (see :func:`_scatter_rows`); both give the same bytes."""
+    if impl in ("gather", "gather2"):
+        raise NotImplementedError(
+            "membership_rows impl=%r (the gather encoders) is not ported to "
+            "ringpop_tpu_torch yet (queued in ROADMAP.md)" % (impl,)
+        )
+    if impl not in ("scatter_unique", "scatter"):
+        raise ValueError("membership_rows impl must be scatter_unique|scatter, got %r" % (impl,))
+    unique = impl == "scatter_unique"
+    width = width or universe.member_row_width(max_digits)
+    A = universe.addr_width
+    n = universe.n
+    dev = present.device
+    addr_bytes, addr_len, status_bytes, status_len = _tables(universe, dev)
+    ka = torch.arange(A, dtype=torch.int32, device=dev)
+    ks = torch.arange(_STATUS_W, dtype=torch.int32, device=dev)
+    kd = torch.arange(max_digits, dtype=torch.int32, device=dev)
+
+    def rows(pres, stat, inc):
+        C = pres.shape[0]
+        stat = stat.to(torch.int64)
+        pres_i = pres.to(torch.int32)
+        slen = status_len[stat]
+        dlen = _ndigits(inc)
+        seg_len = (addr_len + slen + dlen + 1) * pres_i
+        offset = torch.cumsum(seg_len, dim=1, dtype=torch.int32) - seg_len
+        total = (seg_len.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0) * (
+            pres_i.sum(dim=1) > 0
+        ).to(torch.int32)
+        drop = width
+        p3 = pres[:, :, None]
+
+        pos_a = offset[:, :, None] + ka
+        pos_a = torch.where(p3 & (ka < addr_len[:, None]), pos_a, drop)
+        s_base = offset + addr_len
+        pos_s = s_base[:, :, None] + ks
+        pos_s = torch.where(p3 & (ks < slen[:, :, None]), pos_s, drop)
+        val_s = status_bytes[stat]
+        d_base = s_base + slen
+        pos_d = d_base[:, :, None] + kd
+        pos_d = torch.where(p3 & (kd < dlen[:, :, None]), pos_d, drop)
+        val_d = _digit_bytes(inc, dlen, max_digits)
+        pos_sep = torch.where(p3, (d_base + dlen)[:, :, None], drop)
+        val_sep = torch.full((C, n, 1), ord(";"), dtype=torch.uint8, device=dev)
+
+        positions = torch.cat([pos_a, pos_s, pos_d, pos_sep], dim=2)
+        values = torch.cat([addr_bytes.expand(C, n, A), val_s, val_d, val_sep], dim=2)
+        return _scatter_rows(width, positions.reshape(C, -1), values.reshape(C, -1), unique), total
+
+    return _chunked_rows(rows, present, status, incarnation, chunk)
+
+
+def _chunked_rows(rows, present, status, incarnation, chunk):
+    """Run the batched row encoder ``rows`` over ``chunk``-row slabs, which
+    bounds its ``[chunk, N, S]`` intermediates."""
+    B = present.shape[0]
+    if B <= chunk:
+        return rows(present, status, incarnation)
+    bufs, lens = [], []
+    for lo in range(0, B, chunk):
+        b, l = rows(present[lo:lo + chunk], status[lo:lo + chunk], incarnation[lo:lo + chunk])
+        bufs.append(b)
+        lens.append(l)
+    return torch.cat(bufs), torch.cat(lens)
+
+
+def ring_rows(
+    universe: Universe,
+    in_ring: torch.Tensor,  # [B, N] bool: the servers in each row's ring
+    width: Optional[int] = None,
+):
+    """Build per-row ring checksum strings (sorted names joined with ';');
+    returns ``(buf [B, W] uint8, lens [B] int32)``."""
+    width = width or universe.ring_row_width()
+    A = universe.addr_width
+    n = universe.n
+    dev = in_ring.device
+    addr_bytes, addr_len, _, _ = _tables(universe, dev)
+    C = in_ring.shape[0]
+    pres_i = in_ring.to(torch.int32)
+    seg_len = (addr_len + 1) * pres_i
+    offset = torch.cumsum(seg_len, dim=1, dtype=torch.int32) - seg_len
+    total = (seg_len.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0) * (
+        pres_i.sum(dim=1) > 0
+    ).to(torch.int32)
+    drop = width
+    p3 = in_ring[:, :, None]
+    ka = torch.arange(A, dtype=torch.int32, device=dev)
+    pos_a = torch.where(p3 & (ka < addr_len[:, None]), offset[:, :, None] + ka, drop)
+    pos_sep = torch.where(p3, (offset + addr_len)[:, :, None], drop)
+    val_sep = torch.full((C, n, 1), ord(";"), dtype=torch.uint8, device=dev)
+    positions = torch.cat([pos_a, pos_sep], dim=2)
+    values = torch.cat([addr_bytes.expand(C, n, A), val_sep], dim=2)
+    return _scatter_rows(width, positions.reshape(C, -1), values.reshape(C, -1)), total

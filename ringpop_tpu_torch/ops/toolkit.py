@@ -74,7 +74,8 @@ class KernelTwin:
     ``plain_entry``: its plain PyTorch version in the same module;
     ``jax_entry``: the JAX function (``module:function``) the plain version
     is held against on the CPU; ``gate_test``: the test file doing that;
-    ``replaces``: the Pallas kernel's file:line."""
+    ``replaces``: the Pallas kernel's file:line; ``also_replaces``: other
+    Pallas kernels the same CUDA kernel stands for."""
 
     module: str
     kernel_entry: str
@@ -83,6 +84,7 @@ class KernelTwin:
     jax_entry: str
     gate_test: str
     replaces: str
+    also_replaces: Tuple[str, ...] = ()
 
 
 TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
@@ -121,5 +123,15 @@ TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
         "ringpop_tpu.ops.exchange:exchange_xla",
         "tests/test_torch_exchange.py",
         "ringpop_tpu/ops/exchange.py:82",
+    ),
+    KernelTwin(
+        "block_loop",
+        "block_loop",
+        "block_loop_plain",
+        "ringpop_tpu_torch/csrc/block_loop.cu",
+        "ringpop_tpu.ops.pallas_farmhash:block_loop",
+        "tests/test_torch_block_loop.py",
+        "ringpop_tpu/ops/pallas_farmhash.py:36",
+        ("ringpop_tpu/ops/pallas_farmhash.py:429",),
     ),
 )

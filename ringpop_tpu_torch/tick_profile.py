@@ -3,6 +3,7 @@ under ``torch.profiler``.
 
     python3 -m ringpop_tpu_torch.tick_profile [--n 1024] [--ticks 64] [--out FILE]
     python3 -m ringpop_tpu_torch.tick_profile --storm [--n 1000000] [--out FILE]
+    python3 -m ringpop_tpu_torch.tick_profile --classic [--n 1024] [--out FILE]
 
 For each checksum mode it builds ``SimCluster(n)`` on the card, bootstraps
 and converges it (as ``chip_smoke.py`` does), then measures two windows:
@@ -19,6 +20,10 @@ summed over kernels (busy share = device time / wall time of the profiled
 window), the top kernels by device time, and the number of host reads of
 device values (``aten::_local_scalar_dense``: one per gated phase). Prints
 one JSON object as its last line; needs a CUDA device.
+
+``--classic`` profiles the classic configuration instead
+(``fused_tick="off"``, ``fused_checksum="off"``: the classic tick and the
+unfused "gated" farmhash recompute through ``block_loop``), same windows.
 
 ``--storm`` profiles the scalable engine's churn storm instead
 (``ScalableCluster(n)``, u=512, the 60-tick schedule of
@@ -77,13 +82,22 @@ def _profiled(sim, sched, top: int = 8) -> dict:
     )
 
 
+def _params(mode: str, n: int):
+    from ringpop_tpu_torch.models.sim import engine
+
+    if mode == "classic":
+        return engine.SimParams(n=n, checksum_mode="farmhash", fused_tick="off",
+                                fused_checksum="off")
+    return engine.SimParams(n=n, checksum_mode=mode)
+
+
 def profile_mode(mode: str, n: int, ticks: int) -> dict:
     import torch
 
-    from ringpop_tpu_torch.models.sim import engine
     from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
+    from ringpop_tpu_torch.ops import block_loop
 
-    sim = SimCluster(n=n, params=engine.SimParams(n=n, checksum_mode=mode), device="cuda")
+    sim = SimCluster(n=n, params=_params(mode, n), device="cuda")
     sim.bootstrap()
     if sim.run_until_converged(max_ticks=96, quiet_after=1) < 0:
         raise RuntimeError("%s: n=%d did not converge" % (mode, n))
@@ -99,7 +113,9 @@ def profile_mode(mode: str, n: int, ticks: int) -> dict:
         _window(sim, sched)  # warm
         sim.state = pre
         replays = sim.parity_replays
+        launches = block_loop.block_loop.launches
         wall = _window(sim, sched)
+        launches = block_loop.block_loop.launches - launches
         sim.state = pre
         prof = _profiled(sim, sched)
         sim.state = pre
@@ -108,6 +124,7 @@ def profile_mode(mode: str, n: int, ticks: int) -> dict:
             ms_per_tick=wall / ticks * 1e3,
             node_ticks_per_s=n * ticks / wall,
             replays=sim.parity_replays - replays,
+            block_loop_launches=launches,
             **prof,
         )
         torch.cuda.synchronize()
@@ -160,6 +177,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--storm", action="store_true",
                     help="profile the scalable churn storm")
+    ap.add_argument("--classic", action="store_true",
+                    help="profile the classic tick with the unfused checksum path")
     args = ap.parse_args(argv)
     import torch
 
@@ -172,6 +191,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     if args.storm:
         result = dict(card=card, storm=profile_storm(args.n or 1_000_000))
+    elif args.classic:
+        result = dict(card=card, modes=[profile_mode("classic", args.n or 1024, args.ticks)])
     else:
         result = dict(card=card, modes=[profile_mode(m, args.n or 1024, args.ticks)
                                         for m in ("fast", "farmhash")])

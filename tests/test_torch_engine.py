@@ -191,11 +191,10 @@ def test_entry_points_refuse_to_fall_back():
             resolve_device(None)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SimCluster(n=8)
-    with pytest.raises(ValueError, match="needs a CUDA device"):
-        SimCluster(n=8, params=pe.SimParams(n=8, fused_tick="kernel"), device="cpu")
-    for bad in (dict(fused_tick="off"), dict(parity_recompute="gated"),
-                dict(flight_recorder=True), dict(histograms=True),
-                dict(fused_checksum="off")):
+    for knob in ("fused_tick", "hash_impl"):
+        with pytest.raises(ValueError, match="needs a CUDA device"):
+            SimCluster(n=8, params=pe.SimParams(n=8, **{knob: "kernel"}), device="cpu")
+    for bad in (dict(flight_recorder=True), dict(histograms=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             SimCluster(n=8, params=pe.SimParams(n=8, **bad), device="cpu")
 
@@ -205,7 +204,8 @@ def test_convert_roundtrip_and_params():
     pp = convert.params_from_jax_fields(jp._asdict())
     for f in convert.PROTOCOL_FIELDS:
         assert getattr(pp, f) == getattr(jp, f), f
-    assert pp.fused_tick == "auto" and pp.parity_recompute == "bounded"
+    assert pp.fused_tick == "plain" and pp.hash_impl == "plain"
+    assert pp.parity_recompute == "bounded" and pp.fused_checksum == "on"
     sim = SimCluster(n=16, params=pe.SimParams(n=16), device="cpu")
     sim.bootstrap()
     arrays = convert.state_to_numpy(sim.state)
