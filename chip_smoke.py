@@ -12,16 +12,24 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 3. holds each kernel against its plain PyTorch version on the card, on
    random inputs from a seed, for every option combination the engines
    use: every output must be bitwise equal (tolerance: none — all integer
-   arithmetic); ``apply_updates``, ``pb_budget`` and ``fused_stream`` at
-   n=1024 and the ragged n=1000, ``exchange`` at the 1M-node storm shape
+   arithmetic); ``apply_updates`` and ``pb_budget`` at n=1024 and the
+   ragged n=1000 and 1001, ``fused_stream`` at B in {1024, 256, 16} rows
+   of an N=1024 universe, at B=N=1000, at B=16 x N=1001 (rows not
+   16-byte aligned) and on B=64 x N=200 synthetic records of 4, 12 and 16
+   words (once with bytes past the lengths set), ``exchange`` at the
+   1M-node storm shape
    (N=1,000,000, W=16) and at N=1000 with W in {1, 3, 16, 40}, with and
    without counts, ``block_loop`` at B=1024 and B=256 rows of the real
    n=1024 checksum strings (I=1843, as their word view, no copy) and at
    the ragged B=1000 with I in {1, 7} and zero trip counts, and
    ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows;
-   prints each kernel's time, its plain version's time and its bounds
-   (bytes or operations; for the two hash loops also the dependency
-   chain of one row);
+   prints each kernel's two times, its plain version's time and its
+   bounds (bytes or operations; for the two hash loops also the
+   dependency chain of one row): ``device_ms``, the mean CUDA duration of
+   the kernel itself from ``torch.profiler``, and ``call_ms`` (``ms`` in
+   older notes), CUDA events around the wrapper calls, which is the
+   host's cost per call whenever the host issues slower than the card
+   runs;
 4. runs the n=64 32-tick churn schedule of the full engine on the card
    (kernels) and on the CPU (plain versions) in fast and farmhash modes
    and in the classic unfused configuration (``fused_tick="off"``,
@@ -92,7 +100,9 @@ def _card_line() -> str:
 
 
 def _time_ms(fn, reps: int, warm: int = 1) -> float:
-
+    """Mean ms per call of ``fn`` from CUDA events around ``reps`` calls:
+    for a kernel wrapper this is its ``call_ms``, which is the host's
+    cost per call whenever the host issues slower than the card runs."""
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -103,6 +113,48 @@ def _time_ms(fn, reps: int, warm: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+DEVICE_MS_METHOD = ("torch.profiler CUDA activity (CUPTI kernel records): mean duration of "
+                    "the kernel's own launches seen over as many wrapper calls as call_ms "
+                    "times")
+
+
+def _device_ms(fn, reps: int, symbol: str):
+    """Mean CUDA duration (ms) of the kernels whose name holds ``symbol``,
+    over ``reps`` calls of ``fn`` under ``torch.profiler``: the kernel's
+    time on the card, apart from the host's cost to call it.  Returns it
+    with the number of launches the profiler reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    count = sum(e.count for e in rows)
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in rows)
+    # the profiler does not deliver every kernel record (it has shown 7 of
+    # 20): the mean is over the launches it saw, and their count is kept
+    if count == 0 or us <= 0:
+        raise AssertionError("profiler saw no launch of %s in %d calls" % (symbol, reps))
+    return us / count / 1e3, count
+
+
+def _times(fn, reps: int, symbol: str, warm: int = 1) -> dict:
+    """``call_ms`` (CUDA events around the wrapper calls) and
+    ``device_ms`` (the kernel alone, from the profiler) over ``reps``
+    calls each; ``ms`` repeats ``call_ms``, the name older notes use."""
+    call = _time_ms(fn, reps, warm)
+    device, seen = _device_ms(fn, reps, symbol)
+    print("%s: device %.4f ms (%d of %d launches seen), call %.4f ms"
+          % (symbol, device, seen, reps, call), flush=True)
+    return dict(ms=call, call_ms=call, device_ms=device, device_launches_seen=seen)
 
 
 def _leaves(x):
@@ -195,9 +247,10 @@ def _budget_inputs(n, seed, dev):
     return active, pb, nbump, max_pb, hits
 
 
-def _stream_inputs(n, seed, dev):
-    """Realistic record words: random views of an n-node universe encoded
-    by the port's record encoder, with the carries fused_hash_rows feeds."""
+def _stream_inputs(B, N, seed, dev):
+    """Realistic record words: B random views of an N-node universe
+    encoded by the port's record encoder, with the carries fused_hash_rows
+    feeds."""
     import numpy as np
 
     from ringpop_tpu_torch.models.sim.cluster import default_addresses
@@ -205,19 +258,40 @@ def _stream_inputs(n, seed, dev):
     from ringpop_tpu_torch.ops import fused_checksum as fc
 
     rng = np.random.default_rng(seed)
-    uni = ce.Universe.from_addresses(default_addresses(n))
-    present = torch.as_tensor(rng.random((n, n)) < 0.9, device=dev)
-    status = torch.as_tensor(rng.integers(0, 4, (n, n), dtype=np.int32), device=dev)
-    inc = torch.as_tensor(rng.integers(1, 10**13, (n, n)), device=dev)
+    uni = ce.Universe.from_addresses(default_addresses(N))
+    present = torch.as_tensor(rng.random((B, N)) < 0.9, device=dev)
+    status = torch.as_tensor(rng.integers(0, 4, (B, N), dtype=np.int32), device=dev)
+    inc = torch.as_tensor(rng.integers(1, 10**13, (B, N)), device=dev)
     rec_b, rec_l = fc.member_records(uni, present, status, inc, 14)
     words = fc.pack_record_words(rec_b)
     total = (rec_l.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0)
     tb = torch.where(total > 24, torch.div(total - 1, 20, rounding_mode="floor"), 0).to(torch.int32)
     h0, g0, f0 = (
-        torch.as_tensor(rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32), device=dev)
+        torch.as_tensor(rng.integers(-2**31, 2**31, B, dtype=np.int64).astype(np.int32), device=dev)
         for _ in range(3)
     )
     return h0, g0, f0, words.contiguous(), rec_l.contiguous(), tb
+
+
+def _synthetic_stream_inputs(B, N, rw, seed, dev, padded=True):
+    """Random records of rw words (lengths in [0, 4 * rw], non-zero bytes,
+    zero past each length when ``padded``) with the real total_blocks
+    rule: the record widths no default address universe gives."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import u32
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 4 * rw + 1, (B, N)).astype(np.int32)
+    raw = rng.integers(1, 256, (B, N, 4 * rw), dtype=np.uint8)
+    if padded:
+        raw[np.arange(4 * rw)[None, None, :] >= lens[:, :, None]] = 0
+    words = raw.view("<u4").reshape(B, N, rw)
+    total = np.maximum(lens.sum(axis=1) - 1, 0)
+    tb = np.where(total > 24, (total - 1) // 20, 0).astype(np.int32)
+    carries = (u32.from_numpy(rng.integers(0, 2**32, B, dtype=np.uint32), dev) for _ in range(3))
+    return (*carries, u32.from_numpy(words, dev), torch.as_tensor(lens, device=dev),
+            torch.as_tensor(tb, device=dev))
 
 
 def _checksum_rows(n, rows, seed, dev):
@@ -302,16 +376,16 @@ def check_block_loop(dev) -> dict:
         # each round's 20 bytes read once, the carries and counts read and
         # the carries written once; ~31 integer ops a round
         r = dict(
-            ms=_time_ms(lambda: bl.block_loop(*args), 20),
+            _times(lambda: bl.block_loop(*args), 20, "block_loop_kernel"),
             bound=_bound(20 * rounds + 7 * 4 * rows, 31.0 * rounds),
             chain_bound_ms=_chain_ms(int(iters.max())),
             rounds_max=int(iters.max()),
         )
         r["plain_ms"] = _time_ms(lambda: bl.block_loop_plain(*args), 1, warm=0)
-        print("block_loop B=%d: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), chain bound "
-              "%.4f ms (%d rounds x %d cycles)" % (rows, r["ms"], r["plain_ms"], r["bound"][0],
-                                                  r["bound"][1], r["chain_bound_ms"],
-                                                  r["rounds_max"], ROUND_CYCLES), flush=True)
+        print("block_loop B=%d: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+              "chain bound %.4f ms (%d rounds x %d cycles)"
+              % (rows, r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0], r["bound"][1],
+                 r["chain_bound_ms"], r["rounds_max"], ROUND_CYCLES), flush=True)
         out[rows] = r
     report = out[N_HEAD]
     report["max_abs_err"] = err
@@ -335,7 +409,8 @@ def check_kernels(dev):
     # (hits, want_content): sender select, receiver bump / ping-req leg 3,
     # ping-req leg 1
     budget_combos = [(False, True), (True, True), (False, False)]
-    for n in (N_HEAD, 1000):
+    # n=1000 and 1001 are ragged widths (a partial union word; n % 4 != 0)
+    for n in (N_HEAD, 1000, 1001):
         st, upd, union, now, deadline = _apply_inputs(n, 1, dev)
         for (u, m, c, r) in apply_combos:
             kw = dict(want_masks=m, want_count=c, want_refute=r)
@@ -353,26 +428,19 @@ def check_kernels(dev):
             torch.cuda.synchronize()
             err["pb_budget"] = max(err["pb_budget"], _same(
                 tuple(got), tuple(want), "pb_budget n=%d %r" % (n, (h, c))))
-        sargs = _stream_inputs(n, 3, dev)
-        t0 = time.perf_counter()
-        want = sh.fused_stream_plain(*sargs)
-        torch.cuda.synchronize()
-        stream_plain_s = time.perf_counter() - t0
-        got = sh.fused_stream(*sargs)
-        torch.cuda.synchronize()
-        err["fused_stream"] = max(err["fused_stream"], _same(got, want, "fused_stream n=%d" % n))
-        print("kernels bitwise equal to their plain versions at n=%d" % n, flush=True)
+        print("apply_updates, pb_budget bitwise equal to their plain versions at n=%d" % n,
+              flush=True)
 
         if n != N_HEAD:
             continue
         # times at the main path's shapes: the farmhash receive site, the
-        # receiver-bump site, the full-cluster row hash
+        # receiver-bump site
         a_args = (st, *upd, now, deadline, union)
         a_kw = dict(want_masks=True, want_count=False, want_refute=True)
         a_out = fa.apply_updates(*a_args, **a_kw)
         a_bytes = _nbytes(tuple(st) + upd + (union,)) + _nbytes(tuple(a_out))
         report["apply_updates"] = dict(
-            ms=_time_ms(lambda: fa.apply_updates(*a_args, **a_kw), 50),
+            _times(lambda: fa.apply_updates(*a_args, **a_kw), 50, "apply_updates_kernel"),
             plain_ms=_time_ms(lambda: fa.apply_updates_plain(*a_args, **a_kw), 10),
             bound=_bound(a_bytes, 40.0 * n * n),
         )
@@ -380,25 +448,57 @@ def check_kernels(dev):
         b_out = fp.pb_budget(*b_args)
         b_bytes = _nbytes(b_args) + _nbytes(tuple(b_out))
         report["pb_budget"] = dict(
-            ms=_time_ms(lambda: fp.pb_budget(*b_args), 50),
+            _times(lambda: fp.pb_budget(*b_args), 50, "pb_budget_kernel"),
             plain_ms=_time_ms(lambda: fp.pb_budget_plain(*b_args), 10),
             bound=_bound(b_bytes, 8.0 * n * n),
         )
+    # fused_stream: the full-cluster row hash (B = N = 1024), partial
+    # dirty batches (B = 256, 16), a ragged universe (B = N = 1000) and
+    # rows that are not 16-byte aligned (N * RW % 4 != 0: the kernel's
+    # 4-byte loads)
+    for B, N in ((N_HEAD, N_HEAD), (256, N_HEAD), (16, N_HEAD), (1000, 1000), (16, 1001)):
+        sargs = _stream_inputs(B, N, 3 + B, dev)
+        t0 = time.perf_counter()
+        want = sh.fused_stream_plain(*sargs)
+        torch.cuda.synchronize()
+        stream_plain_s = time.perf_counter() - t0
+        got = sh.fused_stream(*sargs)
+        torch.cuda.synchronize()
+        err["fused_stream"] = max(err["fused_stream"], _same(
+            got, want, "fused_stream B=%d N=%d" % (B, N)))
+        if N != N_HEAD:
+            continue
+        if B != N_HEAD:
+            # a partial dirty batch: the card mostly empty, each row's chain
+            print("fused_stream B=%d N=%d: chain bound %.4f ms" % (
+                B, N, _chain_ms(int(sargs[5].max()))), flush=True)
+            _times(lambda: sh.fused_stream(*sargs), 10, "fused_stream_kernel")
+            continue
         s_bytes = _nbytes(sargs) + _nbytes(got)
-        rw = sargs[3].shape[2]
         # per member step: ~10 ops per residual word appended + a
         # ~40-op mixing round per 20-byte block mixed
-        s_ops = 10.0 * n * n * (rw + 5) + 40.0 * float(sargs[5].sum())
+        s_ops = 10.0 * B * N * (sargs[3].shape[2] + 5) + 40.0 * float(sargs[5].sum())
         report["fused_stream"] = dict(
-            ms=_time_ms(lambda: sh.fused_stream(*sargs), 10),
+            _times(lambda: sh.fused_stream(*sargs), 10, "fused_stream_kernel"),
             plain_ms=stream_plain_s * 1e3,
             bound=_bound(s_bytes, s_ops),
             # one sequential chain per row: its block rounds
             chain_bound_ms=_chain_ms(int(sargs[5].max())),
         )
+    # every other record width the kernel takes at its extremes, on
+    # synthetic records; unpadded bytes past rec_len once
+    for rw, padded in ((4, True), (12, True), (16, True), (16, False)):
+        args = _synthetic_stream_inputs(64, 200, rw, 29 + rw, dev, padded)
+        err["fused_stream"] = max(err["fused_stream"], _same(
+            sh.fused_stream(*args), sh.fused_stream_plain(*args),
+            "fused_stream RW=%d padded=%s" % (rw, padded)))
+    print("fused_stream bitwise equal to its plain version at B in (1024, 256, 16) x N=1024, "
+          "B=N=1000 and B=16 x N=1001 (RW=%d), and B=64 x N=200 synthetic records at RW in "
+          "(4, 12, 16)" % sargs[3].shape[2], flush=True)
     for name, r in report.items():
-        print("%s: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-              % (name, r["ms"], r["plain_ms"], r["bound"][0], r["bound"][1]), flush=True)
+        print("%s: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+              % (name, r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
+                 r["bound"][1]), flush=True)
     for name, e in err.items():
         report[name]["max_abs_err"] = e
     return report
@@ -510,15 +610,15 @@ def check_exchange(dev) -> dict:
     # bit; the per-row reduction (about one add per word)
     ops = 5.0 * n * w + new_bits + n * w
     r = dict(
-        ms=_time_ms(lambda: ex.exchange(*storm_args, want_counts=False), 50),
+        _times(lambda: ex.exchange(*storm_args, want_counts=False), 50, "exchange_kernel"),
         plain_ms=_time_ms(lambda: ex.exchange_plain(*storm_args, want_counts=False), 5),
         bound=_bound(_nbytes(storm_args) + _nbytes(out), ops),
         max_abs_err=err,
         new_bits=new_bits,
     )
-    print("exchange: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s) at N=%d W=%d, "
-          "%d new bits" % (r["ms"], r["plain_ms"], r["bound"][0], r["bound"][1], n, w,
-                           new_bits), flush=True)
+    print("exchange: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s) at N=%d "
+          "W=%d, %d new bits" % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
+                                 r["bound"][1], n, w, new_bits), flush=True)
     return r
 
 
@@ -868,6 +968,10 @@ def main(argv) -> int:
             launches=launches[twin.kernel_entry],
             max_abs_err=r["max_abs_err"],
             ms=r["ms"],
+            call_ms=r["call_ms"],
+            device_ms=r["device_ms"],
+            device_ms_method=DEVICE_MS_METHOD,
+            device_launches_seen=r["device_launches_seen"],
             plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0],
             bound_by=r["bound"][1],

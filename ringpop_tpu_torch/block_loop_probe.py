@@ -2,8 +2,9 @@
 
     python3 -m ringpop_tpu_torch.block_loop_probe [--out FILE]
 
-Builds ``csrc/probe/block_loop_rounds.cu`` (loop shapes of the
-``block_loop`` kernel side by side; see its header for the modes) with
+Builds ``csrc/probe/block_loop_rounds.cu`` (loop shapes of the first,
+thread-per-row ``block_loop`` kernel side by side; see its header for the
+modes) with
 nvcc, runs each mode on the rows ``chip_smoke.py`` times — B = 1024 and
 256 rows of the real n=1024 checksum strings (I = 1843) — and on B = 32
 (one warp), checks every mode that reads the blocks against

@@ -6,7 +6,7 @@
 // `block_loop_nogrid`): one kernel for both.  The TPU tiles rows [8 x 128]
 // and walks the block axis as a sequential grid dimension (or, gridless,
 // as an outer scan of VMEM slabs) with every row masked up to the longest;
-// here each thread owns one row and loops to its own trip count.  The same
+// here a half-warp owns a row and loops to its own trip count.  The same
 // arithmetic as block_loop.block_loop_plain, every op mod 2^32.
 //
 // Bound on an H100: by bytes, the blocks the rows use are read once
@@ -17,27 +17,30 @@
 // cycles at 4 each (the chain alone measures 30.6 cycles a round,
 // ringpop_tpu_torch/block_loop_probe.py mode 2), so about 1700 rounds take
 // about 27 us at 1.98 GHz whatever the card's width.  The chain binds.
-// A load issued right before its round would add a device-memory latency
-// (hundreds of cycles) to every round, so each thread keeps the next
-// STAGE rounds' 5 * STAGE words in flight in registers while it mixes the
-// current ones (two register buffers, swapped by unrolling the stage loop
-// twice).  A round is applied by predicated selects, not a branch: with a
-// branch per round the loop took 259 cycles a round, with selects 131
-// (the probe, modes 0 and 1, B = 1024).  What remains above the chain is
-// the five loads of a round, which never coalesce (rows are about 36 KB
-// apart, so each warp load touches 32 sectors); prefetching further ahead
-// does not remove it (probe modes 3-6).  Blocks of 32 threads
-// spread the few rows (B = 256 on a gated chunk) over as many SMs as
-// possible.
+// The first kernel gave each thread a row: its five loads a round never
+// coalesced (rows are about 36 KB apart, so each warp load touched 32
+// sectors) and cost about 100 cycles a round beyond the chain
+// (block_loop_probe.py).  Design: a 16-lane half-warp owns a row (2 rows a
+// warp, 8 a block), so about one warp sits on each scheduler at B = 1024
+// and the ~36 instructions of a round serve both rows.  The half-warp
+// walks its row 32 rounds at a time: its lanes load the 160 words of the
+// next 32 blocks, coalesced, into registers one chunk ahead (the loads fly
+// while the chain runs), store them to the row's shared buffer, and the
+// warp mixes the chunk from there (common.cuh mix_blocks: 16-byte shared
+// loads four rounds ahead, rounds past a row's count dropped by a
+// select).
 #include "common.cuh"
 
 namespace {
 
 using namespace ringpop;
 
-constexpr int THREADS = 32;
-constexpr int STAGE = 8;  // rounds per prefetch stage
-constexpr int WORDS = 5 * STAGE;
+constexpr int GROUP = 16;                 // lanes per row
+constexpr int WARPS = 4;                  // warps per block
+constexpr int ROWS = WARPS * 32 / GROUP;  // rows per block
+constexpr int CHUNK = 32;                 // rounds per staged chunk
+constexpr int PER_LANE = 5 * CHUNK / GROUP;
+constexpr unsigned FULL = 0xffffffffu;
 
 enum : int {
   IN_H0, IN_G0, IN_F0, IN_BLOCKS, IN_ITERS,
@@ -45,62 +48,58 @@ enum : int {
   N_PTRS
 };
 
-// The words of rounds [s, s + STAGE) that the row runs (n rounds in all).
-__device__ __forceinline__ void fetch(uint32_t (&buf)[WORDS], const uint32_t* row,
-                                      int s, int n) {
+// Lane j's words of rounds [s, s + CHUNK) of a row of n rounds: words
+// j + 16 * t of the chunk (zero past the row's last round).
+__device__ __forceinline__ void fetch(uint32_t (&w)[PER_LANE], const uint32_t* row, int s,
+                                      int n, int j) {
+  const int count = 5 * max(0, min(CHUNK, n - s));
+  const uint32_t* p = row + 5 * static_cast<size_t>(s);
 #pragma unroll
-  for (int r = 0; r < STAGE; ++r) {
-    const bool live = s + r < n;
-    const uint32_t* p = row + 5 * (s + r);
-#pragma unroll
-    for (int k = 0; k < 5; ++k) buf[5 * r + k] = live ? __ldg(p + k) : 0u;
+  for (int t = 0; t < PER_LANE; ++t) {
+    const int k = j + GROUP * t;
+    w[t] = k < count ? __ldg(p + k) : 0u;
   }
 }
 
-// Mix rounds [s, s + STAGE) of the row, those below n (selected, not
-// branched: see above).
-__device__ __forceinline__ void mix(const uint32_t (&buf)[WORDS], int s, int n,
-                                    uint32_t& h, uint32_t& g, uint32_t& f) {
-#pragma unroll
-  for (int r = 0; r < STAGE; ++r) {
-    const uint32_t a = buf[5 * r], b = buf[5 * r + 1], c = buf[5 * r + 2],
-                   d = buf[5 * r + 3], e = buf[5 * r + 4];
-    uint32_t nh = h + a;
-    uint32_t ng = g + b;
-    uint32_t nf = f + c;
-    nh = mur(d, nh) + e;
-    ng = mur(c, ng) + a;
-    nf = mur(b + e * C1, nf) + d;
-    nf = nf + ng;
-    ng = ng + nf;
-    const bool on = s + r < n;
-    h = on ? nh : h;
-    g = on ? ng : g;
-    f = on ? nf : f;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(WARPS * 32)
 block_loop_kernel(const uint32_t* h0, const uint32_t* g0, const uint32_t* f0,
                   const uint32_t* blocks, const int32_t* iters, uint32_t* oh,
                   uint32_t* og, uint32_t* of, int B, int I, int row_stride) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= B) return;
-  uint32_t h = h0[b], g = g0[b], f = f0[b];
-  const int it = iters[b];
-  const int n = it < 0 ? 0 : (it > I ? I : it);
-  const uint32_t* row = blocks + static_cast<size_t>(b) * row_stride;
-  uint32_t buf0[WORDS], buf1[WORDS];
-  fetch(buf0, row, 0, n);
-  for (int s = 0; s < n; s += 2 * STAGE) {
-    fetch(buf1, row, s + STAGE, n);
-    mix(buf0, s, n, h, g, f);
-    fetch(buf0, row, s + 2 * STAGE, n);
-    mix(buf1, s + STAGE, n, h, g, f);
+  // one chunk and the words mix_blocks reads past its last block (a
+  // multiple of 4 words: every row's buffer stays 16-byte aligned)
+  __shared__ __align__(16) uint32_t sbuf[ROWS][5 * CHUNK + 5 * MIX_STAGE + 16];
+  const int j = threadIdx.x & (GROUP - 1);
+  const int slot = threadIdx.x / GROUP;
+  const int b = blockIdx.x * ROWS + slot;
+  uint32_t h = 0u, g = 0u, f = 0u;
+  int n = 0;
+  if (b < B) {
+    h = h0[b];
+    g = g0[b];
+    f = f0[b];
+    const int it = iters[b];
+    n = it < 0 ? 0 : (it > I ? I : it);
   }
-  oh[b] = h;
-  og[b] = g;
-  of[b] = f;
+  // the warp walks to the longer of its two rows
+  const int nmax = max(n, __shfl_xor_sync(FULL, n, GROUP));
+  const uint32_t* row = blocks + static_cast<size_t>(b < B ? b : 0) * row_stride;
+  uint32_t* buf = sbuf[slot];
+  uint32_t next[PER_LANE];
+  fetch(next, row, 0, n, j);
+  for (int s = 0; s < nmax; s += CHUNK) {
+#pragma unroll
+    for (int t = 0; t < PER_LANE; ++t) buf[j + GROUP * t] = next[t];
+    __syncwarp();
+    fetch(next, row, s + CHUNK, n, j);
+    const int k = max(0, min(CHUNK, n - s));
+    mix_blocks(h, g, f, buf, k, min(CHUNK, nmax - s));
+    __syncwarp();
+  }
+  if (b < B && j == 0) {
+    oh[b] = h;
+    og[b] = g;
+    of[b] = f;
+  }
 }
 
 }  // namespace
@@ -110,8 +109,8 @@ block_loop_kernel(const uint32_t* h0, const uint32_t* g0, const uint32_t* f0,
 RINGPOP_EXPORT int ringpop_block_loop(void** p, int B, int I, int row_stride, void* stream) {
   if (B <= 0) return 0;
   if (I < 0 || (B > 1 && row_stride < 5 * I)) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (B + THREADS - 1) / THREADS;
-  block_loop_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int grid = (B + ROWS - 1) / ROWS;
+  block_loop_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(p[IN_H0]), static_cast<const uint32_t*>(p[IN_G0]),
       static_cast<const uint32_t*>(p[IN_F0]), static_cast<const uint32_t*>(p[IN_BLOCKS]),
       static_cast<const int32_t*>(p[IN_ITERS]), static_cast<uint32_t*>(p[OUT_H]),

@@ -1,6 +1,6 @@
 // Where a farmhashmk block-loop round's time goes on the card: loop shapes
-// of csrc/block_loop.cu side by side, each thread timing its own loop with
-// clock64().  Built and driven by ringpop_tpu_torch/block_loop_probe.py;
+// of the first csrc/block_loop.cu (a thread per row) side by side, each
+// thread timing its own loop with clock64().  Built and driven by ringpop_tpu_torch/block_loop_probe.py;
 // not part of the kernel library.
 //
 // MODE 0: register prefetch one stage (8 rounds) ahead, a branch per round;

@@ -33,8 +33,19 @@ BUILD = PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 
+# each C entry point: its pointer-table length and its int arguments
+ENTRY_POINTS = {
+    "ringpop_apply_updates": (33, 2),
+    "ringpop_pb_budget": (9, 1),
+    "ringpop_fused_stream": (9, 3),
+    "ringpop_exchange": (7, 2),
+    "ringpop_block_loop": (8, 3),
+}
+
+
 class KernelLibrary:
-    """The loaded shared library plus what its build cost."""
+    """The loaded shared library plus what its build cost.  Each C entry
+    point is bound once, here, with its pointer-table type."""
 
     def __init__(self, path: Path, build_seconds: float, built: bool):
         self.path = path
@@ -42,27 +53,29 @@ class KernelLibrary:
         self.built = built
         self.lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name, argtypes in (
-            ("ringpop_apply_updates", [vp, ci, ci, vp]),
-            ("ringpop_pb_budget", [vp, ci, vp]),
-            ("ringpop_fused_stream", [vp, ci, ci, ci, vp]),
-            ("ringpop_exchange", [vp, ci, ci, vp]),
-            ("ringpop_block_loop", [vp, ci, ci, ci, vp]),
-        ):
+        self._entry = {}
+        for name, (n_ptrs, n_ints) in ENTRY_POINTS.items():
             fn = getattr(self.lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = [vp] + [ci] * n_ints + [vp]
             fn.restype = ctypes.c_int
+            self._entry[name] = (fn, ctypes.c_void_p * n_ptrs)
 
     def call(self, name: str, ptrs: Sequence[int], *ints: int) -> None:
         """Launch ``name`` on the current stream and raise on a launch
         error.  ``ptrs`` are device pointers (0 for an absent optional)."""
-        table = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(self.lib, name)(table, *ints, ctypes.c_void_p(stream))
+        fn, table_type = self._entry[name]
+        err = fn(table_type(*ptrs), *ints, _current_stream())
         if err != 0:
             raise RuntimeError(
                 "%s: CUDA launch failed with cudaError %d" % (name, err)
             )
+
+
+def _current_stream() -> int:
+    """The raw handle of the current CUDA stream (what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _nvcc() -> str:
@@ -154,13 +167,20 @@ def ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def check(what: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    """Validate a kernel operand before its pointer crosses into C."""
+def check(name: str, device, operands) -> None:
+    """Validate kernel operands before their pointers cross into C, in one
+    pass: ``operands`` holds ``(field, tensor, dtype, shape)`` tuples.  A
+    message is formatted only when an operand is refused."""
+    for field, t, dtype, shape in operands:
+        if t.device != device or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            _refuse("%s: %s" % (name, field), t, dtype, shape, device)
+
+
+def _refuse(what: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError("%s is on %s, expected %s" % (what, t.device, device))
     if t.dtype != dtype:
         raise ValueError("%s has dtype %s, expected %s" % (what, t.dtype, dtype))
     if tuple(t.shape) != tuple(shape):
         raise ValueError("%s has shape %s, expected %s" % (what, tuple(t.shape), tuple(shape)))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % what)
+    raise ValueError("%s must be contiguous" % what)

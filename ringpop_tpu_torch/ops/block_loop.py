@@ -93,8 +93,11 @@ def block_loop(h0, g0, f0, blocks, iters):
         return block_loop_plain(h0, g0, f0, blocks, iters)
     B, n_iter, _ = blocks.shape
     dev = blocks.device
-    for what, t in (("h0", h0), ("g0", g0), ("f0", f0), ("iters", iters)):
-        _build.check("block_loop: %s" % what, t, torch.int32, (B,), dev)
+    i32 = torch.int32
+    _build.check("block_loop", dev, (
+        ("h0", h0, i32, (B,)), ("g0", g0, i32, (B,)), ("f0", f0, i32, (B,)),
+        ("iters", iters, i32, (B,)),
+    ))
     row_stride = _check_blocks(blocks, B, n_iter, dev)
     h = torch.empty_like(h0)
     g = torch.empty_like(g0)

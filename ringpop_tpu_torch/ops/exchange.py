@@ -111,12 +111,11 @@ def exchange(
     dev = heard.device
     if dev.type == "cpu":
         return exchange_plain(heard, pulled, pushed, r_delta, want_counts=want_counts)
-    name = "exchange"
-    for what, t, shape in (
-        ("heard", heard, (n, w)), ("pulled", pulled, (n, w)),
-        ("pushed", pushed, (n, w)), ("r_delta", r_delta, (w * WORD,)),
-    ):
-        _build.check("%s: %s" % (name, what), t, torch.int32, shape, dev)
+    i32 = torch.int32
+    _build.check("exchange", dev, (
+        ("heard", heard, i32, (n, w)), ("pulled", pulled, i32, (n, w)),
+        ("pushed", pushed, i32, (n, w)), ("r_delta", r_delta, i32, (w * WORD,)),
+    ))
     new = torch.empty((n, w), dtype=torch.int32, device=dev)
     acc = torch.empty(n, dtype=torch.int32, device=dev)
     cnt = torch.empty(n, dtype=torch.int32, device=dev) if want_counts else None

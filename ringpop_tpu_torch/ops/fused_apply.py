@@ -61,9 +61,12 @@ class ApplyState(NamedTuple):
     susp_deadline: torch.Tensor  # [N, N] int32
 
 
-_PLANE_DTYPES = (
+# the kernel's fifteen [N, N] operands: the state planes, then the updates
+_OPERANDS = ApplyState._fields + ("recv_mask", "u_status", "u_inc", "u_source", "u_source_inc")
+_OPERAND_DTYPES = (
     torch.bool, torch.int32, torch.int32, torch.bool, torch.int32,
     torch.int32, torch.int32, torch.int32, torch.int32, torch.int32,
+    torch.bool, torch.int32, torch.int32, torch.int32, torch.int32,
 )
 
 
@@ -191,44 +194,42 @@ def apply_updates(
 
     CUDA tensors launch ``csrc/apply_updates.cu``; CPU tensors run
     :func:`apply_updates_plain`."""
-    n = _validate(st, union)
     dev = st.status.device
     if dev.type == "cpu":
+        _validate(st, union)
         return apply_updates_plain(
             st, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline,
             union, want_masks=want_masks, want_count=want_count, want_refute=want_refute,
         )
-    name = "apply_updates"
+    n = st.status.shape[0]
     words = toolkit.packed_width(n)
-    for f, t, dt in zip(ApplyState._fields, st, _PLANE_DTYPES):
-        _build.check("%s: %s" % (name, f), t, dt, (n, n), dev)
     upd = (recv_mask, u_status, u_inc, u_source, u_source_inc)
-    for f, t, dt in zip(
-        ("recv_mask", "u_status", "u_inc", "u_source", "u_source_inc"),
-        upd,
-        (torch.bool,) + (torch.int32,) * 4,
-    ):
-        _build.check("%s: %s" % (name, f), t, dt, (n, n), dev)
+    nn = (n, n)
+    _build.check("apply_updates", dev, zip(_OPERANDS, (*st, *upd), _OPERAND_DTYPES, (nn,) * 15))
     if union is not None:
-        _build.check("%s: union" % name, union, torch.int32, (n, words), dev)
-    outs = [torch.empty((n, n), dtype=dt, device=dev) for dt in _PLANE_DTYPES]
+        _build.check("apply_updates", dev, (("union", union, torch.int32, (n, words)),))
+    # the outputs in two allocations: the eight int32 planes and the byte
+    # planes (known, ch_active and, under want_masks, the applied mask)
+    p32 = torch.empty((8, n, n), dtype=torch.int32, device=dev).unbind(0)
+    p8 = torch.empty((3 if want_masks else 2, n, n), dtype=torch.bool, device=dev).unbind(0)
+    outs = (p8[0], p32[0], p32[1], p8[1], *p32[2:])
+    applied = p8[2] if want_masks else None
     new_union = torch.empty((n, words), dtype=torch.int32, device=dev) if union is not None else None
-    applied = torch.empty((n, n), dtype=torch.bool, device=dev) if want_masks else None
     rows = torch.empty(n, dtype=torch.bool, device=dev)
     count = torch.empty(n, dtype=torch.int32, device=dev) if want_count else None
     refute = torch.empty(n, dtype=torch.bool, device=dev) if want_refute else None
     # the stamps stay on the device: the kernel reads them, so no
     # host sync is needed to launch
-    now_t = _as_i32(now, dev).reshape(())
-    deadline_t = _as_i32(deadline, dev).reshape(())
-    ptrs = (
-        [_build.ptr(t) for t in st]
-        + [_build.ptr(t) for t in upd]
-        + [_build.ptr(union), _build.ptr(now_t), _build.ptr(deadline_t)]
-        + [_build.ptr(t) for t in outs]
-        + [_build.ptr(t) for t in (new_union, applied, rows, count, refute)]
+    now_t = _stamp(now, dev)
+    deadline_t = _stamp(deadline, dev)
+    ptr = _build.ptr
+    _build.library().call(
+        "ringpop_apply_updates",
+        (*(t.data_ptr() for t in st), *(t.data_ptr() for t in upd), ptr(union),
+         now_t.data_ptr(), deadline_t.data_ptr(), *(t.data_ptr() for t in outs),
+         ptr(new_union), ptr(applied), rows.data_ptr(), ptr(count), ptr(refute)),
+        n, words,
     )
-    _build.library().call("ringpop_apply_updates", ptrs, n, words)
     apply_updates.launches += 1
     return ApplyOut(
         state=ApplyState(*outs),
@@ -238,6 +239,13 @@ def apply_updates(
         applied_count=count.sum(dtype=torch.int32) if want_count else None,
         refute_diag=refute,
     )
+
+
+def _stamp(x, dev) -> torch.Tensor:
+    """An int32 0-d tensor on ``dev``: ``x`` itself when it already is one."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.dim() == 0 and x.device == dev:
+        return x
+    return _as_i32(x, dev).reshape(())
 
 
 apply_updates.launches = 0

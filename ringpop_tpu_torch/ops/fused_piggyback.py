@@ -86,13 +86,11 @@ def pb_budget(
         return pb_budget_plain(
             ch_active, ch_pb, nbump, max_pb, hits, want_content=want_content
         )
-    name = "pb_budget"
-    _build.check(name + ": ch_active", ch_active, torch.bool, (n, n), dev)
-    _build.check(name + ": ch_pb", ch_pb, torch.int32, (n, n), dev)
-    _build.check(name + ": nbump", nbump, torch.int32, (n,), dev)
-    _build.check(name + ": max_pb", max_pb, torch.int32, (n,), dev)
-    if hits is not None:
-        _build.check(name + ": hits", hits, torch.int32, (n, n), dev)
+    i32, nn = torch.int32, (n, n)
+    _build.check("pb_budget", dev, (
+        ("ch_active", ch_active, torch.bool, nn), ("ch_pb", ch_pb, i32, nn),
+        ("nbump", nbump, i32, (n,)), ("max_pb", max_pb, i32, (n,)),
+    ) + ((("hits", hits, i32, nn),) if hits is not None else ()))
     pb2 = torch.empty((n, n), dtype=torch.int32, device=dev)
     active2 = torch.empty((n, n), dtype=torch.bool, device=dev)
     content = torch.empty((n, n), dtype=torch.bool, device=dev) if want_content else None

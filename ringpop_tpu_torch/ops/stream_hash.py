@@ -125,13 +125,12 @@ def fused_stream(h0, g0, f0, rec_words, rec_len, total_blocks):
         return fused_stream_plain(h0, g0, f0, rec_words, rec_len, total_blocks)
     B, N, RW = rec_words.shape
     dev = rec_words.device
-    name = "fused_stream"
-    for what, t, shape in (
-        ("h0", h0, (B,)), ("g0", g0, (B,)), ("f0", f0, (B,)),
-        ("rec_words", rec_words, (B, N, RW)), ("rec_len", rec_len, (B, N)),
-        ("total_blocks", total_blocks, (B,)),
-    ):
-        _build.check("%s: %s" % (name, what), t, torch.int32, shape, dev)
+    i32 = torch.int32
+    _build.check("fused_stream", dev, (
+        ("h0", h0, i32, (B,)), ("g0", g0, i32, (B,)), ("f0", f0, i32, (B,)),
+        ("rec_words", rec_words, i32, (B, N, RW)), ("rec_len", rec_len, i32, (B, N)),
+        ("total_blocks", total_blocks, i32, (B,)),
+    ))
     h = torch.empty_like(h0)
     g = torch.empty_like(g0)
     f = torch.empty_like(f0)
