@@ -17,9 +17,14 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    of an N=1024 universe, at B=N=1000, at B=16 x N=1001 (rows not
    16-byte aligned) and on B=64 x N=200 synthetic records of 4, 12 and 16
    words (once with bytes past the lengths set), ``exchange`` at the
-   1M-node storm shape
-   (N=1,000,000, W=16) and at N=1000 with W in {1, 3, 16, 40}, with and
-   without counts, ``block_loop`` at B=1024 and B=256 rows of the real
+   1M-node storm shape (N=1,000,000, W=16), at N=1000 with W in {1, 3, 4,
+   8, 16, 40} (16- and 4-byte lanes), W=512 (a 64 KB table in opt-in
+   shared memory) and W=2048 (a 256 KB table read from global memory), at
+   N=1025 W=4 and N=100,001 / 200,001 (4-word lanes, a ragged last tile),
+   and on W=16 views one word (off a 16-byte boundary, N=1000) and one row
+   (N=100,001) into their allocations, with and without counts, each
+   timed, and at the storm shape with no new bit too (the bit walk idle),
+   ``block_loop`` at B=1024 and B=256 rows of the real
    n=1024 checksum strings (I=1843, as their word view, no copy) and at
    the ragged B=1000 with I in {1, 7} and zero trip counts, and
    ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows;
@@ -48,7 +53,10 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    10% killed at tick 2 and revived at tick 30; a cold run, then a warm
    run on a fresh cluster with seed + 1, ring digest before and after);
    requires one ``exchange`` launch per storm tick, every node live at the
-   end and the incremental checksums equal to the full recompute; and the
+   end and the incremental checksums equal to the full recompute; the cold
+   run keeps the ``exchange`` operands of ticks 4 and 32, on which the
+   kernel is held against its plain version and timed after the path's
+   launch counts are read; and the
    classic configuration ``SimCluster(n=1024, fused_tick="off",
    fused_checksum="off")`` (bootstrap, ``run_until_converged(96,
    quiet_after=1)``, a timed 64-tick ``EventSchedule.churn_window``, one
@@ -130,20 +138,22 @@ def _device_ms(fn, reps: int, symbol: str):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and symbol in e.key]
-    count = sum(e.count for e in rows)
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in rows)
     # the profiler does not deliver every kernel record (it has shown 7 of
-    # 20): the mean is over the launches it saw, and their count is kept
-    if count == 0 or us <= 0:
-        raise AssertionError("profiler saw no launch of %s in %d calls" % (symbol, reps))
-    return us / count / 1e3, count
+    # 20, and once none of 50): the mean is over the launches it saw, their
+    # count is kept, and a window in which it saw none is profiled again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and symbol in e.key]
+        count = sum(e.count for e in rows)
+        us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                 for e in rows)
+        if count and us > 0:
+            return us / count / 1e3, count
+    raise AssertionError("profiler saw no launch of %s in 3 x %d calls" % (symbol, reps))
 
 
 def _times(fn, reps: int, symbol: str, warm: int = 1) -> dict:
@@ -155,6 +165,12 @@ def _times(fn, reps: int, symbol: str, warm: int = 1) -> dict:
     print("%s: device %.4f ms (%d of %d launches seen), call %.4f ms"
           % (symbol, device, seen, reps, call), flush=True)
     return dict(ms=call, call_ms=call, device_ms=device, device_launches_seen=seen)
+
+
+def _brief(r: dict) -> dict:
+    """The numbers of one timed operand set, for the kernels line."""
+    keep = ("device_ms", "call_ms", "share_of_bound", "new_bits_per_word")
+    return dict({k: r[k] for k in keep}, bound_ms=r["bound"][0])
 
 
 def _leaves(x):
@@ -582,44 +598,146 @@ def _exchange_inputs(n, w, seed, dev):
     return words(1), words(3), words(3), delta
 
 
-def check_exchange(dev) -> dict:
-    """Phase 3, ``exchange``: the kernel against its plain version at the
-    storm shape and at ragged shapes, with and without counts; its time,
-    its plain version's time and its bound at the storm shape."""
-    from ringpop_tpu_torch.ops import exchange as ex
+def _exchange_plan(ex, args):
+    """The launch plan the wrapper takes for ``args`` (None for a port
+    without ``exchange_plan``, such as an older tree run by this script)."""
+    if not hasattr(ex, "exchange_plan"):
+        return None
+    n, w = args[0].shape
+    return ex.exchange_plan(n, w, ex._aligned(*args[:3]), ex._sm_count(args[0].device.index))
 
-    err = 0
-    storm_args = None
-    for n, w in ((N_STORM, 16), (1000, 1), (1000, 3), (1000, 16), (1000, 40)):
-        args = _exchange_inputs(n, w, 7 + w, dev)
-        for counts in (True, False):
-            got = ex.exchange(*args, want_counts=counts)
-            want = ex.exchange_plain(*args, want_counts=counts)
-            torch.cuda.synchronize()
-            err = max(err, _same(tuple(got), tuple(want),
-                                 "exchange n=%d w=%d counts=%s" % (n, w, counts)))
-        if n == N_STORM:
-            storm_args = args
-    print("exchange bitwise equal to its plain version at N=%d W=16 and N=1000 "
-          "W in (1, 3, 16, 40), with and without counts" % N_STORM, flush=True)
-    # the engine's call: counts off
-    out = ex.exchange(*storm_args, want_counts=False)
-    new_bits = int(ex.popcount_u32(out[0] ^ storm_args[0]).sum())
-    n, w = storm_args[0].shape
+
+def _exchange_view(t, offset_words):
+    """A copy of ``t`` that starts ``offset_words`` words into its
+    allocation: 1 puts it off a 16-byte boundary, W is ``x[1:]`` of an
+    [N + 1, W] tensor."""
+    buf = torch.zeros(t.numel() + offset_words, dtype=t.dtype, device=t.device)
+    view = buf[offset_words:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _exchange_timed(ex, args, label: str) -> dict:
+    """One exchange operand set at the engine's call (counts off): its two
+    times, its byte bound, new bits per word and the share of the bound."""
+    out = ex.exchange(*args, want_counts=False)
+    torch.cuda.synchronize()
+    new_bits = int(ex.popcount_u32(out[0] ^ args[0]).sum())
+    n, w = args[0].shape
     # per word: two ORs, an XOR, a store and a popcount; one add per new
     # bit; the per-row reduction (about one add per word)
     ops = 5.0 * n * w + new_bits + n * w
     r = dict(
-        _times(lambda: ex.exchange(*storm_args, want_counts=False), 50, "exchange_kernel"),
-        plain_ms=_time_ms(lambda: ex.exchange_plain(*storm_args, want_counts=False), 5),
-        bound=_bound(_nbytes(storm_args) + _nbytes(out), ops),
-        max_abs_err=err,
+        _times(lambda: ex.exchange(*args, want_counts=False), 50, "exchange_kernel"),
+        bound=_bound(_nbytes(args) + _nbytes(out), ops),
         new_bits=new_bits,
+        new_bits_per_word=new_bits / (n * w),
     )
-    print("exchange: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s) at N=%d "
-          "W=%d, %d new bits" % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
-                                 r["bound"][1], n, w, new_bits), flush=True)
+    r["share_of_bound"] = r["bound"][0] / r["device_ms"]
+    plan = _exchange_plan(ex, args)
+    if plan is not None:
+        r["plan"] = plan._asdict()
+    print("exchange %s: device %.4f ms, call %.4f ms, bound %.4f ms (%s), %.1f%% of the bound, "
+          "%.3f new bits a word, plan %s" % (label, r["device_ms"], r["call_ms"], r["bound"][0],
+                                             r["bound"][1], 100 * r["share_of_bound"],
+                                             r["new_bits_per_word"], r.get("plan")), flush=True)
     return r
+
+
+def check_exchange(dev) -> dict:
+    """Phase 3, ``exchange``: the kernel against its plain version at the
+    storm shape and at ragged shapes, tables staged in shared memory past
+    48 KB and read from global memory, and views off a 16-byte boundary,
+    with and without counts; its times, its plain version's time and its
+    bound at the storm shape, at the same shape with no new bit (the bit
+    walk idle: the memory traffic alone) and at each smaller shape."""
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    err = 0
+    storm_args = None
+    ragged = {}
+    cases = [(N_STORM, 16, 0)] + [(1000, w, 0) for w in (1, 3, 4, 8, 16, 40, 512, 2048)]
+    # 4-word lanes with a ragged last tile, and views off and on a 16-byte
+    # boundary (4-byte and 4-word lanes)
+    cases += [(1025, 4, 0), (200_001, 4, 0), (100_001, 8, 0), (100_001, 16, 0),
+              (1000, 16, 1), (100_001, 16, 16)]
+    for n, w, offset in cases:
+        args = _exchange_inputs(n, w, 7 + w, dev)
+        if offset:
+            args = tuple(_exchange_view(t, offset) for t in args[:3]) + args[3:]
+        plan = _exchange_plan(ex, args)
+        for counts in (True, False):
+            got = ex.exchange(*args, want_counts=counts)
+            want = ex.exchange_plain(*args, want_counts=counts)
+            torch.cuda.synchronize()
+            err = max(err, _same(tuple(got), tuple(want), "exchange n=%d w=%d offset=%d counts=%s"
+                                 % (n, w, offset, counts)))
+        print("exchange n=%d w=%d offset=%d words: bitwise equal to its plain version with and "
+              "without counts; plan %s" % (n, w, offset, plan), flush=True)
+        if n == N_STORM:
+            storm_args = args
+        else:
+            label = "n%d_w%d" % (n, w) + ("_offset%d" % offset if offset else "")
+            ragged[label] = _exchange_timed(ex, args, label)
+    r = _exchange_timed(ex, storm_args, "N=%d W=16 synthetic" % N_STORM)
+    r["plain_ms"] = _time_ms(lambda: ex.exchange_plain(*storm_args, want_counts=False), 5)
+    r["max_abs_err"] = err
+    r["ragged"] = ragged
+    quiet = (storm_args[0], torch.zeros_like(storm_args[1]), torch.zeros_like(storm_args[2]),
+             storm_args[3])
+    r["no_new_bits"] = _exchange_timed(ex, quiet, "N=%d W=16 no new bit" % N_STORM)
+    print("exchange: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s) at N=%d "
+          "W=16, %d new bits" % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
+                                 r["bound"][1], N_STORM, r["new_bits"]), flush=True)
+    return r
+
+
+class _ExchangeCapture:
+    """Stands in for ``ops.exchange.exchange`` during a storm run and keeps
+    clones of the operands of the calls numbered in ``keep`` (one call a
+    tick).  The wrapper's body counts its launch on the module's
+    ``exchange``, which is this object while it is bound: ``launches``
+    reads and writes the wrapper's own count."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.kept = fn, keep, 0, {}
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, *args, **kw):
+        if self.calls in self.keep:
+            self.kept[self.calls] = tuple(t.clone() for t in args[:4])
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+# the storm ticks whose exchange operands are kept: the spread after the
+# kill at tick 2, and after the revive at tick 30
+STORM_CAPTURE_TICKS = (4, 32)
+STORM_CAPTURED = {}
+
+
+def check_exchange_storm_operands(ex_report: dict) -> None:
+    """Times the kernel on the operands kept from the 1M storm's run (its
+    own inputs, not synthetic ones), after the main path's counts are read:
+    equal to its plain version, and how far the bit walk weighs there."""
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    if sorted(STORM_CAPTURED) != list(STORM_CAPTURE_TICKS):
+        raise AssertionError("kept the storm's exchange operands of ticks %s, not %s"
+                             % (sorted(STORM_CAPTURED), STORM_CAPTURE_TICKS))
+    cases = {}
+    for tick, args in sorted(STORM_CAPTURED.items()):
+        _same(tuple(ex.exchange(*args)), tuple(ex.exchange_plain(*args)),
+              "exchange storm tick %d" % tick)
+        cases["tick_%d" % tick] = _exchange_timed(ex, args, "1M storm tick %d" % tick)
+    ex_report["storm_operands"] = cases
 
 
 # ---------------------------------------------------------------------------
@@ -789,10 +907,20 @@ def storm_headline() -> list:
         ring_before = cluster.ring_checksum()
         torch.cuda.synchronize()
         launches0, reads0 = ex.exchange.launches, es.host_read.count
-        t0 = time.perf_counter()
-        metrics = cluster.run(sched)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        # the cold run keeps the exchange operands of two ticks
+        kernel = ex.exchange
+        capture = _ExchangeCapture(kernel, STORM_CAPTURE_TICKS) if label == "cold" else None
+        if capture is not None:
+            ex.exchange = capture
+        try:
+            t0 = time.perf_counter()
+            metrics = cluster.run(sched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ex.exchange = kernel
+        if capture is not None:
+            STORM_CAPTURED.update(capture.kept)
         launches = ex.exchange.launches - launches0
         reads = es.host_read.count - reads0
         if launches != ticks:
@@ -954,10 +1082,18 @@ def main(argv) -> int:
             for k in needed:
                 if wrappers[k].launches == 0:
                     raise AssertionError("kernel %s was never launched on the %s path" % (k, name))
+        check_exchange_storm_operands(report["exchange"])
     kernels = []
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]
-        extra = {k: r[k] for k in ("chain_bound_ms",) if k in r}
+        extra = {k: r[k] for k in ("chain_bound_ms", "new_bits_per_word", "share_of_bound", "plan")
+                 if k in r}
+        # exchange's other timed operand sets: no new bit, the storm's own,
+        # the small and ragged shapes
+        for k in ("no_new_bits", "storm_operands", "ragged"):
+            if k in r:
+                cases = r[k] if k != "no_new_bits" else {k: r[k]}
+                extra.setdefault("cases", {}).update({c: _brief(v) for c, v in cases.items()})
         if twin.also_replaces:
             extra["also_replaces"] = list(twin.also_replaces)
         kernels.append(dict(

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "ringpop_apply_updates": (33, 2),
     "ringpop_pb_budget": (9, 1),
     "ringpop_fused_stream": (9, 3),
-    "ringpop_exchange": (7, 2),
+    "ringpop_exchange": (7, 6),
     "ringpop_block_loop": (8, 3),
 }
 

@@ -22,8 +22,9 @@ uint32 values are int32 bit patterns (:mod:`ringpop_tpu_torch.ops.u32`).
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +32,13 @@ from ringpop_tpu_torch.ops import _build, toolkit
 from ringpop_tpu_torch.ops.u32 import from_u64
 
 WORD = 32
+
+# The kernel's geometry (csrc/exchange.cu and Hopper's shared memory).
+THREADS = 256  # threads a block
+BLOCKS_PER_SM = 4  # the residency the kernel's __launch_bounds__ promises
+SMEM_PER_SM = 233472  # shared memory of an sm_90 SM (228 KB)
+SMEM_PER_BLOCK = 1024  # shared memory the card reserves for each resident block
+SMEM_TABLE_MAX = 232448 // 4  # table entries a block can stage (227 KB opt-in)
 
 
 def popcount_u32(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +87,64 @@ def exchange_plain(
     return new, acc, cnt
 
 
+class ExchangePlan(NamedTuple):
+    """Launch geometry of ``csrc/exchange.cu`` for one call."""
+
+    vec: int  # words a lane owns: 4 (16-byte lanes) or 1 (4-byte lanes)
+    seg: int  # lanes a row spans in one warp, a power of two <= 32
+    rows_per_tile: int  # rows a block covers at once (THREADS // seg)
+    tiles: int  # row tiles covering N
+    blocks: int  # the persistent grid, never more than the tiles
+    smem_table: bool  # the delta table is staged in shared memory
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def exchange_plan(n: int, w: int, aligned: bool, sm_count: int) -> ExchangePlan:
+    """The kernel's geometry for an [n, w] mask on a card of ``sm_count``
+    SMs.  ``aligned``: the three input planes start on 16-byte boundaries.
+
+    4-word lanes where they tile a row with no idle lane (w / 4 a power of
+    two up to 32, or a multiple of 32) and the planes are aligned, unless
+    their tiles leave the card's blocks idle and 4-byte lanes make more
+    tiles (a small n, where a thread's walk over its words, not the
+    memory, sets the time); 4-byte lanes otherwise.  A row spans the next
+    power of two of its lanes, at most a warp (a lane then takes several
+    items of the row).  The grid is as many blocks as the card holds at
+    once, at most one a tile: each block stages the delta table once and
+    walks tiles with a grid stride."""
+    table_bytes = w * WORD * 4
+    smem_table = w * WORD <= SMEM_TABLE_MAX
+    per_sm = BLOCKS_PER_SM
+    if smem_table:
+        per_sm = min(per_sm, SMEM_PER_SM // (table_bytes + SMEM_PER_BLOCK))
+    capacity = sm_count * per_sm
+
+    def tiling(vec):
+        seg = min(32, _pow2_at_least(w // vec))
+        return vec, seg, THREADS // seg, -(-n // (THREADS // seg))
+
+    q = w // 4
+    wide = q >= 1 and w % 4 == 0 and ((q & (q - 1)) == 0 and q <= 32 or q % 32 == 0)
+    vec, seg, rows_per_tile, tiles = tiling(1)
+    if aligned and wide:
+        wide_tiling = tiling(4)
+        if wide_tiling[3] >= min(capacity, tiles):
+            vec, seg, rows_per_tile, tiles = wide_tiling
+    return ExchangePlan(vec, seg, rows_per_tile, tiles, min(tiles, capacity), smem_table)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(*planes: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in planes)
+
+
 def exchange(
     heard: torch.Tensor,
     pulled: torch.Tensor,
@@ -98,8 +164,8 @@ def exchange(
     new_bits [N] int32 or None)``.  ``want_counts=False`` skips the
     popcount output (the engine's hot path consumes only the delta).
 
-    CUDA tensors launch ``csrc/exchange.cu``; CPU tensors run
-    :func:`exchange_plain`."""
+    CUDA tensors launch ``csrc/exchange.cu`` with the geometry of
+    :func:`exchange_plan`; CPU tensors run :func:`exchange_plain`."""
     if heard.ndim != 2:
         raise ValueError("exchange wants an [N, U/32] mask, got %r" % (tuple(heard.shape),))
     n, w = heard.shape
@@ -119,8 +185,10 @@ def exchange(
     new = torch.empty((n, w), dtype=torch.int32, device=dev)
     acc = torch.empty(n, dtype=torch.int32, device=dev)
     cnt = torch.empty(n, dtype=torch.int32, device=dev) if want_counts else None
+    plan = exchange_plan(n, w, _aligned(heard, pulled, pushed), _sm_count(dev.index))
     ptrs = [_build.ptr(t) for t in (heard, pulled, pushed, r_delta, new, acc, cnt)]
-    _build.library().call("ringpop_exchange", ptrs, n, w)
+    _build.library().call("ringpop_exchange", ptrs, n, w, plan.vec, plan.seg, plan.blocks,
+                          int(plan.smem_table))
     exchange.launches += 1
     return new, acc, cnt
 

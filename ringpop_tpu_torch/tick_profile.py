@@ -31,7 +31,8 @@ unfused "gated" farmhash recompute through ``block_loop``), same windows.
 wave, suspicion and the indirect rounds) and the ``rejoin`` window (ticks
 28-39: suspicion expiry, the revive wave and its dissemination), each
 run once to warm up, then timed plain and under the profiler, all three
-from the same starting state.
+from the same starting state; the ``exchange`` kernel's launches and
+device time are reported beside the top ten kernels.
 """
 
 from __future__ import annotations
@@ -53,7 +54,10 @@ def _window(sim, sched):
     return time.perf_counter() - t0
 
 
-def _profiled(sim, sched, top: int = 8) -> dict:
+def _profiled(sim, sched, top: int = 8, watch=()) -> dict:
+    """The window under the profiler: device time, busy share, host reads,
+    launches, the ``top`` kernels by device time and, for each name in
+    ``watch``, the kernels whose name holds it (count, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,6 +83,9 @@ def _profiled(sim, sched, top: int = 8) -> dict:
         kernel_launches=launches,
         top=[dict(name=e.key[:80], count=e.count, device_ms=dev_us(e) / 1e3)
              for e in kernels[:top]],
+        watched={w: dict(count=sum(e.count for e in kernels if w in e.key),
+                         device_ms=sum(dev_us(e) for e in kernels if w in e.key) / 1e3)
+                 for w in watch},
     )
 
 
@@ -155,7 +162,7 @@ def profile_storm(n: int) -> dict:
         wall = _window(sim, part(a, b))
         reads = es.host_read.count - reads
         sim.state = pre
-        prof = _profiled(sim, part(a, b))
+        prof = _profiled(sim, part(a, b), top=10, watch=("exchange_kernel",))
         pos = b
         out[name] = dict(
             ticks=b - a,
