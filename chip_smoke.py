@@ -43,8 +43,13 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    partition split at tick 5 healed at tick 20) likewise, once more on the
    card with TF32 matmuls allowed: every state and metric field must be
    equal on every tick (the scalable ``mean_heard_frac``, a float32 mean,
-   within a relative 1e-6); the storm's FarmHash truth checksum on the
-   card must equal the host FarmHash32 of the truth checksum string;
+   within a relative 1e-6; the ticks where it is not bitwise are counted);
+   the storm's FarmHash truth checksum on the card must equal the host
+   FarmHash32 of the truth checksum string; and an n=4096 routed storm
+   (``RoutedStorm``, Q=4096 queries a tick, request traces on at rate 1/2,
+   a 30-tick 10% churn storm) in both ring implementations, on the card
+   and on the CPU: every RouteState, RouteMetrics and ScalableMetrics
+   field equal on every tick, the drained request records too;
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -62,7 +67,18 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    quiet_after=1)``, a timed 64-tick ``EventSchedule.churn_window``, one
    warm and one timed 256-tick quiet window), which must launch
    ``block_loop``, converge to one checksum and give node 0 the host
-   FarmHash32 of its checksum string;
+   FarmHash32 of its checksum string; and the routed storm
+   (``RoutedStorm`` over ``ScalableParams(n)``, a warm and a timed window
+   of sparse churn, random kills each tick revived two ticks later) at
+   full width (1M nodes, 2^20 queries a tick, 16 ticks, 32 kills a tick:
+   the ring update overflows its caps and falls back from tick 3) and at
+   bench.py's 100k (262,144 queries, 8 ticks, 8 kills a tick: every update
+   incremental, required), each in both ring implementations, which must
+   give equal truth rings and metrics, one ``exchange`` launch a tick and
+   routed queries; queries/s, lookups/s (4 a query), ms/tick, host
+   syncs/tick and peak memory printed per run; then the ring-maintenance
+   A/B at 1M (``ring_kernel.update`` against a ``build_ring`` sort over one
+   32-tick sequence of 32 flips a tick, equal rings required);
 6. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -807,6 +823,7 @@ def check_storm_e2e(n=N_MID, ticks=40):
             torch.backends.cudnn.allow_tf32 = tf32
             card = ScalableCluster(n=n, params=params, seed=2, device="cuda")
             assert card.params.fused_exchange == "kernel"
+            inexact = 0  # ticks whose mean_heard_frac is within the tolerance, not bitwise
             cins = sched.as_inputs(card.device)
             for t in range(ticks):
                 m = card.step(_tick_at(cins, t))
@@ -818,6 +835,7 @@ def check_storm_e2e(n=N_MID, ticks=40):
                           if f == "mean_heard_frac" else a == b)
                     if not ok:
                         raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
+                inexact += int(m.mean_heard_frac != wm.mean_heard_frac)
                 got = convert.scalable_state_to_numpy(card.state)
                 for f in es.ScalableState._fields:
                     if (got[f] is None) != (ws[f] is None) or (
@@ -832,10 +850,88 @@ def check_storm_e2e(n=N_MID, ticks=40):
                 raise AssertionError("n=%d tf32=%s: truth checksum %#x != host FarmHash32 %#x"
                                      % (n, tf32, truth, host_truth))
             print("n=%d storm tf32=%s: %d ticks, card == cpu on every state and metric "
-                  "field; truth checksum %#010x == host FarmHash32; fired %s"
-                  % (n, tf32, ticks, truth, json.dumps(fired)), flush=True)
+                  "field (mean_heard_frac not bitwise on %d ticks); truth checksum %#010x == host "
+                  "FarmHash32; fired %s"
+                  % (n, tf32, ticks, inexact, truth, json.dumps(fired)), flush=True)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+# ---------------------------------------------------------------------------
+# n=4096 routed storm: card (kernel) vs CPU (plain versions)
+
+
+def _route_state_same(got: dict, want: dict, label: str) -> None:
+    """Every RouteState field (the ring's fields too) equal, dtype and all."""
+    import numpy as np
+
+    for f, w in want.items():
+        g = got[f]
+        pairs = ([(f + "." + k, g[k], w[k]) for k in w] if isinstance(w, dict)
+                 else [(f, g, w)])
+        for name, a, b in pairs:
+            if (a is None) != (b is None) or (b is not None and (
+                    a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b))):
+                raise AssertionError("%s: route state %s differs" % (label, name))
+
+
+def check_route_e2e(n=N_MID, ticks=30):
+    """Phase 4, routed: a 10% churn storm (fail at tick 1, rejoin at 15)
+    under the routing plane with request traces on, in both ring
+    implementations: every RouteState, RouteMetrics and ScalableMetrics
+    field on the card equals the CPU's on every tick (``mean_heard_frac``
+    within a relative 1e-6), and so do the drained request records."""
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.cluster import _tick_at
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+
+    sched = StormSchedule.churn_storm(ticks, n, 0.10, fail_tick=1, rejoin_tick=15, seed=1)
+    for impl in ("incremental", "full"):
+        route = RouteParams(n=n, queries_per_tick=4096, reqtrace=True, req_sample_log2=1,
+                            ring_impl=impl)
+        params = es.ScalableParams(n=n, u=512)
+        storms = [RoutedStorm(n, params=params, route=route, seed=3, device=d)
+                  for d in ("cpu", "cuda")]
+        ins = [sched.as_inputs(s.device) for s in storms]
+        totals = {}
+        inexact = 0  # ticks whose mean_heard_frac is within the tolerance, not bitwise
+        for t in range(ticks):
+            (wem, wrm), (gem, grm) = (s.step(_tick_at(i, t)) for s, i in zip(storms, ins))
+            label = "n=%d routed %s tick %d" % (n, impl, t)
+            for f in es.ScalableMetrics._fields:
+                a, b = float(getattr(gem, f)), float(getattr(wem, f))
+                ok = (abs(a - b) <= MEAN_FRAC_RTOL * abs(b) if f == "mean_heard_frac" else a == b)
+                if not ok:
+                    raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
+            inexact += int(gem.mean_heard_frac != wem.mean_heard_frac)
+            for f in grm._fields:
+                if getattr(grm, f) != getattr(wrm, f):
+                    raise AssertionError("%s: route metric %s %r vs %r"
+                                         % (label, f, getattr(grm, f), getattr(wrm, f)))
+                totals[f] = totals.get(f, 0) + int(getattr(grm, f))
+            _route_state_same(convert.route_state_to_numpy(storms[1].rstate),
+                              convert.route_state_to_numpy(storms[0].rstate), label)
+            got = convert.scalable_state_to_numpy(storms[1].cluster.state)
+            want = convert.scalable_state_to_numpy(storms[0].cluster.state)
+            for f, w in want.items():
+                if (got[f] is None) != (w is None) or (w is not None and not (got[f] == w).all()):
+                    raise AssertionError("%s: state %s differs" % (label, f))
+        if storms[0].ring_checksum() != storms[1].ring_checksum():
+            raise AssertionError("n=%d routed %s: ring checksums differ" % (n, impl))
+        drained = [s.drain_requests() for s in storms]
+        if drained[0] != drained[1]:
+            raise AssertionError("n=%d routed %s: drained request records differ" % (n, impl))
+        if min(totals["route_misroutes"], totals["route_checksums_differ"],
+               totals["route_ring_changed"]) == 0:
+            raise AssertionError("n=%d routed %s: the storm did not disturb routing: %r"
+                                 % (n, impl, totals))
+        print("n=%d routed storm %s: %d ticks, card == cpu on every RouteState, RouteMetrics and "
+              "ScalableMetrics field (mean_heard_frac not bitwise on %d ticks); %d request "
+              "records drained (%d dropped); totals %s"
+              % (n, impl, ticks, inexact, len(drained[1]["records"]), drained[1]["drops"],
+                 json.dumps(totals)), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -956,6 +1052,157 @@ def storm_headline() -> list:
     return runs
 
 
+def _route_window(n: int, q: int, ticks: int, churn: int, impl: str):
+    """One configuration of the routed storm in one ring implementation:
+    ``RoutedStorm(n, ScalableParams(n), RouteParams(queries_per_tick=q))``,
+    a warm window then a timed one over the same sparse-churn schedule
+    (the state runs on).  Returns the timed window's numbers, both
+    windows' metrics and the truth ring."""
+    from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    torch.cuda.reset_peak_memory_stats()
+    rs = RoutedStorm(n, params=es.ScalableParams(n=n),
+                     route=RouteParams(n=n, queries_per_tick=q, ring_impl=impl), seed=0,
+                     device="cuda")
+    sched = StormSchedule.sparse_churn(ticks, n, churn)
+    windows = []
+    for label in ("warm", "timed"):
+        torch.cuda.synchronize()
+        launches0, reads0 = ex.exchange.launches, es.host_read.count
+        t0 = time.perf_counter()
+        em, rm = rs.run(sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ex.exchange.launches - launches0
+        if launches != ticks:
+            raise AssertionError("routed n=%d %s %s: %d exchange launches in %d ticks"
+                                 % (n, impl, label, launches, ticks))
+        windows.append((label, wall, es.host_read.count - reads0, em, rm))
+    _, wall, reads, em, rm = windows[-1]
+    out = dict(
+        n=n, q=q, ticks=ticks, churn_per_tick=churn, ring_impl=rs.route_params.ring_impl,
+        bucket_bits=rs.route_params.bucket_bits, segment_cap=int(rs.buckets.keys.shape[1]),
+        wall_s=wall, ms_per_tick=wall / ticks * 1e3, queries_per_s=q * ticks / wall,
+        lookups_per_s=4 * q * ticks / wall, host_syncs_per_tick=reads / ticks,
+        warm_ms_per_tick=windows[0][1] / ticks * 1e3,
+        full_rebuilds_per_tick={w[0]: [int(x) for x in w[4].route_ring_full_rebuilds]
+                                for w in windows},
+        dirty_buckets_per_tick=[int(x) for x in rm.route_ring_dirty_buckets],
+        route_queries=int(rm.route_queries.sum()),
+        misroutes=int(rm.route_misroutes.sum()),
+        keys_diverged=int(rm.route_keys_diverged.sum()),
+        checksum_rejects=int(rm.route_checksum_rejects.sum()),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("routed %s" % json.dumps(out), flush=True)
+    metrics = [(w[3], w[4]) for w in windows]
+    return out, metrics, rs.truth_ring()
+
+
+def _route_pair(n: int, q: int, ticks: int, churn: int) -> dict:
+    """Both ring implementations on one configuration; their truth rings
+    and every metric stack must be equal."""
+    import numpy as np
+
+    runs = {impl: _route_window(n, q, ticks, churn, impl) for impl in ("incremental", "full")}
+    (inc, m_inc, ring_inc), (full, m_full, ring_full) = runs["incremental"], runs["full"]
+    if not np.array_equal(ring_inc, ring_full):
+        raise AssertionError("routed n=%d: the truth rings of the two impls differ" % n)
+    for (em_a, rm_a), (em_b, rm_b) in zip(m_inc, m_full):
+        for m_a, m_b in ((em_a, em_b), (rm_a, rm_b)):
+            for f in m_a._fields:
+                if not np.array_equal(getattr(m_a, f), getattr(m_b, f)):
+                    raise AssertionError("routed n=%d: metric %s differs across impls" % (n, f))
+    if min(inc["route_queries"], full["route_queries"]) <= 0:
+        raise AssertionError("routed n=%d: no query was routed" % n)
+    return dict(incremental=inc, full=full, ring_points=int(m_inc[-1][1].route_ring_points[-1]),
+                rings_equal=True, metrics_equal=True)
+
+
+def _ring_rebuild_ab(n: int, r: int, ticks: int, churn: int) -> dict:
+    """Ring maintenance alone, as bench.py's ``_ring_rebuild_ab``: one
+    mask sequence (``churn`` random flips a tick), ``ring_kernel.update``
+    with caps sized to it against a full ``build_ring`` sort every tick,
+    each timed warm; the final rings and per-tick probe sums must agree."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.ring import device as ringdev
+    from ringpop_tpu_torch.models.route import ring_kernel as rk
+    from ringpop_tpu_torch.ops import u32
+
+    dev = torch.device("cuda")
+    reps = ringdev.device_replica_hashes(n, r, dev)
+    bits = rk.default_bucket_bits(n, r)
+    buckets = rk.build_buckets(reps, bits, dev)
+    rng = np.random.default_rng(1)
+    masks = np.ones((ticks, n), bool)
+    mask = np.ones(n, bool)
+    for t in range(ticks):
+        flips = rng.choice(n, size=min(churn, n), replace=False)
+        mask = mask.copy()
+        mask[flips] = ~mask[flips]
+        masks[t] = mask
+    masks = torch.as_tensor(masks, device=dev)
+    state0 = rk.full_rebuild(buckets, torch.ones(n, dtype=torch.bool, device=dev))
+    caps = dict(max_changed=4 * churn, max_dirty=min(1 << bits, 4 * churn * r))
+
+    def incremental():
+        st, acc, rebuilds = state0, 0, 0
+        for t in range(ticks):
+            st, _, _, ov = rk.update(buckets, st, masks[t], **caps)
+            acc = acc + st.n_points.to(torch.int64) + st.first_owner
+            rebuilds = rebuilds + ov
+        return rk.materialize(st, n * r), acc, rebuilds
+
+    def full_sort():
+        acc = 0
+        for t in range(ticks):
+            ring = ringdev.build_ring(reps, masks[t])
+            npts = ringdev.ring_size(masks[t], r)
+            owner0 = u32.from_u64(ring[0])  # the global min key's owner
+            acc = acc + npts.to(torch.int64) + torch.where(npts > 0, owner0, -1)
+        return ring, acc
+
+    out = dict(n=n, replica_points=r, ticks=ticks, churn_per_tick=churn, bucket_bits=bits, **caps)
+    results = {}
+    for name, fn in (("incremental", incremental), ("full_sort", full_sort)):
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        out[name + "_ms_per_tick"] = (time.perf_counter() - t0) / ticks * 1e3
+    (ring_i, acc_i, rebuilds), (ring_f, acc_f) = results["incremental"], results["full_sort"]
+    if not (torch.equal(ring_i, ring_f) and int(acc_i) == int(acc_f)):
+        raise AssertionError("ring A/B: the incremental ring differs from the full sort")
+    out["incremental_full_rebuilds"] = int(rebuilds)
+    out["bitwise_equal"] = True
+    print("ring_ab %s" % json.dumps(out), flush=True)
+    return out
+
+
+ROUTE_1M = dict(n=N_STORM, q=1 << 20, ticks=16, churn=32)  # tpu_measure.phase_route
+ROUTE_100K = dict(n=100_000, q=262_144, ticks=8, churn=8)  # bench.py's route phase
+
+
+def route_headline() -> dict:
+    """The routed storm at full width (1M nodes, 2^20 queries a tick, 32
+    kills a tick: the overflow fallback from tick 3 on), bench.py's
+    100k configuration (8 kills a tick: every tick incremental), each in
+    both ring implementations, and the ring-maintenance A/B at 1M."""
+    out = dict(route_1m=_route_pair(**ROUTE_1M), route_100k=_route_pair(**ROUTE_100K))
+    for impl in ("incremental", "full"):
+        per_tick = out["route_100k"][impl]["full_rebuilds_per_tick"]
+        if any(any(v) for v in per_tick.values()):
+            raise AssertionError("routed n=100000 %s: a tick fell back to the full rebuild: %r"
+                                 % (impl, per_tick))
+    out["ring_ab_1m"] = _ring_rebuild_ab(N_STORM, 16, 32, ROUTE_1M["churn"])
+    return out
+
+
 def classic_headline() -> dict:
     """The classic tick and the unfused farmhash checksum path at n=1024:
     bootstrap, converge, a timed churn window, a warm and a timed quiet
@@ -1054,6 +1301,7 @@ def main(argv) -> int:
     report["block_loop"] = check_block_loop(dev)
     check_e2e()
     check_storm_e2e()
+    check_route_e2e()
 
     wrappers = {
         "apply_updates": fused_apply.apply_updates,
@@ -1068,6 +1316,7 @@ def main(argv) -> int:
          ("apply_updates", "pb_budget", "fused_stream")),
         ("1M storm", storm_headline, ("exchange",)),
         ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
+        ("routed storm", route_headline, ("exchange",)),
     )
     launches = {k: 0 for k in wrappers}
     if not quick:

@@ -177,3 +177,92 @@ def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
     fe = fields.get("fused_exchange", "auto")
     kw["fused_exchange"] = {"xla": "plain", "pallas": "kernel"}.get(fe, fe)
     return es.ScalableParams(**kw)
+
+
+# ---------------------------------------------------------------------------
+# the routing plane
+
+_RING_STATE_FIELDS = ("seg_keys", "count", "mask", "n_points", "first_owner", "next_owner")
+_ROUTE_TRACE_FIELDS = ("req_buf", "req_head", "req_drops", "req_counts", "req_tick")
+
+
+def route_params_from_jax_fields(fields: dict):
+    """The port's RouteParams for a JAX ``RouteParams._asdict()`` (the same
+    fields; the histogram plane is not ported yet)."""
+    from ringpop_tpu_torch.models.route import plane
+
+    if fields.get("histograms"):
+        raise NotImplementedError(
+            "RouteParams(histograms=True) is not ported yet (ROADMAP.md queue A, A9)"
+        )
+    return plane.RouteParams(**{k: fields[k] for k in plane.RouteParams._fields if k in fields})
+
+
+def _flipped(a) -> torch.Tensor:
+    """uint64 ring keys -> the port's flipped int64 keys."""
+    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64)) ^ np.uint64(1 << 63)
+    return torch.from_numpy(a.view(np.int64).copy())
+
+
+def _as_dict(x) -> dict:
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+
+
+def route_state_from_numpy(arrays: dict, device="cpu"):
+    """The port's RouteState from numpy copies of a JAX RouteState's fields
+    (``ring`` a mapping or NamedTuple of the RingState's fields, or None):
+    uint64 ring keys become flipped int64, the uint32 ``rng`` its int32
+    view."""
+    from ringpop_tpu_torch.models.route import plane
+    from ringpop_tpu_torch.models.route import ring_kernel as rk
+
+    if arrays.get("hist") is not None:
+        raise NotImplementedError(
+            "RouteState.hist (the histogram plane) is not ported yet (ROADMAP.md queue A, A9)"
+        )
+
+    def plain(a):
+        a = np.asarray(a)
+        dtype = torch.bool if a.dtype == np.bool_ else torch.int32
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    ring = None
+    if arrays.get("ring") is not None:
+        r = _as_dict(arrays["ring"])
+        ring = rk.RingState(**{
+            f: _flipped(r[f]).to(device) if f == "seg_keys" else plain(r[f])
+            for f in _RING_STATE_FIELDS
+        })
+    out = dict(
+        ring=ring,
+        flat_ring=None if arrays.get("flat_ring") is None else _flipped(arrays["flat_ring"]).to(device),
+        mask=None if arrays.get("mask") is None else plain(arrays["mask"]),
+        rng=u32.from_numpy(arrays["rng"], device),
+    )
+    for f in _ROUTE_TRACE_FIELDS:
+        out[f] = None if arrays.get(f) is None else plain(arrays[f])
+    return plane.RouteState(**out)
+
+
+def route_state_to_numpy(state) -> dict:
+    """numpy arrays of every RouteState field, in the JAX dtypes: ring keys
+    uint64, ``rng`` uint32; ``ring`` a dict of the RingState's fields."""
+    from ringpop_tpu_torch.models.ring.device import ring_to_numpy
+
+    def plain(t):
+        return None if t is None else t.detach().to("cpu").numpy()
+
+    ring = None
+    if state.ring is not None:
+        ring = {f: plain(getattr(state.ring, f)) for f in _RING_STATE_FIELDS}
+        ring["seg_keys"] = ring_to_numpy(state.ring.seg_keys)
+    out = dict(
+        ring=ring,
+        flat_ring=None if state.flat_ring is None else ring_to_numpy(state.flat_ring),
+        mask=plain(state.mask),
+        rng=u32.to_numpy(state.rng),
+        hist=None,
+    )
+    for f in _ROUTE_TRACE_FIELDS:
+        out[f] = plain(getattr(state, f))
+    return out

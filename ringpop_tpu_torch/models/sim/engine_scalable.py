@@ -191,6 +191,51 @@ def _fold(key: torch.Tensor, salt: int) -> torch.Tensor:
     return torch.stack([k1 * u32.s32(0x85EBCA6B) + 1, k0 ^ k1])
 
 
+def _seq_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise float32 sums of ``[R, C]``, each row added left to right."""
+    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def _xla_mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 mean of a [N] vector, rounded as the JAX engine's
+    ``jnp.mean(jnp.where(proc_alive, frac, 1.0))`` is in its jitted tick on
+    the XLA CPU backend (ROADMAP.md C1; found by matching that expression
+    inside a scanned ``lax.cond`` at N = 5-32, 48, 64, 100, 1000, 4096):
+
+    - N > 32: XLA rewrites the reduction into windows of 32 (the vector
+      zero-padded to a multiple of 32, the padding split evenly, the odd
+      one after), each window summed left to right, level by level; the
+      last level (<= 32 values) is summed left to right too;
+    - N <= 32: the reduction stays fused with its producer and LLVM
+      vectorizes it from N = 16: 8 lanes when N % 8 < 4, else 4, the
+      lanes folded in halves, the remainder added after; below 16, left
+      to right;
+    - the division by N is a multiply by ``float32(1 / N)``.
+    """
+    n = x.shape[0]
+    scale = float(np.float32(1) / np.float32(n))
+    if n <= 32:
+        vf = 1 if n < 16 else (8 if n % 8 < 4 else 4)
+        m = n // vf * vf
+        acc = _seq_sum_rows(x[:m].reshape(-1, vf).t())  # [vf] lane sums
+        while acc.shape[0] > 1:
+            half = acc.shape[0] // 2
+            acc = acc[:half] + acc[half:]
+        total = acc[0]
+        for j in range(m, n):
+            total = total + x[j]
+        return total * scale
+    while x.shape[0] > 1:
+        m = x.shape[0]
+        padded = -(-m // 32) * 32
+        lo = (padded - m) // 2
+        x = _seq_sum_rows(torch.nn.functional.pad(x, (lo, padded - m - lo)).reshape(-1, 32))
+    return x[0] * scale
+
+
 # ---------------------------------------------------------------------------
 # sortless partner permutation: keyed 4-round Feistel PRP, cycle-walked
 
@@ -766,7 +811,7 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
             heard_counts.to(torch.float32) / n_active.clamp(min=1).to(torch.float32),
             1.0,
         )
-        return torch.where(proc_alive, frac, 1.0).mean()
+        return _xla_mean_f32(torch.where(proc_alive, frac, 1.0))
 
     mean_frac = _phase(
         gate, ~full_cov, _mean_frac,

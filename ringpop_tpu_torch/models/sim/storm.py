@@ -83,6 +83,21 @@ class StormSchedule(DeviceScheduleMixin):
         sched.revive[rejoin_tick, victims] = True
         return sched
 
+    @staticmethod
+    def sparse_churn(ticks: int, n: int, churn: int, seed: int = 0) -> "StormSchedule":
+        """``churn`` random kills each tick from tick 1, each wave revived
+        two ticks later: the steady trickle of bench.py's routing phase
+        (its ``_sparse_churn_schedule``; the same draws)."""
+        rng = np.random.default_rng(seed)
+        sched = StormSchedule(ticks=ticks, n=n)
+        waves = {}
+        for t in range(1, ticks):
+            waves[t] = rng.choice(n, size=min(churn, n), replace=False)
+            sched.kill[t, waves[t]] = True
+            if t - 2 in waves:
+                sched.revive[t, waves[t - 2]] = True
+        return sched
+
 
 class ScalableCluster:
     """The scalable engine's cluster: construction pins the "auto" knobs

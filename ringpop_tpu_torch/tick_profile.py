@@ -4,6 +4,7 @@ under ``torch.profiler``.
     python3 -m ringpop_tpu_torch.tick_profile [--n 1024] [--ticks 64] [--out FILE]
     python3 -m ringpop_tpu_torch.tick_profile --storm [--n 1000000] [--out FILE]
     python3 -m ringpop_tpu_torch.tick_profile --classic [--n 1024] [--out FILE]
+    python3 -m ringpop_tpu_torch.tick_profile --route [--n 1000000] [--q 1048576] [--out FILE]
 
 For each checksum mode it builds ``SimCluster(n)`` on the card, bootstraps
 and converges it (as ``chip_smoke.py`` does), then measures two windows:
@@ -33,6 +34,17 @@ wave, suspicion and the indirect rounds) and the ``rejoin`` window (ticks
 run once to warm up, then timed plain and under the profiler, all three
 from the same starting state; the ``exchange`` kernel's launches and
 device time are reported beside the top ten kernels.
+
+``--route`` profiles the routed storm (``RoutedStorm(n)`` with
+``RouteParams(queries_per_tick=q)``, the incremental ring) over 16-tick
+windows of sparse churn, random kills each tick revived two ticks later:
+``fallback`` (32 kills a tick, as ``benchmarks/tpu_measure.py``'s route
+phase: more dirty buckets than ``max_dirty``, so the ring update falls
+back to the full re-compaction) and ``incremental`` (8 kills a tick, as
+``bench.py``'s: every update stays incremental).  Each window runs once to
+warm up, then timed plain and under the profiler from the same state; the
+ring fallbacks a tick and ``exchange``'s launches and device time are
+reported beside the top ten kernels.
 """
 
 from __future__ import annotations
@@ -176,16 +188,61 @@ def profile_storm(n: int) -> dict:
     return out
 
 
+def profile_route(n: int, q: int, ticks: int = 16) -> dict:
+    import torch
+
+    from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+
+    out = dict(n=n, q=q, ticks=ticks)
+    for name, churn in (("fallback", 32), ("incremental", 8)):
+        rs = RoutedStorm(n, params=es.ScalableParams(n=n),
+                         route=RouteParams(n=n, queries_per_tick=q), seed=0, device="cuda")
+        sched = StormSchedule.sparse_churn(ticks, n, churn)
+        pre = (rs.cluster.state, rs.rstate)
+        _window(rs, sched)  # warm
+        rs.cluster.state, rs.rstate = pre
+        reads = es.host_read.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rm = rs.run(sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reads = es.host_read.count - reads
+        rs.cluster.state, rs.rstate = pre
+        prof = _profiled(rs, sched, top=10, watch=("exchange_kernel",))
+        out[name] = dict(
+            churn_per_tick=churn,
+            bucket_bits=rs.route_params.bucket_bits,
+            wall_s=wall,
+            ms_per_tick=wall / ticks * 1e3,
+            queries_per_s=q * ticks / wall,
+            host_reads_per_tick=reads / ticks,
+            launches_per_tick=prof["kernel_launches"] / ticks,
+            full_rebuilds=[int(x) for x in rm.route_ring_full_rebuilds],
+            dirty_buckets=[int(x) for x in rm.route_ring_dirty_buckets],
+            **prof,
+        )
+        del rs, pre
+        torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=None,
-                    help="nodes (default 1024, or 1000000 with --storm)")
+                    help="nodes (default 1024, or 1000000 with --storm or --route)")
     ap.add_argument("--ticks", type=int, default=64)
     ap.add_argument("--out", default=None)
     ap.add_argument("--storm", action="store_true",
                     help="profile the scalable churn storm")
     ap.add_argument("--classic", action="store_true",
                     help="profile the classic tick with the unfused checksum path")
+    ap.add_argument("--route", action="store_true",
+                    help="profile the routed storm (sparse churn, two schedules)")
+    ap.add_argument("--q", type=int, default=1 << 20,
+                    help="queries a tick with --route (default 2^20)")
     args = ap.parse_args(argv)
     import torch
 
@@ -196,7 +253,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, timeout=60,
     ).stdout.strip()
-    if args.storm:
+    if args.route:
+        result = dict(card=card, route=profile_route(args.n or 1_000_000, args.q))
+    elif args.storm:
         result = dict(card=card, storm=profile_storm(args.n or 1_000_000))
     elif args.classic:
         result = dict(card=card, modes=[profile_mode("classic", args.n or 1024, args.ticks)])

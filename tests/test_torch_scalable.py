@@ -11,9 +11,9 @@ with numpy from a seed:
   (``enable_leave=True``).
 
 Every ``ScalableState`` field (dtype pinned) and every ``ScalableMetrics``
-field must be equal on every tick.  The one exception is
-``mean_heard_frac``, a float32 mean that XLA and PyTorch reduce in
-different orders: relative tolerance 1e-6.  The port also keeps its
+field must be equal on every tick, ``mean_heard_frac`` (a float32 mean)
+included: the port sums it in the order XLA's CPU backend does
+(``engine_scalable._xla_mean_f32``).  The port also keeps its
 incremental checksum equal to the full recompute on every tick.  The JAX
 side compiles once per parameter tuple, so the combinations are chosen
 sparingly; the JAX package's own tests already hold its gate, perm and
@@ -35,7 +35,6 @@ from ringpop_tpu_torch import convert
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
 
 TICKS = 40
-MEAN_FRAC_RTOL = 1e-6  # float32 mean, reduced in another order
 
 _DTYPES = {
     "proc_alive": torch.bool, "gossip_on": torch.bool, "r_active": torch.bool,
@@ -231,7 +230,8 @@ def _assert_metrics(want, pm, label):
         assert got.shape == (), (label, f)
         if f == "mean_heard_frac":
             assert got.dtype == torch.float32
-            np.testing.assert_allclose(got.numpy(), want[f], rtol=MEAN_FRAC_RTOL, err_msg=label)
+            assert got.numpy().view(np.uint32) == np.asarray(want[f], np.float32).view(np.uint32), (
+                "%s: mean_heard_frac %r vs %r" % (label, got.item(), want[f]))
         else:
             assert got.dtype == (torch.bool if f == "full_coverage" else torch.int32), (label, f)
             assert got.item() == want[f].item(), "%s: metric %s: %r vs %r" % (

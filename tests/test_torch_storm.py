@@ -4,9 +4,9 @@ checksum against the host string hash.
 
 The two clusters start from the same seed (``init_state`` draws the same
 numpy randomness) and run the same ``StormSchedule``; every per-tick
-metric, the final state, the checksums and the ring digest must be equal
-(``mean_heard_frac`` within the float32 reduction-order tolerance of
-tests/test_torch_scalable.py), and the port must reach the outcomes those
+metric (``mean_heard_frac``, a float32 mean, bit for bit too), the final
+state, the checksums and the ring digest must be equal, and the port must
+reach the outcomes those
 JAX tests assert.
 """
 
@@ -23,8 +23,6 @@ from ringpop_tpu_torch import convert
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
 
-MEAN_FRAC_RTOL = 1e-6  # float32 mean, reduced in another order
-
 
 def _clusters(n, seed=0, **kw):
     jc = JaxCluster(n=n, params=jes.ScalableParams(n=n, **kw), seed=seed)
@@ -39,11 +37,7 @@ def _schedules(ticks, n, **planes):
 def _assert_same_run(jm, pm, jc, pc):
     for f in pes.ScalableMetrics._fields:
         a, b = np.asarray(getattr(jm, f)), getattr(pm, f)
-        assert b.shape == a.shape, f
-        if f == "mean_heard_frac":
-            np.testing.assert_allclose(b, a, rtol=MEAN_FRAC_RTOL)
-        else:
-            assert np.array_equal(b, a), f
+        assert b.shape == a.shape and np.array_equal(b, a), f
     got = convert.scalable_state_to_numpy(pc.state)
     for f in pes.ScalableState._fields:
         want = getattr(jc.state, f)
