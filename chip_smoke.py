@@ -38,18 +38,22 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 4. runs the n=64 32-tick churn schedule of the full engine on the card
    (kernels) and on the CPU (plain versions) in fast and farmhash modes
    and in the classic unfused configuration (``fused_tick="off"``,
-   ``fused_checksum="off"``, "gated" recompute), and an n=4096, u=512
+   ``fused_checksum="off"``, "gated" recompute), each with the obs planes
+   off and on (flight recorder and histograms), and an n=4096, u=512
    scalable storm (10% churn, 5% packet loss, a
    partition split at tick 5 healed at tick 20) likewise, once more on the
-   card with TF32 matmuls allowed: every state and metric field must be
+   card with TF32 matmuls allowed and once with ``wavefront``,
+   ``histograms`` and ``exchange_metrics=4`` (drained summaries equal
+   too): every state and metric field must be
    equal on every tick (the scalable ``mean_heard_frac``, a float32 mean,
    within a relative 1e-6; the ticks where it is not bitwise are counted);
    the storm's FarmHash truth checksum on the card must equal the host
    FarmHash32 of the truth checksum string; and an n=4096 routed storm
    (``RoutedStorm``, Q=4096 queries a tick, request traces on at rate 1/2,
-   a 30-tick 10% churn storm) in both ring implementations, on the card
-   and on the CPU: every RouteState, RouteMetrics and ScalableMetrics
-   field equal on every tick, the drained request records too;
+   route histograms on, a 30-tick 10% churn storm) in both ring
+   implementations, on the card and on the CPU: every RouteState,
+   RouteMetrics and ScalableMetrics field equal on every tick, the drained
+   request records and histograms too;
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -78,7 +82,21 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    routed queries; queries/s, lookups/s (4 a query), ms/tick, host
    syncs/tick and peak memory printed per run; then the ring-maintenance
    A/B at 1M (``ring_kernel.update`` against a ``build_ring`` sort over one
-   32-tick sequence of 32 flips a tick, equal rings required);
+   32-tick sequence of 32 flips a tick, equal rings required); and the
+   obs paths: ``SimCluster(n=1024)`` with the flight recorder and the
+   histograms on (fast and farmhash; bootstrap, drain, converge, drain, a
+   64-tick churn window, drain), stepped beside a planes-off twin whose
+   checksums and metrics must be equal on every tick, each window
+   dropping nothing and reconciling with its metrics, the histograms
+   non-empty, a run log valid; then ms/tick, host reads a tick (equal
+   required) and launches a tick, planes on beside planes off; the 1M
+   storm's cold schedule with its three planes (one ``exchange`` launch a
+   tick, metrics, checksums and host syncs a tick equal to the cold run,
+   non-empty drains, peak memory); the routed 1M storm with route
+   histograms (rings and metrics equal to its planes-off run); and the
+   tick-cluster harness (``torch-sim`` at n=1024, ``torch-sim-scalable``
+   at n=100,000, lookups against a numpy host ring); each path's seconds
+   are printed;
 6. prints the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -434,8 +452,9 @@ def check_kernels(dev):
 
     report = {}
     err = {"apply_updates": 0, "pb_budget": 0, "fused_stream": 0}
-    # (union, want_masks, want_count, want_refute): the engine's sites in
-    # fast (masks off) and farmhash (masks on) modes
+    # (union, want_masks, want_count, want_refute): the engine's sites
+    # with the dense masks off (fast mode) and on (farmhash mode, and any
+    # mode with an obs plane on: the same site shapes with want_masks)
     apply_combos = [(u, m, c, r) for m in (False, True)
                     for (u, c, r) in ((True, False, True), (True, True, False), (False, True, False))]
     # (hits, want_content): sender select, receiver bump / ping-req leg 3,
@@ -556,13 +575,17 @@ def _churn_schedule(n, ticks):
 
 
 def check_e2e(n=64, ticks=32):
+    """Phase 4, full engine: the churn run on the card equals the CPU on
+    every state and metric field of every tick, in fast, farmhash and
+    classic, with the obs planes off and on (flight recorder and
+    histograms: the event buffers, heads, drops, first_heard and hist)."""
     from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.sim import engine
     from ringpop_tpu_torch.models.sim.cluster import SimCluster, _tick_at
 
-    for mode in ("fast", "farmhash", "classic"):
+    for mode, planes in ((m, o) for o in (False, True) for m in ("fast", "farmhash", "classic")):
         p = engine.SimParams(n=n, checksum_mode="fast" if mode == "fast" else "farmhash",
-                             suspicion_ticks=6)
+                             suspicion_ticks=6, flight_recorder=planes, histograms=planes)
         if mode == "classic":
             p = p._replace(fused_tick="off", fused_checksum="off")
         sims = [SimCluster(n=n, params=p, seed=1, device=d) for d in ("cuda", "cpu")]
@@ -577,17 +600,24 @@ def check_e2e(n=64, ticks=32):
         for t in range(ticks + 1):
             for f in engine.TickMetrics._fields:
                 if not (getattr(ms[0], f) == getattr(ms[1], f)).all():
-                    raise AssertionError("n=%d %s tick %d: metric %s differs" % (n, mode, t, f))
+                    raise AssertionError("n=%d %s planes=%s tick %d: metric %s differs"
+                                         % (n, mode, planes, t, f))
             a, b = (convert.state_to_numpy(s.state) for s in sims)
             for f in engine.SimState._fields:
                 if (a[f] is None) != (b[f] is None) or (
                     a[f] is not None and not (a[f] == b[f]).all()
                 ):
-                    raise AssertionError("n=%d %s tick %d: state %s differs" % (n, mode, t, f))
+                    raise AssertionError("n=%d %s planes=%s tick %d: state %s differs"
+                                         % (n, mode, planes, t, f))
             if t < ticks:
                 ms = [s.step(_tick_at(i, t)) for s, i in zip(sims, ins)]
-        print("n=%d %s: %d ticks, card == cpu on every state and metric field"
-              % (n, mode, ticks + 1), flush=True)
+        obs = ""
+        if planes:
+            obs = " (obs planes on: %d events, %d dropped, %d histogram observations)" % (
+                int(sims[0].state.ev_head), sims[0].event_drops(),
+                int(convert.state_to_numpy(sims[0].state)["hist"].astype("int64").sum()))
+        print("n=%d %s: %d ticks, card == cpu on every state and metric field%s"
+              % (n, mode, ticks + 1, obs), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -737,6 +767,10 @@ class _ExchangeCapture:
 # kill at tick 2, and after the revive at tick 30
 STORM_CAPTURE_TICKS = (4, 32)
 STORM_CAPTURED = {}
+# planes-off references for the obs paths: the 1M storm's cold run and the
+# routed storms' incremental runs, keyed by n
+STORM_COLD = {}
+ROUTE_RUNS = {}
 
 
 def check_exchange_storm_operands(ex_report: dict) -> None:
@@ -857,6 +891,53 @@ def check_storm_e2e(n=N_MID, ticks=40):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
+def check_storm_planes_e2e(n=N_MID, ticks=40):
+    """Phase 4, scalable with its obs planes (``wavefront``,
+    ``histograms``, ``exchange_metrics=4``): the same storm on the card
+    equals the CPU on every state field (first_heard, hist, exch and
+    exch_hist included) and metric of every tick, and the drained
+    summaries are equal."""
+    import numpy as np
+
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.cluster import _tick_at
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+
+    params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5,
+                               wavefront=True, histograms=True, exchange_metrics=4)
+    sched = _mid_storm_schedule(n, ticks)
+    pair = [ScalableCluster(n=n, params=params, seed=2, device=d) for d in ("cpu", "cuda")]
+    ins = [sched.as_inputs(c.device) for c in pair]
+    inexact = 0
+    for t in range(ticks):
+        wm, gm = (c.step(_tick_at(i, t)) for c, i in zip(pair, ins))
+        label = "n=%d storm planes tick %d" % (n, t)
+        for f in es.ScalableMetrics._fields:
+            a, b = getattr(gm, f), getattr(wm, f)
+            ok = (abs(float(a) - float(b)) <= MEAN_FRAC_RTOL * abs(float(b))
+                  if f == "mean_heard_frac" else a == b)
+            if not ok:
+                raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
+        inexact += int(gm.mean_heard_frac != wm.mean_heard_frac)
+        want, got = (convert.scalable_state_to_numpy(c.state) for c in pair)
+        for f in es.ScalableState._fields:
+            if (got[f] is None) != (want[f] is None) or (
+                    got[f] is not None and not np.array_equal(got[f], want[f])):
+                raise AssertionError("%s: state %s differs" % (label, f))
+    drains = [(c.wavefront_summary(), c.drain_histograms(), c.drain_exchange_metrics())
+              for c in pair]
+    if drains[0] != drains[1]:
+        raise AssertionError("n=%d storm planes: the drained summaries differ" % n)
+    wave, hist, exch = drains[1]
+    print("n=%d storm with wavefront, histograms, exchange_metrics=4: %d ticks, card == cpu on "
+          "every state field (first_heard, hist, exch, exch_hist) and metric (mean_heard_frac "
+          "not bitwise on %d ticks); drains equal: %d rumors in the wavefront summary, rumor_age "
+          "count %d p50 %s, exchange ticks %s"
+          % (n, ticks, inexact, len(wave["rumors"]), hist["rumor_age"]["count"],
+             hist["rumor_age"]["p50"], [r["ticks"] for r in exch["shards"]]), flush=True)
+
+
 # ---------------------------------------------------------------------------
 # n=4096 routed storm: card (kernel) vs CPU (plain versions)
 
@@ -878,9 +959,10 @@ def _route_state_same(got: dict, want: dict, label: str) -> None:
 def check_route_e2e(n=N_MID, ticks=30):
     """Phase 4, routed: a 10% churn storm (fail at tick 1, rejoin at 15)
     under the routing plane with request traces on, in both ring
-    implementations: every RouteState, RouteMetrics and ScalableMetrics
-    field on the card equals the CPU's on every tick (``mean_heard_frac``
-    within a relative 1e-6), and so do the drained request records."""
+    implementations, with the route histograms on: every RouteState (hist
+    included), RouteMetrics and ScalableMetrics field on the card equals
+    the CPU's on every tick (``mean_heard_frac`` within a relative 1e-6),
+    and so do the drained request records and histograms."""
     from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
     from ringpop_tpu_torch.models.sim import engine_scalable as es
@@ -890,7 +972,7 @@ def check_route_e2e(n=N_MID, ticks=30):
     sched = StormSchedule.churn_storm(ticks, n, 0.10, fail_tick=1, rejoin_tick=15, seed=1)
     for impl in ("incremental", "full"):
         route = RouteParams(n=n, queries_per_tick=4096, reqtrace=True, req_sample_log2=1,
-                            ring_impl=impl)
+                            ring_impl=impl, histograms=True)
         params = es.ScalableParams(n=n, u=512)
         storms = [RoutedStorm(n, params=params, route=route, seed=3, device=d)
                   for d in ("cpu", "cuda")]
@@ -923,15 +1005,20 @@ def check_route_e2e(n=N_MID, ticks=30):
         drained = [s.drain_requests() for s in storms]
         if drained[0] != drained[1]:
             raise AssertionError("n=%d routed %s: drained request records differ" % (n, impl))
+        hists = [s.drain_histograms() for s in storms]
+        if hists[0] != hists[1] or not hists[1]["route"]["retry_depth"]["count"]:
+            raise AssertionError("n=%d routed %s: drained histograms differ or are empty"
+                                 % (n, impl))
         if min(totals["route_misroutes"], totals["route_checksums_differ"],
                totals["route_ring_changed"]) == 0:
             raise AssertionError("n=%d routed %s: the storm did not disturb routing: %r"
                                  % (n, impl, totals))
-        print("n=%d routed storm %s: %d ticks, card == cpu on every RouteState, RouteMetrics and "
-              "ScalableMetrics field (mean_heard_frac not bitwise on %d ticks); %d request "
-              "records drained (%d dropped); totals %s"
+        print("n=%d routed storm %s: %d ticks, card == cpu on every RouteState (hist included), "
+              "RouteMetrics and ScalableMetrics field (mean_heard_frac not bitwise on %d ticks); "
+              "%d request records drained (%d dropped); histograms drained equal (retry_depth "
+              "count %d); totals %s"
               % (n, impl, ticks, inexact, len(drained[1]["records"]), drained[1]["drops"],
-                 json.dumps(totals)), flush=True)
+                 hists[1]["route"]["retry_depth"]["count"], json.dumps(totals)), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1017,6 +1104,9 @@ def storm_headline() -> list:
             ex.exchange = kernel
         if capture is not None:
             STORM_CAPTURED.update(capture.kept)
+            # the planes-off reference of the storm-with-planes path
+            STORM_COLD.update(metrics=metrics, checksum=cluster.state.checksum.clone(),
+                              host_syncs_per_tick=(es.host_read.count - reads0) / ticks)
         launches = ex.exchange.launches - launches0
         reads = es.host_read.count - reads0
         if launches != ticks:
@@ -1052,12 +1142,13 @@ def storm_headline() -> list:
     return runs
 
 
-def _route_window(n: int, q: int, ticks: int, churn: int, impl: str):
+def _route_window(n: int, q: int, ticks: int, churn: int, impl: str, histograms: bool = False):
     """One configuration of the routed storm in one ring implementation:
     ``RoutedStorm(n, ScalableParams(n), RouteParams(queries_per_tick=q))``,
     a warm window then a timed one over the same sparse-churn schedule
     (the state runs on).  Returns the timed window's numbers, both
-    windows' metrics and the truth ring."""
+    windows' metrics, the truth ring and, with ``histograms``, the
+    drained route histograms."""
     from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
     from ringpop_tpu_torch.models.sim import engine_scalable as es
     from ringpop_tpu_torch.models.sim.storm import StormSchedule
@@ -1065,8 +1156,8 @@ def _route_window(n: int, q: int, ticks: int, churn: int, impl: str):
 
     torch.cuda.reset_peak_memory_stats()
     rs = RoutedStorm(n, params=es.ScalableParams(n=n),
-                     route=RouteParams(n=n, queries_per_tick=q, ring_impl=impl), seed=0,
-                     device="cuda")
+                     route=RouteParams(n=n, queries_per_tick=q, ring_impl=impl,
+                                       histograms=histograms), seed=0, device="cuda")
     sched = StormSchedule.sparse_churn(ticks, n, churn)
     windows = []
     for label in ("warm", "timed"):
@@ -1096,10 +1187,11 @@ def _route_window(n: int, q: int, ticks: int, churn: int, impl: str):
         keys_diverged=int(rm.route_keys_diverged.sum()),
         checksum_rejects=int(rm.route_checksum_rejects.sum()),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        histograms=histograms,
     )
     print("routed %s" % json.dumps(out), flush=True)
     metrics = [(w[3], w[4]) for w in windows]
-    return out, metrics, rs.truth_ring()
+    return out, metrics, rs.truth_ring(), rs.drain_histograms() if histograms else None
 
 
 def _route_pair(n: int, q: int, ticks: int, churn: int) -> dict:
@@ -1108,7 +1200,9 @@ def _route_pair(n: int, q: int, ticks: int, churn: int) -> dict:
     import numpy as np
 
     runs = {impl: _route_window(n, q, ticks, churn, impl) for impl in ("incremental", "full")}
-    (inc, m_inc, ring_inc), (full, m_full, ring_full) = runs["incremental"], runs["full"]
+    (inc, m_inc, ring_inc, _), (full, m_full, ring_full, _) = runs["incremental"], runs["full"]
+    # the planes-off reference of the routed-histograms path
+    ROUTE_RUNS[n] = (m_inc, ring_inc)
     if not np.array_equal(ring_inc, ring_full):
         raise AssertionError("routed n=%d: the truth rings of the two impls differ" % n)
     for (em_a, rm_a), (em_b, rm_b) in zip(m_inc, m_full):
@@ -1272,6 +1366,367 @@ def classic_headline() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the obs paths: the planes on at full width, held against planes-off twins
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profile_window(run, ticks: int, device, top: int = 0) -> dict:
+    """``run()`` (``ticks`` ticks) under ``torch.profiler``: host reads a
+    tick (``aten::_local_scalar_dense``, one read back to the host),
+    kernel launches a tick (``cudaLaunchKernel``), the kernels' device ms
+    a tick and busy share of the window, and the ``top`` kernels by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    _sync(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    reads = sum(e.count for e in rows if e.key == "aten::_local_scalar_dense")
+    launches = sum(e.count for e in rows if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    out = dict(host_reads_per_tick=reads / ticks, launches_per_tick=launches / ticks,
+               device_ms_per_tick=device_ms / ticks if cuda else None,
+               busy_share=device_ms / 1e3 / wall if cuda else None)
+    if top:
+        out["top"] = [dict(name=e.key[:60], launches=e.count, device_ms=dev_us(e) / 1e3)
+                      for e in kernels[:top]]
+    return out
+
+
+def obs_headline(mode: str, n: int = N_HEAD, device="cuda", churn_ticks: int = CHURN_TICKS,
+                 runlog_dir=None) -> dict:
+    """The full engine with the flight recorder and the histograms on at
+    ``n``: bootstrap, drain, converge (``run_until_converged(96,
+    quiet_after=1)``'s loop), drain, a ``churn_ticks`` churn window, drain;
+    every tick stepped beside a planes-off twin (same seed and inputs) whose
+    checksums and TickMetrics must be equal on every tick.  Each window
+    must drop no event and reconcile with its metrics on every field; the
+    histograms must give p50/p95/p99 on every track.  Then ms/tick, host
+    reads a tick and launches a tick of a churn window, planes on beside
+    planes off (host reads must be equal).  With ``runlog_dir`` a run
+    recorder logs the planes-on cluster; its log must validate."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim import engine, flight
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster, _tick_at
+    from ringpop_tpu_torch.obs import events as oe
+    from ringpop_tpu_torch.obs import recorder as orec
+
+    t_phase = time.perf_counter()
+    per_tick = flight.max_events_per_tick(n)
+    cap = _pow2_at_least(per_tick)  # even the worst case of one tick fits
+    base = engine.SimParams(n=n, checksum_mode=mode)
+    on = SimCluster(n=n, params=base._replace(flight_recorder=True, histograms=True,
+                                              event_capacity=cap), device=device)
+    off = SimCluster(n=n, params=base, device=device)
+    rec = None
+    if runlog_dir is not None:
+        rec = orec.RunRecorder(os.path.join(runlog_dir, "obs_%s.runlog.jsonl" % mode))
+        on.attach_recorder(rec)
+
+    def both(call, label):
+        m_on, m_off = call(on), call(off)
+        for f in engine.TickMetrics._fields:
+            if not np.array_equal(getattr(m_on, f), getattr(m_off, f)):
+                raise AssertionError("obs %s %s: metric %s differs with the planes on"
+                                     % (mode, label, f))
+        if not torch.equal(on.state.checksum, off.state.checksum):
+            raise AssertionError("obs %s %s: checksums differ with the planes on" % (mode, label))
+        return m_on
+
+    def stack(ms):
+        return engine.TickMetrics(*(np.stack([getattr(m, f) for m in ms])
+                                    for f in engine.TickMetrics._fields))
+
+    def drained(metrics, label):
+        drops = on.event_drops()
+        events = on.drain_events()
+        if drops:
+            raise AssertionError("obs %s %s: %d events dropped at capacity %d"
+                                 % (mode, label, drops, cap))
+        if metrics is not None:
+            rec_ = oe.reconcile(events, metrics)
+            bad = {k: v for k, v in rec_.items() if not v["match"]}
+            if bad or not rec_:
+                raise AssertionError("obs %s %s: reconcile mismatch %r" % (mode, label, bad))
+        return len(events)
+
+    both(lambda c: c.bootstrap(), "bootstrap")
+    counts = dict(bootstrap=drained(None, "bootstrap"))
+    conv, converged_in = [], -1
+    for t in range(96):  # run_until_converged(96, quiet_after=1), on both
+        conv.append(both(lambda c: c.step(), "converge tick %d" % t))
+        if t >= 1 and bool(conv[-1].converged):
+            converged_in = t + 1
+            break
+    if converged_in < 0:
+        raise AssertionError("obs %s: n=%d did not converge within 96 ticks" % (mode, n))
+    counts["converge"] = drained(stack(conv), "converge")
+    sched = EventSchedule.churn_window(churn_ticks, n)
+    ins = sched.as_inputs(on.device)
+    churn = [both(lambda c: c.step(_tick_at(ins, t)), "churn tick %d" % t)
+             for t in range(churn_ticks)]
+    counts["churn"] = drained(stack(churn), "churn")
+    hist = on.drain_histograms()
+    for track, summ in hist.items():
+        if not summ["count"] or None in (summ["p50"], summ["p95"], summ["p99"]):
+            raise AssertionError("obs %s: histogram track %s is empty: %r" % (mode, track, summ))
+    for f in engine.SimState._fields:
+        a = getattr(off.state, f)
+        if a is not None and not torch.equal(a, getattr(on.state, f)):
+            raise AssertionError("obs %s: state %s differs with the planes on" % (mode, f))
+    lockstep_s = time.perf_counter() - t_phase
+    # the cost of the planes: the same churn window timed on both (state
+    # equal), then counted under the profiler
+    cost = {}
+    for label, sim in (("off", off), ("on", on)):
+        window = EventSchedule.churn_window(churn_ticks, n)
+        _sync(device)
+        t0 = time.perf_counter()
+        sim.run(window)
+        _sync(device)
+        short = EventSchedule.churn_window(16, n)
+        cost[label] = dict(ms_per_tick=(time.perf_counter() - t0) / churn_ticks * 1e3,
+                           **_profile_window(lambda: sim.run(short), short.ticks, device,
+                                             top=6 if label == "on" else 0))
+        if label == "on":
+            on.drain_events()
+    if cost["on"]["host_reads_per_tick"] != cost["off"]["host_reads_per_tick"]:
+        raise AssertionError("obs %s: host reads a tick %r with the planes on, %r off"
+                             % (mode, cost["on"]["host_reads_per_tick"],
+                                cost["off"]["host_reads_per_tick"]))
+    out = dict(
+        mode=mode, n=n, event_capacity=cap, max_events_per_tick=per_tick,
+        events=counts, drops=0, converged_in=converged_in, churn_ticks=churn_ticks,
+        reconcile="all match", neutral_ticks=1 + len(conv) + churn_ticks,
+        hist={k: {q: v[q] for q in ("count", "p50", "p95", "p99")} for k, v in hist.items()},
+        planes_on=cost["on"], planes_off=cost["off"],
+        launches_added_per_tick=cost["on"]["launches_per_tick"] - cost["off"]["launches_per_tick"],
+        lockstep_s=lockstep_s,
+    )
+    if rec is not None:
+        rec.finish()
+        problems = orec.validate_run_log(rec.path)
+        if problems:
+            raise AssertionError("obs %s: run log invalid: %r" % (mode, problems[:3]))
+        with open(rec.path) as fh:
+            out["runlog_rows"] = sum(1 for line in fh if line.strip())
+    print("obs %s" % json.dumps(out), flush=True)
+    return out
+
+
+def obs_paths() -> list:
+    """The n=1024 obs path in fast and farmhash modes; the fast run keeps
+    a run log (in a temporary directory)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        return [obs_headline("fast", runlog_dir=d), obs_headline("farmhash")]
+
+
+def storm_planes_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
+                          off=None) -> dict:
+    """The 1M storm's schedule (the cold run of ``storm_headline``) with
+    ``wavefront``, ``histograms`` and ``exchange_metrics=4`` on: one
+    ``exchange`` launch a tick, metrics on every tick and the final
+    checksums equal to the planes-off run, host syncs a tick equal too,
+    and non-empty drains (the exchange rows counting every tick)."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    off = STORM_COLD if off is None else off
+    params = es.ScalableParams(n=n, u=512, checksum_in_tick=True, wavefront=True,
+                               histograms=True, exchange_metrics=4)
+    sched = StormSchedule.churn_storm(ticks, n, fraction=0.10, fail_tick=2, seed=0)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cluster = ScalableCluster(n=n, params=params, seed=0, device=device)
+    _sync(device)
+    launches0, reads0 = ex.exchange.launches, es.host_read.count
+    t0 = time.perf_counter()
+    metrics = cluster.run(sched)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = ex.exchange.launches - launches0
+    syncs = (es.host_read.count - reads0) / ticks
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if torch.device(device).type == "cuda" else None)
+    if torch.device(device).type == "cuda" and launches != ticks:
+        raise AssertionError("storm planes: %d exchange launches in %d ticks" % (launches, ticks))
+    for f in es.ScalableMetrics._fields:
+        if not np.array_equal(getattr(metrics, f), getattr(off["metrics"], f)):
+            raise AssertionError("storm planes: metric %s differs from the planes-off run" % f)
+    if not torch.equal(cluster.state.checksum.to(off["checksum"].device), off["checksum"]):
+        raise AssertionError("storm planes: checksums differ from the planes-off run")
+    if syncs != off["host_syncs_per_tick"]:
+        raise AssertionError("storm planes: %r host syncs a tick, %r with the planes off"
+                             % (syncs, off["host_syncs_per_tick"]))
+    # where the planes' time goes: the fail window (ticks 0-11) under the
+    # profiler, planes off and on, each on a fresh cluster
+    window = StormSchedule(ticks=12, n=n, kill=sched.kill[:12], revive=sched.revive[:12])
+    profiled = {}
+    for label, p in (("off", params._replace(wavefront=False, histograms=False,
+                                              exchange_metrics=0)), ("on", params)):
+        c = ScalableCluster(n=n, params=p, seed=0, device=device)
+        profiled[label] = _profile_window(lambda: c.run(window), window.ticks, device,
+                                          top=6 if label == "on" else 0)
+        del c
+    t1 = time.perf_counter()
+    wave = cluster.wavefront_summary()
+    hist = cluster.drain_histograms()
+    exch = cluster.drain_exchange_metrics()
+    drain_s = time.perf_counter() - t1
+    if not wave["rumors"] or not hist["rumor_age"]["count"]:
+        raise AssertionError("storm planes: empty wavefront summary or histograms")
+    if [r["ticks"] for r in exch["shards"]] != [ticks] * 4:
+        raise AssertionError("storm planes: exchange rows %r" % exch["shards"])
+    out = dict(
+        n=n, ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+        host_syncs_per_tick=syncs, exchange_launches=launches, peak_mem_gib=peak,
+        metrics_equal_planes_off=True, checksums_equal_planes_off=True,
+        wavefront_rumors=len(wave["rumors"]),
+        wavefront_latency_histogram=wave["latency_histogram_ticks"],
+        hist={k: {q: v[q] for q in ("count", "p50", "p95", "p99")} for k, v in hist.items()},
+        exchange_totals=exch["totals"], exchange_cap_util_pull_p99=exch["cap_util"][
+            "cap_util_pull"]["p99"], drains_s=drain_s,
+        fail_window_planes_off=profiled["off"], fail_window_planes_on=profiled["on"],
+    )
+    print("storm planes %s" % json.dumps(out), flush=True)
+    return out
+
+
+def route_planes_headline() -> dict:
+    """The routed 1M storm (``ROUTE_1M``, incremental ring) with
+    ``RouteParams(histograms=True)``: rings and metrics equal to the
+    planes-off run of ``route_headline``, the drain non-empty."""
+    import numpy as np
+
+    cfg = ROUTE_1M
+    out, metrics, ring, drained = _route_window(cfg["n"], cfg["q"], cfg["ticks"], cfg["churn"],
+                                                "incremental", histograms=True)
+    m_off, ring_off = ROUTE_RUNS[cfg["n"]]
+    if not np.array_equal(ring, ring_off):
+        raise AssertionError("routed histograms: the truth ring differs from the planes-off run")
+    for (em_a, rm_a), (em_b, rm_b) in zip(metrics, m_off):
+        for a, b in ((em_a, em_b), (rm_a, rm_b)):
+            for f in a._fields:
+                if not np.array_equal(getattr(a, f), getattr(b, f)):
+                    raise AssertionError("routed histograms: metric %s differs from planes off" % f)
+    route = drained["route"]
+    if not all(route[k]["count"] for k in route):
+        raise AssertionError("routed histograms: an empty track: %r" % route)
+    res = dict(out, rings_equal_planes_off=True, metrics_equal_planes_off=True,
+               hist={k: {q: v[q] for q in ("count", "p50", "p95", "p99")}
+                     for k, v in route.items()})
+    print("routed histograms %s" % json.dumps(res), flush=True)
+    return res
+
+
+def _host_owner(hashes, in_ring, key: str) -> int:
+    """The ring's owner of ``key`` computed on the host in numpy: the
+    first replica point at or after the key's FarmHash32 in (hash, owner)
+    order, wrapping to the smallest.  ``hashes``: [N, R] uint32."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import farmhash32
+
+    owners = np.nonzero(in_ring)[0]
+    if owners.size == 0:
+        return -1
+    pts = np.sort((hashes[owners].astype(np.uint64) << np.uint64(32)
+                   | owners[:, None].astype(np.uint64)).reshape(-1))
+    i = int(np.searchsorted(pts, np.uint64(farmhash32.hash32(key)) << np.uint64(32)))
+    return int(pts[i % pts.size] & np.uint64(0xFFFFFFFF))
+
+
+def tick_cluster_headline(n_sim: int = N_HEAD, n_scalable: int = 100_000, device="cuda") -> dict:
+    """The tick-cluster harness on the card: ``torch-sim`` at ``n_sim``
+    (converge, kill, suspend/resume, revive, lookups equal to the host
+    ring of node 0's view) and ``torch-sim-scalable`` at ``n_scalable``
+    (converge, kill, revive, a lookup whose owner died moves to a live
+    node, equal to the host ring)."""
+    from ringpop_tpu_torch.api.tick_cluster import TickCluster
+    from ringpop_tpu_torch.models.ring import device as ringdev
+    from ringpop_tpu_torch.ops import u32
+
+    keys = ["key-%d" % i for i in range(8)]
+    out = {}
+    t0 = time.perf_counter()
+    tc = TickCluster.create("torch-sim", n_sim, device=device)
+    tc.start()
+    ticks = dict(converge=tc.tick_until_converged())
+    tc.run_command("kill 3")
+    ticks["after_kill"] = tc.tick_until_converged(200)
+    tc.run_command("suspend 5")
+    tc.tick()
+    if tc.checksum_groups().get(None, []).count(tc.backend.hosts[5]) != 1:
+        raise AssertionError("tick-cluster: the suspended node still reports a checksum")
+    tc.run_command("revive 5")  # SIGCONT: the suspended node resumes
+    ticks["after_resume"] = tc.tick_until_converged(200)
+    tc.run_command("revive 3")
+    ticks["after_revive"] = tc.tick_until_converged(200)
+    if None in tc.checksum_groups():
+        raise AssertionError("tick-cluster: a node is still dead after the revives")
+    sim = tc.backend.sim
+    st = sim.state
+    in_ring = (st.known[0] & (st.status[0] <= 1)).to("cpu").numpy()
+    hashes = ringdev.replica_table(sim.universe.addresses)
+    for k in keys:
+        want = sim.universe.addresses[_host_owner(hashes, in_ring, k)]
+        if tc.backend.lookup(k) != want:
+            raise AssertionError("tick-cluster: lookup(%s) != the host ring's %s" % (k, want))
+    out["torch_sim"] = dict(n=n_sim, ticks=ticks, lookups_equal_host=len(keys),
+                            display=tc.format_groups().splitlines()[-1].strip())
+    sc = TickCluster.create("torch-sim-scalable", n_scalable, device=device)
+    sc.start()
+    s_ticks = dict(converge=sc.tick_until_converged())
+    owner = sc.backend.lookup("hot-key")
+    victim = sc.backend.hosts.index(owner)
+    sc.run_command("kill %d" % victim)
+    sc.tick()
+    moved = sc.backend.lookup("hot-key")
+    cl = sc.backend.cluster
+    in_ring = (cl.state.proc_alive & (cl.state.truth_status <= 1)).to("cpu").numpy()
+    reps = u32.to_numpy(ringdev.device_replica_hashes(n_scalable, cl.replica_points, "cpu"))
+    want = "node%d" % _host_owner(reps, in_ring, "hot-key")
+    if moved in (None, owner) or moved != want:
+        raise AssertionError("tick-cluster scalable: lookup moved %s -> %s (host ring %s)"
+                             % (owner, moved, want))
+    sc.run_command("revive %d" % victim)
+    s_ticks["after_revive"] = sc.tick_until_converged(200)
+    out["torch_sim_scalable"] = dict(n=n_scalable, ticks=s_ticks, dead_owner=owner,
+                                     moved_to=moved,
+                                     display=sc.format_groups().splitlines()[-1].strip())
+    out["seconds"] = time.perf_counter() - t0
+    print("tick_cluster %s" % json.dumps(out), flush=True)
+    return out
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -1299,9 +1754,10 @@ def main(argv) -> int:
     report = check_kernels(dev)
     report["exchange"] = check_exchange(dev)
     report["block_loop"] = check_block_loop(dev)
-    check_e2e()
-    check_storm_e2e()
-    check_route_e2e()
+    for phase in (check_e2e, check_storm_e2e, check_storm_planes_e2e, check_route_e2e):
+        t0 = time.perf_counter()
+        phase()
+        print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
 
     wrappers = {
         "apply_updates": fused_apply.apply_updates,
@@ -1317,15 +1773,23 @@ def main(argv) -> int:
         ("1M storm", storm_headline, ("exchange",)),
         ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
         ("routed storm", route_headline, ("exchange",)),
+        # the obs planes at full width, each against its planes-off run
+        ("SimCluster n=1024 obs planes", obs_paths, ("apply_updates", "pb_budget", "fused_stream")),
+        ("1M storm obs planes", storm_planes_headline, ("exchange",)),
+        ("routed 1M storm histograms", route_planes_headline, ("exchange",)),
+        ("tick-cluster", tick_cluster_headline,
+         ("apply_updates", "pb_budget", "fused_stream", "exchange")),
     )
     launches = {k: 0 for k in wrappers}
     if not quick:
         for name, drive, needed in paths:
             for w in wrappers.values():
                 w.launches = 0
+            t0 = time.perf_counter()
             drive()
-            print("launches on the %s path: %s" % (
-                name, json.dumps({k: w.launches for k, w in wrappers.items()})), flush=True)
+            print("launches on the %s path (%.1f s): %s" % (
+                name, time.perf_counter() - t0,
+                json.dumps({k: w.launches for k, w in wrappers.items()})), flush=True)
             for k, w in wrappers.items():
                 launches[k] += w.launches
             for k in needed:

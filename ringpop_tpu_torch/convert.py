@@ -3,14 +3,17 @@
 ``state_from_numpy`` takes the fields of a JAX ``SimState`` as numpy arrays
 (``{name: np.asarray(getattr(state, name))}``) and returns the port's
 ``SimState``; ``state_to_numpy`` goes the other way.  uint32 fields (the
-per-node ``rng`` keys and ``checksum``) become int32 views of the same
-bits; an unfused farmhash state carries no record cache (``rec_bytes`` and
-``rec_len`` None).  ``params_from_jax_fields`` maps the protocol constants
-and the kernel knobs of a JAX ``SimParams._asdict()`` onto the port's
-``SimParams``.  ``scalable_state_from_numpy``,
-``scalable_state_to_numpy`` and ``scalable_params_from_jax_fields`` do the
-same for the scalable engine (uint32 fields: ``r_delta``, ``rng``,
-``checksum``, ``heard`` and the 0-d ``base_sum``).
+per-node ``rng`` keys, ``checksum`` and the ``hist`` counters) become
+int32 views of the same bits; an unfused farmhash state carries no record
+cache (``rec_bytes`` and ``rec_len`` None), and a plane that is off is
+None on both sides.  ``params_from_jax_fields`` maps the protocol
+constants, the obs-plane knobs and the kernel knobs of a JAX
+``SimParams._asdict()`` onto the port's ``SimParams``.
+``scalable_state_from_numpy``, ``scalable_state_to_numpy`` and
+``scalable_params_from_jax_fields`` do the same for the scalable engine
+(uint32 fields: ``r_delta``, ``rng``, ``checksum``, ``heard``, the 0-d
+``base_sum`` and the ``hist``, ``exch`` and ``exch_hist`` planes), and the
+``route_*`` functions for the routing plane (``hist`` uint32).
 
 Nothing here imports JAX: the arrays are plain numpy.
 """
@@ -26,14 +29,13 @@ from ringpop_tpu_torch.models.sim import engine
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.ops import u32
 
-U32_FIELDS = ("rng", "checksum")
-# obs-only planes of the JAX state that the port does not carry yet
-_UNPORTED_FIELDS = ("ev_buf", "ev_head", "ev_drops", "first_heard", "hist")
+U32_FIELDS = ("rng", "checksum", "hist")
 
 PROTOCOL_FIELDS = (
     "n", "period_ms", "epoch_ms", "suspicion_ticks", "ping_req_size",
     "join_size", "piggyback_factor", "max_digits", "packet_loss",
     "dirty_batch", "checksum_mode", "cell_batch", "gate_phases",
+    "flight_recorder", "event_capacity", "histograms",
 )
 
 
@@ -49,11 +51,6 @@ def state_from_numpy(
     arrays: Dict[str, Optional[np.ndarray]], params: engine.SimParams, device="cpu"
 ) -> engine.SimState:
     """The port's SimState from numpy copies of a JAX SimState's fields."""
-    for f in _UNPORTED_FIELDS:
-        if arrays.get(f) is not None:
-            raise NotImplementedError(
-                "state field %r (an obs plane) is not ported yet (ROADMAP.md)" % f
-            )
     out = {}
     for f in engine.SimState._fields:
         a = arrays.get(f)
@@ -94,14 +91,11 @@ HASH_IMPL_MAP = {"scan": "plain", "pallas": "kernel", "pallas_nogrid": "kernel",
 
 def params_from_jax_fields(fields: dict) -> engine.SimParams:
     """The port's SimParams for a JAX ``SimParams._asdict()``: the protocol
-    constants, ``parity_recompute`` and ``fused_checksum`` carried over as
-    they are; ``fused_tick`` ("xla" -> "plain", "pallas" -> "kernel") and
-    ``hash_impl`` ("scan" -> "plain", either Pallas loop -> "kernel", "env"
-    -> "auto") mapped onto the port's values."""
-    if fields.get("flight_recorder") or fields.get("histograms"):
-        raise NotImplementedError(
-            "flight_recorder / histograms are not ported yet (ROADMAP.md)"
-        )
+    constants, the obs-plane knobs, ``parity_recompute`` and
+    ``fused_checksum`` carried over as they are; ``fused_tick`` ("xla" ->
+    "plain", "pallas" -> "kernel") and ``hash_impl`` ("scan" -> "plain",
+    either Pallas loop -> "kernel", "env" -> "auto") mapped onto the port's
+    values."""
     kw = {k: fields[k] for k in PROTOCOL_FIELDS if k in fields}
     for knob in ("parity_recompute", "fused_checksum"):
         if knob in fields:
@@ -116,13 +110,13 @@ def params_from_jax_fields(fields: dict) -> engine.SimParams:
 # ---------------------------------------------------------------------------
 # the scalable engine
 
-SCALABLE_U32_FIELDS = ("r_delta", "rng", "checksum", "heard", "base_sum")
-_SCALABLE_UNPORTED_FIELDS = ("first_heard", "hist", "exch", "exch_hist")
+SCALABLE_U32_FIELDS = ("r_delta", "rng", "checksum", "heard", "base_sum", "hist", "exch",
+                       "exch_hist")
 
 SCALABLE_PROTOCOL_FIELDS = (
     "n", "u", "ping_req_size", "suspicion_ticks", "piggyback_factor",
     "age_slack", "packet_loss", "epoch", "checksum_in_tick", "enable_leave",
-    "gate_phases", "perm_impl",
+    "gate_phases", "perm_impl", "wavefront", "histograms", "exchange_metrics",
 )
 
 
@@ -131,11 +125,6 @@ def scalable_state_from_numpy(
 ) -> es.ScalableState:
     """The port's ScalableState from numpy copies of a JAX ScalableState's
     fields (``{name: np.asarray(getattr(state, name))}``)."""
-    for f in _SCALABLE_UNPORTED_FIELDS:
-        if arrays.get(f) is not None:
-            raise NotImplementedError(
-                "state field %r (an obs plane) is not ported yet (ROADMAP.md)" % f
-            )
     out = {}
     for f in es.ScalableState._fields:
         a = arrays.get(f)
@@ -166,13 +155,10 @@ def scalable_state_to_numpy(state: es.ScalableState) -> Dict[str, Optional[np.nd
 
 def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
     """The port's ScalableParams for a JAX ``ScalableParams._asdict()``:
-    the protocol constants carried over; ``fused_exchange`` "xla" maps to
-    the plain version, "pallas" to the kernel, "off" and "auto" as they
-    are (every mode gives the same trajectory)."""
-    if fields.get("wavefront") or fields.get("histograms") or fields.get("exchange_metrics"):
-        raise NotImplementedError(
-            "wavefront / histograms / exchange_metrics are not ported yet (ROADMAP.md)"
-        )
+    the protocol constants and the obs-plane knobs carried over;
+    ``fused_exchange`` "xla" maps to the plain version, "pallas" to the
+    kernel, "off" and "auto" as they are (every mode gives the same
+    trajectory)."""
     kw = {k: fields[k] for k in SCALABLE_PROTOCOL_FIELDS if k in fields}
     fe = fields.get("fused_exchange", "auto")
     kw["fused_exchange"] = {"xla": "plain", "pallas": "kernel"}.get(fe, fe)
@@ -188,13 +174,9 @@ _ROUTE_TRACE_FIELDS = ("req_buf", "req_head", "req_drops", "req_counts", "req_ti
 
 def route_params_from_jax_fields(fields: dict):
     """The port's RouteParams for a JAX ``RouteParams._asdict()`` (the same
-    fields; the histogram plane is not ported yet)."""
+    fields)."""
     from ringpop_tpu_torch.models.route import plane
 
-    if fields.get("histograms"):
-        raise NotImplementedError(
-            "RouteParams(histograms=True) is not ported yet (ROADMAP.md queue A, A9)"
-        )
     return plane.RouteParams(**{k: fields[k] for k in plane.RouteParams._fields if k in fields})
 
 
@@ -211,15 +193,11 @@ def _as_dict(x) -> dict:
 def route_state_from_numpy(arrays: dict, device="cpu"):
     """The port's RouteState from numpy copies of a JAX RouteState's fields
     (``ring`` a mapping or NamedTuple of the RingState's fields, or None):
-    uint64 ring keys become flipped int64, the uint32 ``rng`` its int32
-    view."""
+    uint64 ring keys become flipped int64, the uint32 ``rng`` and ``hist``
+    their int32 views."""
     from ringpop_tpu_torch.models.route import plane
     from ringpop_tpu_torch.models.route import ring_kernel as rk
 
-    if arrays.get("hist") is not None:
-        raise NotImplementedError(
-            "RouteState.hist (the histogram plane) is not ported yet (ROADMAP.md queue A, A9)"
-        )
 
     def plain(a):
         a = np.asarray(a)
@@ -238,6 +216,7 @@ def route_state_from_numpy(arrays: dict, device="cpu"):
         flat_ring=None if arrays.get("flat_ring") is None else _flipped(arrays["flat_ring"]).to(device),
         mask=None if arrays.get("mask") is None else plain(arrays["mask"]),
         rng=u32.from_numpy(arrays["rng"], device),
+        hist=None if arrays.get("hist") is None else u32.from_numpy(arrays["hist"], device),
     )
     for f in _ROUTE_TRACE_FIELDS:
         out[f] = None if arrays.get(f) is None else plain(arrays[f])
@@ -246,7 +225,8 @@ def route_state_from_numpy(arrays: dict, device="cpu"):
 
 def route_state_to_numpy(state) -> dict:
     """numpy arrays of every RouteState field, in the JAX dtypes: ring keys
-    uint64, ``rng`` uint32; ``ring`` a dict of the RingState's fields."""
+    uint64, ``rng`` and ``hist`` uint32; ``ring`` a dict of the RingState's
+    fields."""
     from ringpop_tpu_torch.models.ring.device import ring_to_numpy
 
     def plain(t):
@@ -261,7 +241,7 @@ def route_state_to_numpy(state) -> dict:
         flat_ring=None if state.flat_ring is None else ring_to_numpy(state.flat_ring),
         mask=plain(state.mask),
         rng=u32.to_numpy(state.rng),
-        hist=None,
+        hist=None if state.hist is None else u32.to_numpy(state.hist),
     )
     for f in _ROUTE_TRACE_FIELDS:
         out[f] = plain(getattr(state, f))

@@ -20,9 +20,12 @@ docstring gives the model; in short, each tick
 
 :class:`RoutedStorm` couples it to the port's :class:`ScalableCluster`:
 one engine tick, then one routing tick against the new truth.  It runs
-on the card unless ``device="cpu"`` is passed.  The JAX driver's
-checkpoints, run recorder and latency histograms are not ported yet
-(ROADMAP.md): those entry points raise ``NotImplementedError``.
+on the card unless ``device="cpu"`` is passed.  ``RouteParams(histograms=
+True)`` keeps the log2 counters of :data:`ROUTE_HIST_TRACKS` (write-only,
+from the same masks as the counters, so identical across ring impls);
+``attach_recorder`` and ``drain_histograms`` are the host halves.  The
+JAX driver's checkpoints are not ported yet (ROADMAP.md queue A, A10):
+those entry points raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ from ringpop_tpu_torch.models.route import traffic
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.models.sim.cluster import _tick_at, metrics_to_numpy
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+from ringpop_tpu_torch.obs import histograms as oh
 from ringpop_tpu_torch.obs import requests as oreq
+from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import threefry, u32
 
-# RouteState.hist's rows in the JAX package (the histogram plane is not
-# ported yet)
+# RouteState.hist rows, in order: per routed request its retry depth (1 if
+# it was retried) and forwarding hops (2 if rerouted to a remote owner),
+# and per tick the ring's dirty buckets
 ROUTE_HIST_TRACKS = ("retry_depth", "reroute_hops", "dirty_buckets")
 
 
@@ -72,7 +78,7 @@ class RouteParams(NamedTuple):
     max_changed: int = 128
     max_dirty: int = 512
     salt: int = 0x520337
-    # latency histograms: not ported yet (A9), must stay off
+    # log2 histograms of ROUTE_HIST_TRACKS (RouteState.hist)
     histograms: bool = False
     # sampled per-request trace records (reqtrace.py)
     reqtrace: bool = False
@@ -89,7 +95,7 @@ class RouteState(NamedTuple):
     flat_ring: Optional[torch.Tensor]  # [N*R] int64 flipped keys
     mask: Optional[torch.Tensor]  # [N] bool (full impl only)
     rng: torch.Tensor  # [2] int32 — the threefry key's bits
-    hist: Optional[torch.Tensor] = None  # histogram plane: not ported
+    hist: Optional[torch.Tensor] = None  # [3, NBUCKETS] int32 (uint32 counters)
     req_buf: Optional[torch.Tensor] = None  # [cap, RECORD_WIDTH] int32
     req_head: Optional[torch.Tensor] = None  # [] int32
     req_drops: Optional[torch.Tensor] = None  # [] int32
@@ -140,11 +146,6 @@ def resolve_route_params(params: RouteParams, backend: str = "cuda") -> RoutePar
     return params._replace(ring_impl=resolve_ring_impl(params, backend), bucket_bits=bits)
 
 
-def _require_ported(params: RouteParams) -> None:
-    if params.histograms:
-        raise _not_ported("RouteParams(histograms=True) (ops/histogram.py)", "item 3, A9")
-
-
 def _init_reqtrace(params: RouteParams, device) -> dict:
     """Fresh request-trace plane fields (empty when off)."""
     if not params.reqtrace:
@@ -160,15 +161,15 @@ def init_route_state(
     in_ring: torch.Tensor,
     seed: int = 0,
 ) -> RouteState:
-    _require_ported(params)
     dev = in_ring.device
     rng = threefry.prng_key((seed ^ params.salt) & 0xFFFFFFFF, dev)
     req = _init_reqtrace(params, dev)
+    hist = hg.init(len(ROUTE_HIST_TRACKS), dev) if params.histograms else None
     if resolve_ring_impl(params) == "incremental":
         return RouteState(ring=rk.full_rebuild(buckets, in_ring), flat_ring=None, mask=None,
-                          rng=rng, **req)
+                          rng=rng, hist=hist, **req)
     return RouteState(ring=None, flat_ring=ringdev.build_ring(reps, in_ring), mask=in_ring,
-                      rng=rng, **req)
+                      rng=rng, hist=hist, **req)
 
 
 def route_tick(
@@ -185,7 +186,6 @@ def route_tick(
     Zipf requests under the stale and truth views, count the send.js /
     index.js outcomes.  Returns ``(state', RouteMetrics)``; the metrics
     are the same under either ``ring_impl``."""
-    _require_ported(params)
     impl = resolve_ring_impl(params)
     n = params.n
     q = params.queries_per_tick
@@ -261,6 +261,15 @@ def route_tick(
     retried = misroute | rejects
     diverged = multi_ok & retried & (own1_truth != own2_truth)
 
+    if params.histograms:
+        # write-only; the masks are the counters', so both impls agree
+        hist = hg.record(state.hist, ROUTE_HIST_TRACKS.index("retry_depth"),
+                         retried.to(torch.int32), sendable)
+        hist = hg.record(hist, ROUTE_HIST_TRACKS.index("reroute_hops"),
+                         1 + reroute_remote.to(torch.int32), sendable)
+        hist = hg.record_count(hist, ROUTE_HIST_TRACKS.index("dirty_buckets"), n_dirty)
+        new_state = new_state._replace(hist=hist)
+
     if params.reqtrace:
         new_state = rt.record_tick_requests(
             new_state, params, kh=kh1, senders=senders, dest=dest, own_truth=own1_truth,
@@ -312,7 +321,6 @@ class RoutedStorm:
         route = route or RouteParams(n=n, replica_points=replica_points)
         if route.n != n or route.replica_points != replica_points:
             route = route._replace(n=n, replica_points=replica_points)
-        _require_ported(route)
         self.route_params = resolve_route_params(route, self.device.type)
         self.reps = ringdev.device_replica_hashes(n, replica_points, self.device)
         self.buckets = rk.build_buckets(self.reps, self.route_params.bucket_bits, self.device)
@@ -320,6 +328,8 @@ class RoutedStorm:
                                     self.device)
         self.rstate = init_route_state(self.route_params, self.buckets, self.reps,
                                        in_ring_mask(self.cluster.state), seed=seed)
+        # optional run log (attach_recorder)
+        self.recorder = None
 
     # -- driving ----------------------------------------------------------
 
@@ -337,7 +347,7 @@ class RoutedStorm:
         if inputs is None:
             inputs = es.ChurnInputs.quiet(self.route_params.n, self.device)
         em, rm = self._tick(inputs)
-        return metrics_to_numpy(em), metrics_to_numpy(rm)
+        return self._record(metrics_to_numpy(em), metrics_to_numpy(rm))
 
     def run(self, schedule):
         """Loop the tick over a ``StormSchedule``; returns ``[T]`` numpy
@@ -345,17 +355,64 @@ class RoutedStorm:
         inputs = schedule.as_inputs(self.device)
         per_tick = [self._tick(_tick_at(inputs, t)) for t in range(schedule.ticks)]
         ems, rms = zip(*per_tick)
-        return (
+        return self._record(
             metrics_to_numpy(es.ScalableMetrics(*(torch.stack(f) for f in zip(*ems)))),
             metrics_to_numpy(RouteMetrics(*(torch.stack(f) for f in zip(*rms)))),
         )
+
+    # -- telemetry --------------------------------------------------------
+
+    def attach_recorder(self, recorder) -> None:
+        """Attach an ``obs.recorder.RunRecorder``: every step's and run's
+        engine and routing metrics fold into it, one row a tick; the drains
+        log their rows there too."""
+        recorder.describe("sim.engine_scalable+route", self.route_params.n, self.cluster.params,
+                          route_params=self.route_params._asdict())
+        self.recorder = recorder
+
+    def _record(self, em, rm):
+        if self.recorder is not None:
+            rows = dict(em._asdict())
+            rows.update(rm._asdict())
+            self.recorder.record_ticks(rows)
+        return em, rm
+
+    def drain_histograms(self, reset: bool = True, statsd=None) -> dict:
+        """Drain both histogram planes — the routing plane's
+        (``RouteState.hist``) and the engine's (``ScalableState.hist``, when
+        on) — into ``{"route": ..., "sim": ...}`` summaries, one
+        ``hist.drain`` row each on the attached recorder, then (``reset``)
+        zeroed counters.  ``statsd`` is not ported yet."""
+        st = self.cluster.state
+        if self.rstate.hist is None and st.hist is None:
+            raise ValueError(
+                "histograms are off — construct with RouteParams(histograms=True) "
+                "and/or ScalableParams(histograms=True)"
+            )
+        out = {}
+        if self.rstate.hist is not None:
+            out["route"] = oh.drain(self.rstate.hist, ROUTE_HIST_TRACKS, "route",
+                                    recorder=self.recorder, statsd=statsd)
+            if reset:
+                self.rstate = self.rstate._replace(
+                    hist=hg.init(len(ROUTE_HIST_TRACKS), self.device)
+                )
+        if st.hist is not None:
+            out["sim"] = oh.drain(st.hist, es.SCALABLE_HIST_TRACKS, "sim.engine_scalable",
+                                  recorder=self.recorder, statsd=statsd)
+            if reset:
+                self.cluster.state = st._replace(
+                    hist=hg.init(len(es.SCALABLE_HIST_TRACKS), self.device)
+                )
+        return out
 
     # -- request traces ---------------------------------------------------
 
     def drain_requests(self, reset: bool = True, statsd=None):
         """Decode the sampled request-trace window (``obs.requests.drain``'s
-        dict: records, counts, drops).  ``reset=True`` zeroes the buffer and
-        counters; the plane's tick stamp keeps running."""
+        dict: records, counts, drops), with a ``reqtrace.drain`` row on the
+        attached recorder.  ``reset=True`` zeroes the buffer and counters;
+        the plane's tick stamp keeps running."""
         st = self.rstate
         if st.req_buf is None:
             raise ValueError(
@@ -367,7 +424,7 @@ class RoutedStorm:
 
         out = oreq.drain(host(st.req_buf), host(st.req_head), host(st.req_drops),
                          host(st.req_counts), sample_log2=self.route_params.req_sample_log2,
-                         source="route", statsd=statsd)
+                         source="route", recorder=self.recorder, statsd=statsd)
         if reset:
             buf, head, drops, counts, _ = rt.init_reqtrace_fields(
                 self.route_params.req_capacity, self.device
@@ -393,12 +450,6 @@ class RoutedStorm:
         return int(u32.to_numpy(ringdev.ring_checksum(self._truth_flat())))
 
     # -- not ported yet ---------------------------------------------------
-
-    def attach_recorder(self, recorder) -> None:
-        raise _not_ported("RoutedStorm.attach_recorder (run recorder)", "item 3, A9")
-
-    def drain_histograms(self, reset: bool = True, statsd=None):
-        raise _not_ported("RoutedStorm.drain_histograms", "item 3, A9")
 
     def save(self, path: str, shards: int = 1) -> None:
         raise _not_ported("RoutedStorm.save (checkpoints)", "item 4, A10")

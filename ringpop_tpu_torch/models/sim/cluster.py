@@ -15,6 +15,14 @@ then discards the whole step or window and replays it from the pre-run
 state under an exact shape — "full" on the fused checksum pipeline,
 "gated" on the classic one (``parity_replays`` counts these).
 
+The obs planes' host halves: ``drain_events`` / ``event_drops`` /
+``first_heard`` / ``export_flight_trace`` (``SimParams(flight_recorder=
+True)``), ``drain_histograms`` (``histograms=True``), and
+``attach_recorder``, which folds every step's and window's metrics and
+every replay into an ``obs.recorder.RunRecorder``.  Each drain resets the
+device counters after its sinks took the window; draining is
+trajectory-neutral.
+
 The cluster runs on the card unless ``device="cpu"`` is passed.
 """
 
@@ -29,8 +37,11 @@ import torch
 from ringpop_tpu_torch import resolve_device
 from ringpop_tpu_torch.models.sim import engine
 from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
+from ringpop_tpu_torch.obs import events as obs_events
+from ringpop_tpu_torch.obs import histograms as oh
 from ringpop_tpu_torch.ops import checksum_encode as ce
-from ringpop_tpu_torch.ops import u32
+from ringpop_tpu_torch.ops import histogram as hg
+from ringpop_tpu_torch.ops import toolkit, u32
 
 
 def default_addresses(n: int, base_port: int = 3000, host: str = "127.0.0.1") -> List[str]:
@@ -122,6 +133,10 @@ class SimCluster:
         params = params or engine.SimParams(n=n)
         if params.n != n:
             params = params._replace(n=n)
+        # the requests before resolution, for attach_recorder's notes
+        self._requested_knobs = {
+            k: getattr(params, k) for k in ("fused_checksum", "fused_tick", "parity_recompute")
+        }
         # pin the hash kernels' knob at construction, as the JAX cluster
         # pins hash_impl, then the tick and checksum knobs
         params = params._replace(hash_impl=engine.resolve_hash_impl(params, self.device.type))
@@ -132,6 +147,23 @@ class SimCluster:
         # bounded-parity overflow replays (a window that replayed paid the
         # exact-shape cost too)
         self.parity_replays = 0
+        # optional run log (attach_recorder)
+        self.recorder = None
+
+    def attach_recorder(self, recorder) -> None:
+        """Attach an ``obs.recorder.RunRecorder``: later step()/run()
+        metrics fold into it, overflow replays log as events, and every
+        resolved fused-op knob lands as an ``op_resolution`` row."""
+        recorder.describe("sim.engine", self.params.n, self.params)
+        for knob in ("fused_checksum", "fused_tick", "parity_recompute"):
+            toolkit.emit_resolution(
+                toolkit.resolution_note(
+                    knob, self._requested_knobs[knob], getattr(self.params, knob),
+                    self.device.type,
+                ),
+                recorder=recorder,
+            )
+        self.recorder = recorder
 
     # -- bounded-parity overflow fallback --------------------------------
 
@@ -151,6 +183,18 @@ class SimCluster:
 
     def _tick(self, state, inputs, params=None):
         return engine.tick(state, inputs, params or self.params, self.universe)
+
+    def _replayed(self) -> engine.SimParams:
+        """Count a bounded-parity overflow replay (and log it); returns the
+        exact-shape params to replay under."""
+        self.parity_replays += 1
+        exact = self._exact_params()
+        if self.recorder is not None:
+            self.recorder.record_event(
+                "parity_overflow_replay", replays=self.parity_replays,
+                shape=exact.parity_recompute,
+            )
+        return exact
 
     # -- lifecycle --------------------------------------------------------
 
@@ -174,9 +218,11 @@ class SimCluster:
         pre = self.state
         self.state, metrics = self._tick(pre, inputs)
         if self._bounded_parity and int(metrics.parity_overflow) > 0:
-            self.parity_replays += 1
-            self.state, metrics = self._tick(pre, inputs, self._exact_params())
-        return metrics_to_numpy(metrics)
+            self.state, metrics = self._tick(pre, inputs, self._replayed())
+        metrics = metrics_to_numpy(metrics)
+        if self.recorder is not None:
+            self.recorder.record_ticks(metrics)
+        return metrics
 
     def run(self, schedule: EventSchedule) -> engine.TickMetrics:
         """Loop the tick over a dense event schedule; returns a TickMetrics
@@ -185,11 +231,11 @@ class SimCluster:
         pre = self.state
         self.state, metrics = self._run_window(pre, inputs, schedule.ticks, self.params)
         if self._bounded_parity and int(metrics.parity_overflow.sum()) > 0:
-            self.parity_replays += 1
-            self.state, metrics = self._run_window(
-                pre, inputs, schedule.ticks, self._exact_params()
-            )
-        return metrics_to_numpy(metrics)
+            self.state, metrics = self._run_window(pre, inputs, schedule.ticks, self._replayed())
+        metrics = metrics_to_numpy(metrics)
+        if self.recorder is not None:
+            self.recorder.record_ticks(metrics)
+        return metrics
 
     def _run_window(self, state, inputs, ticks, params):
         rows = []
@@ -238,6 +284,64 @@ class SimCluster:
         return self.step(self.quiet_inputs()._replace(
             partition=torch.as_tensor(np.asarray(groups, np.int32), device=self.device)
         ))
+
+    # -- flight recorder (SimParams.flight_recorder) ----------------------
+
+    def _need(self, field: str, knob: str):
+        t = getattr(self.state, field)
+        if t is None:
+            raise ValueError("%s is off — construct with SimParams(%s=True)" % (knob, knob))
+        return t
+
+    def drain_events(self, reset: bool = True) -> List[dict]:
+        """Decode the flight-recorder buffer into host event dicts
+        (``obs.events``), log a ``flight_drain`` row on the attached
+        recorder, then (``reset``) clear the write head and drop counter.
+        Protocol state is untouched, so draining mid-run is neutral."""
+        buf = self._need("ev_buf", "flight_recorder")
+        head, drops = int(self.state.ev_head), int(self.state.ev_drops)
+        # only the valid rows cross to the host
+        decoded = obs_events.decode_events(buf[:head].to("cpu").numpy(), head, drops)
+        if self.recorder is not None:
+            self.recorder.record_event("flight_drain", events=len(decoded), drops=drops)
+        if reset:
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            self.state = self.state._replace(ev_head=zero, ev_drops=zero.clone())
+        return decoded
+
+    def event_drops(self) -> int:
+        """Events dropped since the last drain (0 with the recorder off)."""
+        return 0 if self.state.ev_drops is None else int(self.state.ev_drops)
+
+    def first_heard(self) -> np.ndarray:
+        """The wavefront matrix: tick at which observer i first adopted j's
+        current rumor (-1 = born-with view only)."""
+        return self._need("first_heard", "flight_recorder").to("cpu").numpy()
+
+    def export_flight_trace(self, events=None, include_pings: bool = False) -> dict:
+        """Chrome-trace JSON dict of a decoded event stream (drains the
+        buffer when ``events`` is omitted)."""
+        from ringpop_tpu_torch.obs.chrome_trace import export_chrome_trace
+
+        if events is None:
+            events = self.drain_events()
+        return export_chrome_trace(
+            events, n=self.params.n, period_ms=self.params.period_ms,
+            addresses=list(self.universe.addresses), include_pings=include_pings,
+        )
+
+    # -- latency histograms (SimParams.histograms) ------------------------
+
+    def drain_histograms(self, reset: bool = True, statsd=None) -> dict:
+        """Per-track summaries (exact p50/p95/p99, ``obs.histograms``) of
+        the device counters, a ``hist.drain`` row on the attached recorder,
+        then (``reset``) zeroed counters.  ``statsd`` is not ported yet."""
+        hist = self._need("hist", "histograms")
+        summary = oh.drain(hist, engine.HIST_TRACKS, "sim.engine", recorder=self.recorder,
+                           statsd=statsd)
+        if reset:
+            self.state = self.state._replace(hist=hg.init(len(engine.HIST_TRACKS), self.device))
+        return summary
 
     # -- inspection -------------------------------------------------------
 

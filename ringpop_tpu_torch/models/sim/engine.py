@@ -30,8 +30,14 @@ What the port runs, by knob (``SimParams``):
   (``fused_stream`` and ``block_loop``).
 
 "auto" means the kernels on the card and the plain versions on the CPU.
-Not ported yet (asking for them raises NotImplementedError, see
-ROADMAP.md): the flight recorder and the latency histograms.
+
+The obs planes, off by default and trajectory-neutral (written after every
+protocol phase from the masks that drove it; nothing in the protocol reads
+them, and they add no host read): ``flight_recorder`` appends event
+records and stamps the first-heard matrix (:mod:`.flight`), and
+``histograms`` bumps the log2 counters of :data:`HIST_TRACKS`
+(:mod:`ringpop_tpu_torch.ops.histogram`).  Either one makes every fused
+site return its dense applied mask (``want_masks``).
 
 uint32 values (``rng``, ``checksum``) are int32 bit patterns (ops/u32.py).
 Nothing here updates a state tensor in place: every phase builds new
@@ -51,9 +57,11 @@ from ringpop_tpu_torch.ops import farmhash as fh
 from ringpop_tpu_torch.ops import fused_apply as fap
 from ringpop_tpu_torch.ops import fused_checksum as fc
 from ringpop_tpu_torch.ops import fused_piggyback as fpb
+from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import toolkit
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
+from ringpop_tpu_torch.models.sim import flight
 from ringpop_tpu_torch.models.sim.gating import phase as _phase
 
 # status codes (== ce.STATUS_*): rank order IS override priority at equal
@@ -64,7 +72,12 @@ NO_TARGET = -1
 INT32_MIN = -(2**31)
 INT32_MAX = 2**31 - 1
 
-_NOT_PORTED = "not ported to ringpop_tpu_torch yet (queued in ROADMAP.md)"
+# SimState.hist rows, in order (the JAX engine's HIST_TRACKS; units are
+# ticks): rumor age at adoption (gossip adoptions landing ALIVE, age =
+# tick + 1 - incarnation stamp), rumor age at piggyback retirement,
+# suspicion duration at timer stop (revive resets excluded), and the
+# tick's dirty-row count.
+HIST_TRACKS = ("rumor_age", "retired_age", "suspicion_duration", "dirty_rows")
 
 
 class SimParams(NamedTuple):
@@ -98,7 +111,10 @@ class SimParams(NamedTuple):
     gate_phases: bool = True
     fused_tick: str = "auto"
     hash_impl: str = "auto"
+    # the obs planes (module docstring); event_capacity is the flight
+    # recorder's buffer in records (overflow drops and counts new events)
     flight_recorder: bool = False
+    event_capacity: int = 65536
     histograms: bool = False
 
 
@@ -126,6 +142,14 @@ class SimState(NamedTuple):
     checksum: torch.Tensor  # [N] int32 (uint32 checksums)
     rec_bytes: Optional[torch.Tensor] = None  # [N, N, R] uint8 (farmhash)
     rec_len: Optional[torch.Tensor] = None  # [N, N] int32 (farmhash)
+    # flight-recorder plane (flight_recorder only; layout obs/events.py)
+    ev_buf: Optional[torch.Tensor] = None  # [event_capacity, 8] int32
+    ev_head: Optional[torch.Tensor] = None  # [] int32 — valid records
+    ev_drops: Optional[torch.Tensor] = None  # [] int32 — overflow count
+    first_heard: Optional[torch.Tensor] = None  # [N, N] int32
+    # latency-histogram plane (histograms only): [len(HIST_TRACKS),
+    # NBUCKETS] int32 (uint32 counters)
+    hist: Optional[torch.Tensor] = None
 
 
 class TickInputs(NamedTuple):
@@ -173,7 +197,7 @@ class TickMetrics(NamedTuple):
 
 
 def check_ported(params: SimParams) -> None:
-    """Refuse, by name, every option this slice of the port lacks."""
+    """Validate the checksum and recompute knobs."""
     if params.checksum_mode not in ("fast", "farmhash"):
         raise ValueError("checksum_mode must be fast|farmhash, got %r" % (params.checksum_mode,))
     resolve_fused_checksum(params)
@@ -181,10 +205,6 @@ def check_ported(params: SimParams) -> None:
         raise ValueError(
             "parity_recompute must be auto|gated|bounded|full, got %r" % (params.parity_recompute,)
         )
-    if params.flight_recorder:
-        raise NotImplementedError("the flight recorder is " + _NOT_PORTED)
-    if params.histograms:
-        raise NotImplementedError("the latency histograms are " + _NOT_PORTED)
 
 
 def resolve_fused_tick(params: SimParams, device_type: str) -> str:
@@ -440,6 +460,13 @@ def init_state(
             params.max_digits,
         )
         state = state._replace(rec_bytes=rec_b, rec_len=rec_l)
+    if params.flight_recorder:
+        buf, head, drops, first_heard = flight.init_recorder_fields(
+            n, params.event_capacity, dev
+        )
+        state = state._replace(ev_buf=buf, ev_head=head, ev_drops=drops, first_heard=first_heard)
+    if params.histograms:
+        state = state._replace(hist=hg.init(len(HIST_TRACKS), dev))
     return state._replace(checksum=compute_checksums(state, universe, params))
 
 
@@ -726,10 +753,11 @@ def tick(
     ft = resolve_fused_tick(params, dev.type)
     ft_on = ft != "off"
     fused = params.checksum_mode == "farmhash" and resolve_fused_checksum(params) == "on"
-    # the fused-checksum cell tracker consumes dense per-site applied
-    # masks; otherwise the fused sites emit only reductions.  The classic
-    # sites always produce the dense masks (its metrics sum them).
-    want_masks = fused
+    # the obs planes and the fused-checksum cell tracker consume dense
+    # per-site applied masks; otherwise the fused sites emit only
+    # reductions.  The classic sites always produce the dense masks (its
+    # metrics sum them).
+    want_masks = params.flight_recorder or params.histograms or fused
     dense = want_masks or not ft_on
     i32, b8 = torch.int32, torch.bool
     zero_i = torch.zeros((), dtype=i32, device=dev)
@@ -740,6 +768,9 @@ def tick(
     subject = ids[None, :]
     is_self = node == subject
     tick_next = state.tick_index + 1
+    # tick-start baselines of the obs planes: the recorder's old views and
+    # the histograms' suspicion-duration start (deadline - suspicion_ticks)
+    prev_known, prev_status, prev_susp = state.known, state.status, state.susp_deadline
 
     # ---- phase 0: fault-injection plane -------------------------------
     proc_alive = (state.proc_alive & ~inputs.kill) | inputs.revive
@@ -915,6 +946,11 @@ def tick(
         )
         if inputs.leave is not None:
             changed_mid = changed_mid | (lv[:, None] & is_self)
+
+    # change-table occupancy before the dissemination phases: the
+    # histograms' retirement baseline (those phases only clear ch_active at
+    # the piggyback bound, the applies only set it)
+    pre_pb_active = state.ch_active
 
     # what each sender advertises in its ping body: last tick's checksum
     # and its self-incarnation at message-build time
@@ -1225,8 +1261,9 @@ def tick(
         best_key = torch.full((n, n), -1, dtype=i32, device=dev)
         best_src = torch.full((n, n), -1, dtype=i32, device=dev)
         best_srcinc = _zeros((n, n), i32, dev)
-        fs_count = zero_i
-        fs_recs = zero_i
+        # per-slot full syncs and their record counts, stacked [N, K]: the
+        # metrics are their sums, the flight recorder emits them per event
+        fs_list, fs_rec_list = [], []
         for k in range(K):
             mk = pr_sel[:, k]
             ex_k = responder[:, k]
@@ -1240,8 +1277,8 @@ def tick(
             )
             fs_k = ex_k & ~resp_k.any(dim=1) & (mid_checksum[mk] != mid_checksum)
             fs_mask_k = fs_k[:, None] & state.known[mk]
-            fs_count = fs_count + fs_k.sum(dtype=i32)
-            fs_recs = fs_recs + fs_mask_k.sum(dtype=i32)
+            fs_list.append(fs_k)
+            fs_rec_list.append(fs_mask_k.sum(dim=1, dtype=i32))
             mask_k = resp_k | fs_mask_k
             st_k = torch.where(fs_mask_k, state.status[mk], state.ch_status[mk])
             inc_k = torch.where(fs_mask_k, state.inc[mk], state.ch_inc[mk])
@@ -1275,25 +1312,29 @@ def tick(
         )
         applied_pr = (applied_prm | applied_prr | applied_sus) if dense else None
         return (
-            state, union, applied_pr, rows_prm | rows_prr | rows_sus, sus_cnt,
+            state, union, applied_sus, applied_pr, rows_prm | rows_prr | rows_sus, sus_cnt,
             ping_req_count, pr_inconclusive, pb_drops_pr, refute_m, refute_rr,
-            fs_count, fs_recs,
+            torch.stack(fs_list, dim=1), torch.stack(fs_rec_list, dim=1), pr_sel,
         )
 
     (
-        state, union, applied_pr, rows_pr, sus_count, ping_req_count, pr_inconclusive,
-        pb_drops_pr, refute_prm, refute_prr, pr_fs_count, pr_fs_records,
+        state, union, applied_sus, applied_pr, rows_pr, sus_count, ping_req_count,
+        pr_inconclusive, pb_drops_pr, refute_prm, refute_prr, pr_fs_mask, pr_fs_recs, pr_sel,
     ) = _phase(
         gate,
         need_pr.any(),
         _ping_req_phase,
         lambda s, u: (
-            s, u, _zeros((n, n), b8, dev) if dense else None, zeros_n,
-            zero_i, zero_i, zero_i, zero_i, zeros_n, zeros_n, zero_i, zero_i,
+            s, u, _zeros((n, n), b8, dev) if dense else None,
+            _zeros((n, n), b8, dev) if dense else None, zeros_n,
+            zero_i, zero_i, zero_i, zero_i, zeros_n, zeros_n,
+            _zeros((n, K), b8, dev), _zeros((n, K), i32, dev), _zeros((n, K), torch.int64, dev),
         ),
         state,
         union,
     )
+    pr_fs_count = pr_fs_mask.sum(dtype=i32)
+    pr_fs_records = pr_fs_recs.sum(dtype=i32)
 
     # ---- phase 8: suspicion expiry ------------------------------------
     def _expired(state):
@@ -1369,5 +1410,41 @@ def tick(
         join_merges=joined.sum(dtype=i32),
         dirty_rows=dirty.sum(dtype=i32) + dirty_late.sum(dtype=i32),
     )
+
+    # ---- flight recorder and latency histograms (obs planes) ----------
+    # written after every protocol phase from the masks that drove them;
+    # nothing below writes protocol state
+    if params.flight_recorder:
+        state = flight.record_tick_events(
+            state, tick_next, prev_known, prev_status,
+            flight.TickEventMasks(
+                valid_send=valid_send, target=target, delivered=delivered,
+                applied_ping=applied_ping, applied_resp=applied_resp, applied_pr=applied_pr,
+                ja_applied=ja_applied, applied_sus=applied_sus,
+                applied_faulty=applied_faulty, joined=joined, full_sync=full_sync,
+                fs_rec_rows=fs_rec_rows, pr_fs_mask=pr_fs_mask, pr_fs_recs=pr_fs_recs,
+                pr_sel=pr_sel, refute_recv=refute_recv, refute_resp=refute_resp,
+                refute_prm=refute_prm, refute_prr=refute_prr, revived=rv, left=lv,
+                rejoined=rejoin,
+            ),
+        )
+    if params.histograms:
+        hist = state.hist
+        # rumor age at first-heard: gossip adoptions landing ALIVE
+        adopted = (
+            (applied_ping | applied_resp | applied_pr)
+            & ~is_self & (state.status == ALIVE) & (state.inc > 0)
+        )
+        hist = hg.record(hist, HIST_TRACKS.index("rumor_age"), tick_next + 1 - state.inc, adopted)
+        # rumor age at retirement: the piggyback drop (dissemination.js:41)
+        hist = hg.record(hist, HIST_TRACKS.index("retired_age"), tick_next + 1 - state.ch_inc,
+                         pre_pb_active & ~state.ch_active)
+        # suspicion duration at timer stop; revive resets forget timers
+        stopped = (prev_susp >= 0) & (state.susp_deadline == -1) & ~rv[:, None]
+        hist = hg.record(hist, HIST_TRACKS.index("suspicion_duration"),
+                         tick_next - prev_susp + params.suspicion_ticks, stopped)
+        hist = hg.record_count(hist, HIST_TRACKS.index("dirty_rows"), metrics.dirty_rows)
+        state = state._replace(hist=hist)
+
     state = state._replace(rng=_fold(state.rng, 0x5EED))
     return state, metrics

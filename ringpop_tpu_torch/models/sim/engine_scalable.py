@@ -24,9 +24,19 @@ What differs from the JAX engine is the execution, not the arithmetic:
 ``fused_exchange`` takes "kernel" (the CUDA kernel ``csrc/exchange.cu``),
 "plain" (its plain PyTorch version) or "off" (the inline classic phases);
 "auto" is "kernel" on the card and "plain" on the CPU.  All three give the
-same trajectory.  The obs planes (wavefront, histograms, exchange
-telemetry) and the mesh's ``exchange_plane`` seam are not ported yet
-(ROADMAP.md).
+same trajectory.  The mesh's ``exchange_plane`` seam is not ported yet
+(ROADMAP.md queue A, A11).
+
+The obs planes, off by default, write-only and trajectory-neutral (no host
+read either): ``wavefront`` keeps ``first_heard[i, r]``, the tick node i's
+heard bit for rumor slot r turned on; ``histograms`` bumps the log2
+counters of :data:`SCALABLE_HIST_TRACKS`; ``exchange_metrics = S`` keeps
+the per-shard exchange counters of an S-shard plane, modelled
+analytically from the tick's permutation (:func:`_exchange_obs_update`).
+The rumor-age track counts each rumor column's new heard bits (a bitwise
+column sum of the new-bit words) into the bucket of the column's age —
+the same counters as one observation per new bit, without the [N, U]
+expansion, which only the wavefront stamp builds (in row chunks).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 
 from ringpop_tpu_torch import resolve_device
 from ringpop_tpu_torch.ops import exchange as _exchange
+from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import toolkit, u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
 
@@ -50,6 +61,15 @@ SLOTS_PER_TICK = 3  # suspect, faulty, alive (revive/refute/rejoin)
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 _U32_ALL = -1  # 0xFFFFFFFF as an int32 bit pattern
+
+# ScalableState.hist rows, in order (observations in ticks): per newly-set
+# heard bit, tick - r_birth of its rumor; per retired rumor slot, tick -
+# r_birth at the aging drop or recycle; per stopped suspicion clock, tick -
+# susp_since at refute-cancel or faulty expiry
+SCALABLE_HIST_TRACKS = ("rumor_age", "retired_age", "suspicion_duration")
+
+# elements of one row chunk of the wavefront stamp's [rows, U] temporaries
+_WAVE_CHUNK = 1 << 26
 
 
 def slots_per_tick(params: "ScalableParams") -> int:
@@ -79,7 +99,8 @@ class ScalableParams(NamedTuple):
     perm_impl: str = "auto"
     # "kernel" | "plain" | "off" | "auto" (module docstring)
     fused_exchange: str = "auto"
-    # obs planes of the JAX engine, not ported yet: must stay off
+    # the obs planes (module docstring); exchange_metrics = S models an
+    # S-shard exchange plane (S must divide n), 0 = off
     wavefront: bool = False
     histograms: bool = False
     exchange_metrics: int = 0
@@ -103,10 +124,13 @@ class ScalableState(NamedTuple):
     base_sum: torch.Tensor  # [] int32 (uint32)
     rng: torch.Tensor  # [2] int32 (uint32)
     checksum: torch.Tensor  # [N] int32 (uint32)
-    first_heard: Optional[torch.Tensor] = None  # obs plane: not ported
-    hist: Optional[torch.Tensor] = None  # obs plane: not ported
-    exch: Optional[torch.Tensor] = None  # obs plane: not ported
-    exch_hist: Optional[torch.Tensor] = None  # obs plane: not ported
+    # obs planes (None when off): [N, U] int32 first-heard tick (-1 never);
+    # [len(SCALABLE_HIST_TRACKS), NBUCKETS], [S, len(EXCH_COUNTERS)] and
+    # [S, len(EXCH_HIST_TRACKS), NBUCKETS] int32 (uint32 counters)
+    first_heard: Optional[torch.Tensor] = None
+    hist: Optional[torch.Tensor] = None
+    exch: Optional[torch.Tensor] = None
+    exch_hist: Optional[torch.Tensor] = None
 
 
 class ScalableMetrics(NamedTuple):
@@ -135,14 +159,6 @@ class ChurnInputs(NamedTuple):
     def quiet(n: int, device="cpu") -> "ChurnInputs":
         z = torch.zeros(n, dtype=torch.bool, device=device)
         return ChurnInputs(kill=z, revive=z)
-
-
-def _require_ported(params: ScalableParams) -> None:
-    if params.wavefront or params.histograms or params.exchange_metrics:
-        raise NotImplementedError(
-            "the scalable engine's obs planes (wavefront, histograms, "
-            "exchange_metrics) are not ported yet (ROADMAP.md)"
-        )
 
 
 def host_read(pred) -> bool:
@@ -336,7 +352,6 @@ def max_rumor_age(params: ScalableParams) -> int:
 
 
 def init_state(params: ScalableParams, seed: int = 0, device=None) -> ScalableState:
-    _require_ported(params)
     dev = resolve_device(device)
     n, u = params.n, params.u
     if u % WORD:
@@ -353,7 +368,21 @@ def init_state(params: ScalableParams, seed: int = 0, device=None) -> ScalableSt
     inc0 = torch.ones(n, **i32)  # stamp 1 == params.epoch
     base = record_mix(torch.arange(n, **i32), torch.zeros(n, **i32), inc0)
     base_sum = u32.row_sum(base, dim=0)
+    exch = exch_hist = None
+    if params.exchange_metrics:
+        s = int(params.exchange_metrics)
+        if s < 1 or n % s:
+            raise ValueError(
+                "exchange_metrics=%d must be a positive divisor of n=%d "
+                "(it models an S-shard exchange plane)" % (s, n)
+            )
+        exch = _exchange.init_exchange_counters(s, dev)
+        exch_hist = _exchange.init_exchange_hist(s, dev)
     return ScalableState(
+        first_heard=torch.full((n, u), -1, **i32) if params.wavefront else None,
+        hist=hg.init(len(SCALABLE_HIST_TRACKS), dev) if params.histograms else None,
+        exch=exch,
+        exch_hist=exch_hist,
         tick_index=torch.zeros((), **i32),
         proc_alive=torch.ones(n, dtype=torch.bool, device=dev),
         gossip_on=torch.ones(n, dtype=torch.bool, device=dev),
@@ -381,7 +410,8 @@ def init_state(params: ScalableParams, seed: int = 0, device=None) -> ScalableSt
 
 def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mask, tick):
     """One batch rumor: scalar delta vs current truth, truth advance, and
-    the publishers' heard bits; the hearers' checksums gain the delta."""
+    the publishers' heard bits (and first-heard ticks, with the wavefront
+    on); the hearers' checksums gain the delta."""
     n = state.proc_alive.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=csum.device)
     prev_h = record_mix(ids, state.truth_status, state.truth_inc)
@@ -393,6 +423,12 @@ def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mas
     # the slot's bit as a one-word row mask: OR-ing it into the hearers'
     # rows sets bit slot%32 of word slot//32
     slot_words = _pack_mask(torch.zeros_like(state.r_active).index_fill(0, at, True))
+    fh = state.first_heard
+    if fh is not None:
+        # wavefront: the publishers are the rumor's first hearers.  The
+        # matrix is this tick's own copy (the stamp in tick() made it), so
+        # the column is written in place rather than copying [N, U] again.
+        fh.index_copy_(1, at, torch.where(hears, tick, fh.index_select(1, at)[:, 0])[:, None])
     # an empty batch leaves the (inactive) slot's delta and birth as they
     # were, so a straight-line publish equals a skipped one bit for bit
     return state._replace(
@@ -482,6 +518,88 @@ def farmhash_truth_checksum(state: ScalableState, universe, params: ScalablePara
 
 
 # ---------------------------------------------------------------------------
+# obs planes
+
+
+def _exchange_obs_update(exch, exch_hist, direct_ok, partner0, inv_base, n: int):
+    """The single-device twin of the mesh plane's telemetry bumps: the
+    S-shard routing of this tick's permutation, modelled analytically
+    (every quantity is mask-independent except the delivered-row counts,
+    which use the ``direct_ok`` that drives the trajectory).  The trips
+    are priced against the default cap (``exchange_cap``).  Returns the new
+    ``(exch, exch_hist)``; the bucket counts take one [N, S] bool
+    temporary."""
+    s = exch.shape[0]
+    local = n // s
+    dev = exch.device
+    i32 = torch.int32
+    shard_ids = torch.arange(s, dtype=i32, device=dev)
+
+    def _bucket_counts(dest):
+        # [S, S]: rows of source shard src addressed to shard dest // local
+        ds = torch.div(dest, local, rounding_mode="floor").to(i32).reshape(s, local)
+        return (ds[:, :, None] == shard_ids[None, None, :]).sum(dim=1, dtype=i32)
+
+    cnt_pull = _bucket_counts(inv_base)  # pull: row p -> inv[p]
+    cnt_push = _bucket_counts(partner0)  # push: row j -> partner0[j]
+    cap = _exchange.exchange_cap(local, s)
+    ovf_pull = (cnt_pull > cap).any().to(i32)
+    ovf_push = (cnt_push > cap).any().to(i32)
+    one = torch.ones(s, dtype=i32, device=dev)
+    bump = torch.stack(
+        [
+            one,  # ticks
+            one * (1 - ovf_pull),  # a2a_pull
+            one * (1 - ovf_push),  # a2a_push
+            one * ovf_pull,  # fallback_pull
+            one * ovf_push,  # fallback_push
+            direct_ok.reshape(s, local).sum(dim=1, dtype=i32),  # pull_rows
+            direct_ok.index_select(0, inv_base).reshape(s, local).sum(dim=1, dtype=i32),
+            (cnt_pull > 0).sum(dim=1, dtype=i32),  # dest_shards_pull
+            (cnt_push > 0).sum(dim=1, dtype=i32),  # dest_shards_push
+        ],
+        dim=1,
+    )
+    # cap utilization: one observation per (shard, destination) bucket
+    b_ids = torch.arange(hg.NBUCKETS, dtype=i32, device=dev)
+
+    def _per_shard(cnt):
+        idx = hg.bucket_index(cnt)
+        return (idx[:, :, None] == b_ids[None, None, :]).sum(dim=1, dtype=i32)
+
+    return exch + bump, exch_hist + torch.stack([_per_shard(cnt_pull), _per_shard(cnt_push)], dim=1)
+
+
+def _column_bit_counts(words: torch.Tensor) -> torch.Tensor:
+    """[N, W] int32 bit words -> [W*32] int32: per bit column b (word
+    b // 32, bit b % 32), how many rows have it set — a per-bit sum over
+    the words' bytes, with no [N, W*32] expansion."""
+    b8 = words.contiguous().view(torch.uint8)  # byte k of word w: bits 8k..8k+7
+    cols = [((b8 >> j) & 1).sum(dim=0, dtype=torch.int32) for j in range(8)]
+    return torch.stack(cols, dim=1).reshape(-1)
+
+
+def _wavefront_update(fh, diff, reset_rows, reset_cols, t):
+    """The new first-heard matrix: revived rows and recycled columns reset
+    to -1, then every newly-set heard bit (``diff``) stamped ``t`` — the
+    JAX engine's three ``where``s in one pass over row chunks."""
+    n, u = fh.shape
+    out = torch.empty_like(fh)
+    bit = torch.bitwise_left_shift(
+        torch.ones(WORD, dtype=torch.int64, device=fh.device),
+        torch.arange(WORD, dtype=torch.int64, device=fh.device),
+    )
+    bit = u32.from_u64(bit)  # bit b of an int32 word
+    rows = max(1, _WAVE_CHUNK // u)
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        new_bits = (diff[lo:hi, :, None] & bit) != 0
+        keep = fh[lo:hi].masked_fill(reset_rows[lo:hi, None] | reset_cols[None, :], -1)
+        out[lo:hi] = torch.where(new_bits.reshape(hi - lo, u), t, keep)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the tick
 
 
@@ -493,7 +611,6 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         raise NotImplementedError(
             "the mesh exchange_plane seam is not ported yet (ROADMAP.md)"
         )
-    _require_ported(params)
     n, u = params.n, params.u
     dev = state.heard.device
     gate = params.gate_phases
@@ -528,6 +645,11 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     )
     # a revived node's heard set is empty: its checksum is the base
     csum = torch.where(revived, state.base_sum, state.checksum)
+    # obs planes: written straight-line (never inside a gated phase) into
+    # these locals from the masks that drive the trajectory, attached at
+    # the end
+    hist = state.hist
+    exch, exch_hist = state.exch, state.exch_hist
 
     # ---- rumor aging + slot recycling ----------------------------------
     live_count = proc_alive.sum()
@@ -541,6 +663,10 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     )
     recycled = torch.zeros(u, dtype=torch.bool, device=dev).index_fill(0, slots.long(), True)
     retired = aged | (state.r_active & recycled)
+    if hist is not None:
+        # rumor age at retirement (r_birth is still pre-publish here)
+        hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("retired_age"),
+                         t - state.r_birth, retired)
     # a defame pointer whose slot recycles now is demoted to -2
     ds0 = state.defame_slot
     state = state._replace(
@@ -612,6 +738,8 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         new_heard, d_direct, _ = _exchange.exchange_plain(
             heard, pulled, pushed, state.r_delta, want_counts=False
         )
+    if exch is not None:
+        exch, exch_hist = _exchange_obs_update(exch, exch_hist, direct_ok, partner0, inv_base, n)
     heard_after_direct = new_heard
 
     # indirect rounds (the ping-req fanout) + probe evidence, only for
@@ -671,6 +799,16 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         lambda c: c,
         csum,
     )
+    if state.first_heard is not None or hist is not None:
+        diff_all = new_heard ^ heard  # every bit that turned on this tick
+        if state.first_heard is not None:
+            state = state._replace(first_heard=_wavefront_update(
+                state.first_heard, diff_all, revived, recycled, t
+            ))
+        if hist is not None:
+            # rumor age at first-heard: column r's new bits, at age t - r_birth[r]
+            hist = hg.record_weighted(hist, SCALABLE_HIST_TRACKS.index("rumor_age"),
+                                      t - state.r_birth, _column_bit_counts(diff_all))
     state = state._replace(heard=new_heard)
 
     # ---- failure detection: suspect batch ------------------------------
@@ -678,6 +816,10 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     cancel = (state.susp_subject >= 0) & (
         take(state.truth_status, state.susp_subject.clamp(0, n - 1)) != SUSPECT
     )
+    if hist is not None:
+        # suspicion duration at refute-cancel (the clock read before reset)
+        hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
+                         t - state.susp_since, cancel)
     state = state._replace(
         susp_subject=state.susp_subject.masked_fill(cancel, -1),
         susp_since=state.susp_since.masked_fill(cancel, -1),
@@ -713,6 +855,10 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         & (t - state.susp_since >= params.suspicion_ticks)
         & proc_alive
     )
+    if hist is not None:
+        # suspicion duration at expiry (a cancelled clock was reset above)
+        hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
+                         t - state.susp_since, expire)
     still_suspect = take(state.truth_status, state.susp_subject.clamp(0, n - 1)) == SUSPECT
     expirer = expire & still_suspect & (state.susp_subject >= 0)
     fs_idx = torch.where(expirer, state.susp_subject, n)
@@ -797,7 +943,8 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         m = hw * u32.s32(0x9E3779B1) + pos * u32.s32(0x85EBCA77)
         m = m ^ u32.srl(m, 15)
         view_sig = u32.row_sum(m * u32.s32(0x2C1B3C6D), dim=1)
-    state = state._replace(checksum=checksum, rng=_fold(rng, 0x5CA1E))
+    state = state._replace(checksum=checksum, rng=_fold(rng, 0x5CA1E), hist=hist, exch=exch,
+                           exch_hist=exch_hist)
 
     active_words2 = _pack_mask(state.r_active)
     n_active = state.r_active.sum(dtype=torch.int32)

@@ -6,9 +6,12 @@ Node identity is the integer index; checksums and ring points use the
 commutative record hash.
 
 ``run(schedule)`` is a Python loop over the ticks (the JAX cluster scans);
-each tick's metrics stay on the device until the loop ends.  Checkpoint
-cadence, recorders, histogram/exchange-metric drains and the wavefront
-accessors are not ported yet (ROADMAP.md), so a run is one window.
+each tick's metrics stay on the device until the loop ends.  The obs
+planes' host halves are here: ``attach_recorder`` (an
+``obs.recorder.RunRecorder`` folds every step's and run's metrics),
+``drain_histograms``, ``drain_exchange_metrics``, ``wavefront_snapshot``
+and ``wavefront_summary``.  The checkpoint cadence is not ported yet
+(ROADMAP.md queue A, A10), so a run is one window.
 
 The cluster runs on the card unless ``device="cpu"`` is passed.
 """
@@ -30,7 +33,12 @@ from ringpop_tpu_torch.models.ring.device import (  # noqa: F401 — re-exported
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.models.sim.cluster import _tick_at, metrics_to_numpy
 from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
-from ringpop_tpu_torch.ops import u32
+from ringpop_tpu_torch.obs import events as obs_events
+from ringpop_tpu_torch.obs import exchange_stats as oxs
+from ringpop_tpu_torch.obs import histograms as oh
+from ringpop_tpu_torch.ops import exchange as _exchange
+from ringpop_tpu_torch.ops import histogram as hg
+from ringpop_tpu_torch.ops import toolkit, u32
 
 
 @dataclasses.dataclass
@@ -120,6 +128,8 @@ class ScalableCluster:
         self.replica_points = replica_points
         self.state = es.init_state(self.params, seed=seed, device=self.device)
         self._replica_hashes = None
+        # optional run log (attach_recorder)
+        self.recorder = None
 
     def exchange_resolution(self) -> dict:
         """The fused-exchange resolution, in the JAX cluster's dict shape."""
@@ -133,12 +143,30 @@ class ScalableCluster:
             "differs_from_single_device": False,
         }
 
+    def attach_recorder(self, recorder) -> None:
+        """Attach an ``obs.recorder.RunRecorder``: later step()/run()
+        metrics fold into it; the fused-exchange resolution lands as an
+        ``op_resolution`` row."""
+        recorder.describe("sim.engine_scalable", self.params.n, self.params)
+        toolkit.emit_resolution(
+            toolkit.resolution_note("fused_exchange", self._requested_fused_exchange,
+                                    self.params.fused_exchange, self.device.type),
+            recorder=recorder,
+        )
+        self.recorder = recorder
+
+    def _recorded(self, metrics):
+        metrics = metrics_to_numpy(metrics)
+        if self.recorder is not None:
+            self.recorder.record_ticks(metrics)
+        return metrics
+
     def step(self, inputs: Optional[es.ChurnInputs] = None) -> es.ScalableMetrics:
         """One tick; returns its metrics as numpy scalars."""
         if inputs is None:
             inputs = es.ChurnInputs.quiet(self.params.n, self.device)
         self.state, m = es.tick(self.state, inputs, self.params)
-        return metrics_to_numpy(m)
+        return self._recorded(m)
 
     def run(self, schedule: StormSchedule) -> es.ScalableMetrics:
         """Loop the tick over the storm plan; returns ``[T]`` numpy metrics."""
@@ -147,9 +175,7 @@ class ScalableCluster:
         for t in range(schedule.ticks):
             self.state, m = es.tick(self.state, _tick_at(inputs, t), self.params)
             per_tick.append(m)
-        return metrics_to_numpy(
-            es.ScalableMetrics(*(torch.stack(f) for f in zip(*per_tick)))
-        )
+        return self._recorded(es.ScalableMetrics(*(torch.stack(f) for f in zip(*per_tick))))
 
     def checksums(self) -> np.ndarray:
         """[N] uint32 membership checksums."""
@@ -168,3 +194,73 @@ class ScalableCluster:
         in_ring = self.state.proc_alive & (self.state.truth_status <= es.SUSPECT)
         ring = build_ring(self._replica_hashes, in_ring)
         return int(u32.to_numpy(ring_checksum(ring)))
+
+    # -- latency histograms (ScalableParams.histograms) -------------------
+
+    def drain_histograms(self, reset: bool = True, statsd=None) -> dict:
+        """Per-track summaries (exact p50/p95/p99) of ``ScalableState.hist``,
+        a ``hist.drain`` row on the attached recorder, then (``reset``)
+        zeroed counters.  ``statsd`` is not ported yet."""
+        if self.state.hist is None:
+            raise ValueError("histograms are off — construct with ScalableParams(histograms=True)")
+        summary = oh.drain(self.state.hist, es.SCALABLE_HIST_TRACKS, "sim.engine_scalable",
+                           recorder=self.recorder, statsd=statsd)
+        if reset:
+            self.state = self.state._replace(
+                hist=hg.init(len(es.SCALABLE_HIST_TRACKS), self.device)
+            )
+        return summary
+
+    # -- exchange telemetry (ScalableParams.exchange_metrics) -------------
+
+    def drain_exchange_metrics(self, reset: bool = True, statsd=None) -> dict:
+        """The per-shard exchange counters through ``obs.exchange_stats.
+        drain`` (priced against the default cap), then (``reset``) zeroed
+        planes.  ``statsd`` is not ported yet."""
+        if self.state.exch is None:
+            raise ValueError(
+                "exchange telemetry is off — construct with "
+                "ScalableParams(exchange_metrics=<shards>)"
+            )
+        s = int(self.state.exch.shape[0])
+        summary = oxs.drain(
+            self.state.exch, self.state.exch_hist, w=int(self.state.heard.shape[1]),
+            local_rows=self.params.n // s, source="sim.engine_scalable",
+            recorder=self.recorder, statsd=statsd,
+        )
+        if reset:
+            self.state = self.state._replace(
+                exch=_exchange.init_exchange_counters(s, self.device),
+                exch_hist=_exchange.init_exchange_hist(s, self.device),
+            )
+        return summary
+
+    # -- rumor wavefront tracing (ScalableParams.wavefront) ---------------
+
+    def wavefront_snapshot(self) -> dict:
+        """Host copy of the wavefront plane: the first-heard matrix and the
+        rumor births, active flags and live mask that
+        ``obs.events.scalable_wavefront_summary`` needs.  Take it before a
+        rumor's slot recycles (its column resets with the heard bits)."""
+        if self.state.first_heard is None:
+            raise ValueError("wavefront tracing is off — construct with "
+                             "ScalableParams(wavefront=True)")
+
+        def host(t):
+            return t.to("cpu").numpy()
+
+        return {
+            "tick": int(self.state.tick_index),
+            "first_heard": host(self.state.first_heard),
+            "r_birth": host(self.state.r_birth),
+            "r_active": host(self.state.r_active),
+            "live": host(self.state.proc_alive),
+        }
+
+    def wavefront_summary(self) -> dict:
+        """Per-rumor dissemination latencies and convergence curves of the
+        current snapshot (``obs.events``)."""
+        snap = self.wavefront_snapshot()
+        return obs_events.scalable_wavefront_summary(
+            snap["first_heard"], snap["r_birth"], snap["r_active"], snap["live"]
+        )

@@ -153,14 +153,15 @@ def drain(
     statsd=None,
 ) -> Dict[str, object]:
     """The host half of ``RoutedStorm.drain_requests()``: decode the
-    window.  Returns {"records": [...], "drops", "cap", "counts", ...};
-    the caller owns the device-side reset.  The sinks of the JAX drain (a
-    run recorder, a statsd bridge) are not ported yet: passing one
+    window and log the ``reqtrace.drain`` event row on ``recorder`` (a
+    ``RunRecorder``).  Returns {"records": [...], "drops", "cap",
+    "counts", ...}; the caller owns the device-side reset, after the sink
+    ran.  The statsd sink of the JAX drain is not ported yet: passing one
     raises."""
-    if recorder is not None or statsd is not None:
+    if statsd is not None:
         raise NotImplementedError(
-            "request-trace drain sinks (recorder, statsd) are not ported yet "
-            "(ROADMAP.md queue A items 3 and 7, A9/A13)"
+            "the request-trace drain's statsd sink is not ported yet "
+            "(ROADMAP.md queue A item 7, A13)"
         )
     cap = int(np.asarray(buf).shape[0])
     records = decode_requests(buf, head, drops)
@@ -169,6 +170,8 @@ def drain(
     row = drain_row(
         source, len(records), n_drops, cap, sample_log2, counts
     )
+    if recorder is not None:
+        recorder.record_event("reqtrace.drain", **row)
     out = dict(row)
     out["records"] = records
     return out

@@ -1,7 +1,8 @@
 """Fused push-pull exchange of the scalable engine: plain version and CUDA
 kernel.
 
-Counterpart of ``ringpop_tpu/ops/exchange.py`` (lines 73-338).  The
+Counterpart of ``ringpop_tpu/ops/exchange.py`` (lines 73-527: the op, its
+traffic model and the exchange telemetry's layout and host pricing).  The
 scalable engine's gossip exchange ORs the pulled and pushed partner rows
 into the ``[N, U/32]`` heard bitmask and adds, per row, the rumor deltas
 of the bits that turned on (the incremental checksum update)::
@@ -26,9 +27,11 @@ import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ringpop_tpu_torch.ops import _build, toolkit
+from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops.u32 import from_u64
 
 WORD = 32
@@ -225,3 +228,125 @@ def exchange_cap(local_rows: int, shards: int) -> int:
         return local_rows
     mean = -(-local_rows // shards)
     return min(local_rows, mean + 6 * math.isqrt(mean) + 8)
+
+
+def cross_shard_traffic_bytes(n: int, w: int, shards: int, cap: Optional[int] = None) -> dict:
+    """Modeled per-tick interconnect and shard-local bytes of an S-shard
+    exchange plane (the JAX package's traffic model): one all-to-all per
+    direction of ``cap`` row slots per (source, destination) shard pair,
+    of which the (S-1)/S addressed to other shards cross, plus the [S, cap]
+    int32 position plane per direction.  ``interconnect_total`` is per
+    tick across all shards; the exchange-telemetry drain reconciles its
+    measured bytes against it."""
+    local_rows = n // shards
+    if cap is None:
+        cap = exchange_cap(local_rows, shards)
+    cross_frac = (shards - 1) / shards
+    row_slots = shards * cap * shards  # per direction, all shards
+    out = {
+        "shards": shards,
+        "local_rows": local_rows,
+        "cap": cap,
+        "interconnect_rows": int(2 * row_slots * w * 4 * cross_frac),
+        "interconnect_pos": int(2 * row_slots * 4 * cross_frac),
+        "local_fused_total": shards * step_traffic_bytes(local_rows, w),
+    }
+    out["interconnect_total"] = out["interconnect_rows"] + out["interconnect_pos"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-shard exchange telemetry (ScalableParams.exchange_metrics = S): the
+# device half is a [S, len(EXCH_COUNTERS)] counter plane plus [S,
+# len(EXCH_HIST_TRACKS), NBUCKETS] cap-utilization histograms (uint32 bit
+# patterns), bumped each tick by the engine's analytic S-shard twin of the
+# mesh plane; the host half prices the drained trips into exact wire
+# bytes (drain_exchange_counters, obs/exchange_stats.py).
+
+# counter layout, one row per shard (the order is the wire format): rounds,
+# all-to-all and fallback trips per direction, rows delivered per
+# direction, and destination-shard spread per direction
+EXCH_COUNTERS = (
+    "ticks",
+    "a2a_pull",
+    "a2a_push",
+    "fallback_pull",
+    "fallback_push",
+    "pull_rows",
+    "push_rows",
+    "dest_shards_pull",
+    "dest_shards_push",
+)
+
+# one observation per (round, destination shard): that destination's
+# all-to-all bucket occupancy before capping
+EXCH_HIST_TRACKS = ("cap_util_pull", "cap_util_push")
+
+
+class ExchangeMetrics(NamedTuple):
+    """One drained per-shard telemetry row (host ints): the counters, the
+    shard id and the exact wire bytes they price to."""
+
+    shard: int
+    ticks: int
+    a2a_pull: int
+    a2a_push: int
+    fallback_pull: int
+    fallback_push: int
+    pull_rows: int
+    push_rows: int
+    dest_shards_pull: int
+    dest_shards_push: int
+    wire_bytes_pull: int
+    wire_bytes_push: int
+
+
+def init_exchange_counters(shards: int, device="cpu") -> torch.Tensor:
+    """Zeroed [shards, len(EXCH_COUNTERS)] counters (uint32 bit patterns)."""
+    return torch.zeros((shards, len(EXCH_COUNTERS)), dtype=torch.int32, device=device)
+
+
+def init_exchange_hist(shards: int, device="cpu") -> torch.Tensor:
+    """Zeroed [shards, len(EXCH_HIST_TRACKS), NBUCKETS] cap-utilization
+    histograms (ops/histogram.py buckets, uint32 bit patterns)."""
+    return torch.zeros((shards, len(EXCH_HIST_TRACKS), hg.NBUCKETS), dtype=torch.int32,
+                       device=device)
+
+
+def a2a_trip_bytes(w: int, shards: int, cap: int) -> int:
+    """Exact wire bytes one shard moves per all-to-all trip, one direction:
+    the [S, cap, w] uint32 rows plus the [S, cap] int32 positions."""
+    return shards * cap * (w * 4 + 4)
+
+
+def fallback_trip_bytes(local_rows: int, w: int, shards: int) -> int:
+    """Exact bytes one shard receives per all-gather fallback trip, one
+    direction: the full [N, w] gather."""
+    return shards * local_rows * w * 4
+
+
+def drain_exchange_counters(counters, *, w: int, cap: Optional[int], local_rows: int) -> list:
+    """Drained counters (a numpy [S, len(EXCH_COUNTERS)] uint32 array) ->
+    per-shard :class:`ExchangeMetrics` rows.  The wire bytes are priced
+    here (trips x the static trip size), so the device plane never holds
+    a byte count; ``cap=None`` prices the trips at :func:`exchange_cap`."""
+    counters = np.asarray(counters)
+    shards = counters.shape[0]
+    if counters.shape != (shards, len(EXCH_COUNTERS)):
+        raise ValueError(
+            "counters must be [S, %d], got %r" % (len(EXCH_COUNTERS), counters.shape)
+        )
+    if cap is None:
+        cap = exchange_cap(local_rows, shards)
+    a2a_b = a2a_trip_bytes(w, shards, cap)
+    fb_b = fallback_trip_bytes(local_rows, w, shards)
+    rows = []
+    for s in range(shards):
+        c = {name: int(counters[s, i]) for i, name in enumerate(EXCH_COUNTERS)}
+        rows.append(ExchangeMetrics(
+            shard=s,
+            wire_bytes_pull=c["a2a_pull"] * a2a_b + c["fallback_pull"] * fb_b,
+            wire_bytes_push=c["a2a_push"] * a2a_b + c["fallback_push"] * fb_b,
+            **c,
+        ))
+    return rows

@@ -1,8 +1,9 @@
 """Shared pieces of the port's fused ops.
 
 Counterpart of ``ringpop_tpu/ops/toolkit.py`` (lines 64-171 and the twin
-registry at :340): knob resolution, the packed bool-row bitmask helpers,
-and :data:`TWIN_REGISTRY` — one row per CUDA kernel of the port naming its
+registry at :340): knob resolution and its run-log note
+(:func:`resolution_note`, :func:`emit_resolution`), the packed bool-row
+bitmask helpers, and :data:`TWIN_REGISTRY` — one row per CUDA kernel of the port naming its
 wrapper, its plain PyTorch version, the JAX function it is held against
 and the test that holds it.
 """
@@ -10,7 +11,7 @@ and the test that holds it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +34,44 @@ def resolve_impl(
             )
         return requested
     return auto.get(device_type, auto["*"])
+
+
+def resolution_note(
+    knob: str,
+    requested: str,
+    resolved: str,
+    backend: str,
+    single_device_resolution: Optional[str] = None,
+    **extra,
+) -> dict:
+    """The run-log-ready resolution dict of a fused-op knob (the JAX
+    toolkit's shape): what was asked, what it resolved to on ``backend``,
+    and whether an "auto" request diverged from the single-device pick."""
+    sdr = resolved if single_device_resolution is None else single_device_resolution
+    note = {
+        "knob": knob,
+        "requested": requested,
+        "impl": resolved,
+        "backend": backend,
+        "single_device_resolution": sdr,
+        "differs_from_single_device": requested == "auto" and resolved != sdr,
+    }
+    note.update(extra)
+    return note
+
+
+def emit_resolution(note: dict, recorder=None, statsd=None, *,
+                    event: str = "op_resolution") -> None:
+    """Publish a resolution note as one run-log event row on ``recorder``
+    (an ``obs.recorder.RunRecorder``).  The statsd gauges of the JAX
+    toolkit are not ported yet (ROADMAP.md queue A item 7): passing
+    ``statsd`` raises."""
+    if statsd is not None:
+        raise NotImplementedError(
+            "the statsd sink of emit_resolution is not ported yet (ROADMAP.md queue A item 7, A13)"
+        )
+    if recorder is not None:
+        recorder.record_event(event, **note)
 
 
 def packed_width(n_cols: int) -> int:

@@ -125,6 +125,6 @@ def test_host_registry_and_decoders_equal_jax():
     assert poreq.drain_row("route", 1, 2, 3, 4, {"a": 1}) == joreq.drain_row(
         "route", 1, 2, 3, 4, {"a": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        poreq.drain(buf, 1, 0, counts, 2, recorder=object())
+        poreq.drain(buf, 1, 0, counts, 2, statsd=object())
     with pytest.raises(ValueError):
         poreq.counts_dict(counts[:3])

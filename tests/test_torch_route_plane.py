@@ -11,8 +11,8 @@ in both ring implementations.  Tolerance: none (``mean_heard_frac``, a
 float32 mean, included).  The truth ring, its checksum and the final engine state must be equal
 too.  The other cases: ``enforce_consistency=False``; ``step`` equals
 ``run``; a port started from a JAX state converted mid-run finishes like
-the JAX run; ``checksum_in_tick=False`` raises; the entry points that
-are not ported yet raise ``NotImplementedError``.
+the JAX run; ``checksum_in_tick=False`` raises; the checkpoint entry
+points, not ported yet, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -216,19 +216,19 @@ def test_checksum_in_tick_required():
 
 def test_unported_entry_points_raise():
     _, p = _pair(n=16)
-    for call in (lambda: p.attach_recorder(None), lambda: p.drain_histograms(),
-                 lambda: p.save("x"), lambda: p.load("x"),
+    for call in (lambda: p.save("x"), lambda: p.load("x"),
                  lambda: p.enable_checkpoints("x", every=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pplane.RoutedStorm(16, params=pes.ScalableParams(n=16, u=192),
+    # the histogram plane is ported: it constructs, converts and drains
+    with pytest.raises(ValueError, match="histograms are off"):
+        p.drain_histograms()
+    h = pplane.RoutedStorm(16, params=pes.ScalableParams(n=16, u=192),
                            route=pplane.RouteParams(n=16, histograms=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        convert.route_params_from_jax_fields(dict(n=16, histograms=True))
-    st = dict(convert.route_state_to_numpy(p.rstate), hist=np.zeros((3, 32), np.uint32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        convert.route_state_from_numpy(st)
+    assert h.rstate.hist is not None and "route" in h.drain_histograms()
+    assert convert.route_params_from_jax_fields(dict(n=16, histograms=True)).histograms
+    st = dict(convert.route_state_to_numpy(p.rstate), hist=np.full((3, 32), 2**32 - 1, np.uint32))
+    assert np.array_equal(convert.route_state_from_numpy(st).hist.numpy(), np.full((3, 32), -1))
     with pytest.raises(ValueError, match="reqtrace"):
         p.drain_requests()
 

@@ -140,9 +140,13 @@ def test_resolvers_and_unported_planes():
         pes.resolve_fused_exchange(p._replace(fused_exchange="xla"), "cpu")
     with pytest.raises(ValueError):
         pes.resolve_perm_impl(p._replace(perm_impl="bogus"))
-    for plane in (dict(wavefront=True), dict(histograms=True), dict(exchange_metrics=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pes.init_state(pes.ScalableParams(n=64, u=160, **plane), device="cpu")
+    # the obs planes are ported: each one initializes its own field
+    for plane, field in ((dict(wavefront=True), "first_heard"), (dict(histograms=True), "hist"),
+                         (dict(exchange_metrics=2), "exch")):
+        st = pes.init_state(pes.ScalableParams(n=64, u=160, **plane), device="cpu")
+        assert getattr(st, field) is not None, plane
+    with pytest.raises(ValueError, match="divisor"):
+        pes.init_state(pes.ScalableParams(n=64, u=160, exchange_metrics=3), device="cpu")
     st = pes.init_state(pes.ScalableParams(n=64, u=160), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pes.tick(st, pes.ChurnInputs.quiet(64), pes.ScalableParams(n=64, u=160),
