@@ -97,8 +97,37 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    tick-cluster harness (``torch-sim`` at n=1024, ``torch-sim-scalable``
    at n=100,000, lookups against a numpy host ring); each path's seconds
    are printed;
-6. prints the ``kernels`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. the batch axis (``torch.func.vmap``): each kernel's batching rule at
+   B in {1, 4} over phase 3's shapes (``apply_updates`` / ``pb_budget``
+   at n=1024 and 1001 with per-cluster stamps, ``fused_stream`` at 256 x
+   N=1024 and 16 x N=1001 rows, ``block_loop`` at 256 real checksum rows
+   and 1000 x I=7, ``exchange`` at N=100,001, W=16 with and without
+   counts): one launch per batched call, bitwise equal to the B
+   single-cluster launches and the plain version, the batched call timed;
+   ``BatchedSimClusters(b=4, n=64)`` with the flight recorder on the churn
+   schedule in fast, farmhash and classic: card == CPU on every state and
+   metric field of every tick, each cluster == the card's solo
+   ``SimCluster(gate_phases=False)`` with seed + i, the drained streams
+   equal; the fuzz smoke sweeps (full n=8 20 ticks, scalable n=32 24
+   ticks, 8 seeds, loss 0 and 0.1) card == CPU with no violation, the
+   scalable one again through the ``exchange`` kernel; then, as main
+   paths, ``BatchedSimClusters(b, n=1024)`` with the headline params (fast
+   at B in {1, 8, 32}, farmhash at B in {1, 8}: bootstrap, converge, a
+   timed 64-tick churn window and a timed 64-tick quiet window, a profiled
+   16-tick churn window, then one tick whose batching-rule calls — the
+   real ``[B, ...]`` operands and the kernels' results — are kept and held
+   bitwise against the plain versions on the same operands; converged,
+   one checksum group per cluster, node 0 of cluster 0 == host FarmHash32
+   in farmhash mode) beside the gated single-cluster headline above, and
+   the 640 + 384-scenario wide fuzz sweep (zero violations; scenarios/s,
+   launches per batched tick from 16- and 32-tick profiled runs; the full
+   sweep's first bucket, ~216 instances a launch, equal to the same bucket
+   run with the plain versions on the card);
+Profiled windows are counted from the profiler's raw records (the first
+one also through ``key_averages``, which must agree).
+
+7. prints the ``kernels`` JSON line (each kernel with its batched
+   times), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a CUDA device, or run from
 a directory without the package, it exits non-zero and prints no result.
@@ -1379,13 +1408,60 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def _profile_counts(prof, top: int):
+    """Host reads (``aten::_local_scalar_dense``, one read back to the
+    host), kernel launches (``cudaLaunchKernel``), device ms (every record
+    of the card's activity) and the ``top`` kernels by device time, from
+    the profiler's raw records (``kineto_results.events()``): its event
+    tree, which ``key_averages`` builds in Python, costs seconds a tick at
+    a batched tick's records."""
+    from torch.autograd import DeviceType
+
+    reads = launches = 0
+    device_ns = 0
+    per_kernel = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            ns = e.duration_ns()
+            if ns > 0:
+                device_ns += ns
+                k = per_kernel.setdefault(name, [0, 0])
+                k[0] += 1
+                k[1] += ns
+        elif name == "aten::_local_scalar_dense":
+            reads += 1
+        elif name in ("cudaLaunchKernel", "cuLaunchKernel"):
+            launches += 1
+    ranked = sorted(per_kernel.items(), key=lambda kv: kv[1][1], reverse=True)[:top]
+    return reads, launches, device_ns / 1e6, [
+        dict(name=k[:60], launches=c, device_ms=ns / 1e6) for k, (c, ns) in ranked]
+
+
+def _profile_counts_tree(prof):
+    """The same counts from ``key_averages`` (the profiler's event tree)."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = prof.key_averages()
+    return (sum(e.count for e in rows if e.key == "aten::_local_scalar_dense"),
+            sum(e.count for e in rows if e.key in ("cudaLaunchKernel", "cuLaunchKernel")),
+            sum(dev_us(e) for e in rows if e.device_type == DeviceType.CUDA and dev_us(e) > 0)
+            / 1e3)
+
+
+PROFILE_CROSS_CHECKED = []
+
+
 def _profile_window(run, ticks: int, device, top: int = 0) -> dict:
     """``run()`` (``ticks`` ticks) under ``torch.profiler``: host reads a
-    tick (``aten::_local_scalar_dense``, one read back to the host),
-    kernel launches a tick (``cudaLaunchKernel``), the kernels' device ms
-    a tick and busy share of the window, and the ``top`` kernels by device
-    time."""
-    from torch.autograd import DeviceType
+    tick, kernel launches a tick, the device ms a tick and busy share of
+    the window, and the ``top`` kernels by device time
+    (:func:`_profile_counts`).  The first window on the card is also
+    counted through ``key_averages``, as before the raw records were
+    read, and both counts must agree."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
@@ -1396,22 +1472,21 @@ def _profile_window(run, ticks: int, device, top: int = 0) -> dict:
         run()
         _sync(device)
         wall = time.perf_counter() - t0
-    rows = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                     key=dev_us, reverse=True)
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    reads = sum(e.count for e in rows if e.key == "aten::_local_scalar_dense")
-    launches = sum(e.count for e in rows if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    reads, launches, device_ms, kernels = _profile_counts(prof, top)
+    if cuda and not PROFILE_CROSS_CHECKED:
+        t_reads, t_launches, t_device_ms = _profile_counts_tree(prof)
+        if (t_reads, t_launches) != (reads, launches) or abs(t_device_ms - device_ms) > 1e-3 * max(
+                1.0, device_ms):
+            raise AssertionError("profile counts: raw records %r, key_averages %r" % (
+                (reads, launches, device_ms), (t_reads, t_launches, t_device_ms)))
+        PROFILE_CROSS_CHECKED.append((reads, launches, device_ms))
+        print("profile counts: raw records == key_averages (%d reads, %d launches, %.3f device "
+              "ms)" % (reads, launches, device_ms), flush=True)
     out = dict(host_reads_per_tick=reads / ticks, launches_per_tick=launches / ticks,
                device_ms_per_tick=device_ms / ticks if cuda else None,
                busy_share=device_ms / 1e3 / wall if cuda else None)
     if top:
-        out["top"] = [dict(name=e.key[:60], launches=e.count, device_ms=dev_us(e) / 1e3)
-                      for e in kernels[:top]]
+        out["top"] = kernels
     return out
 
 
@@ -1727,6 +1802,508 @@ def tick_cluster_headline(n_sim: int = N_HEAD, n_scalable: int = 100_000, device
     return out
 
 
+# ---------------------------------------------------------------------------
+# the batch axis: the kernels' batching rules under torch.func.vmap, the
+# batched full engine and the fuzz executors
+
+BATCHES = (1, 4)
+# ticks of the profiled windows of the batched paths (their counts are read
+# from the profiler's raw records: see _profile_counts)
+PROFILE_TICKS = 16
+FUZZ_FULL = dict(engine="full", n=8, ticks=24, loss_levels=(0.0, 0.05, 0.2))
+FUZZ_SCALABLE = dict(engine="scalable", n=32, ticks=24, loss_levels=(0.0, 0.05, 0.2))
+# the port's kernel modules and the kernel each one's batching rule launches
+RULE_MODULES = (("fused_apply", "apply_updates"), ("fused_piggyback", "pb_budget"),
+                ("stream_hash", "fused_stream"), ("block_loop", "block_loop"),
+                ("exchange", "exchange"))
+
+
+def _shape_key(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_shape_key(y) for y in x)
+    return x
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return tuple(_clone(y) for y in x)
+    return x
+
+
+class _RuleCapture:
+    """Stands in for each kernel module's ``_clusters`` — the body of its
+    batching rule, which receives the real ``[B, ...]`` operands and
+    launches the kernel once — while a main path runs: every call passes
+    through, and the operands and results of the first call at each
+    (kernel, operand shapes, options) are kept for
+    :func:`_check_rule_capture`."""
+
+    def __enter__(self):
+        import importlib
+
+        self.kept = {}
+        self.saved = []
+        for module, kernel in RULE_MODULES:
+            mod = importlib.import_module("ringpop_tpu_torch.ops." + module)
+            self.saved.append((mod, mod._clusters))
+            mod._clusters = self._stand_in(kernel, mod._clusters)
+        return self
+
+    def _stand_in(self, kernel, fn):
+        def call(*args):
+            out = fn(*args)
+            key = (kernel, _shape_key(args))
+            if key not in self.kept:
+                self.kept[key] = (_clone(args), _clone(out))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for mod, fn in self.saved:
+            mod._clusters = fn
+        return False
+
+
+def _plain_clusters(kernel, args):
+    """The plain version of one batching-rule call on the same ``[B, ...]``
+    operands, in the rule's output order (``apply_updates``' applied count
+    per cluster; the kernel returns it per row)."""
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.ops import exchange as ex
+    from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_piggyback as fp
+    from ringpop_tpu_torch.ops import stream_hash as sh
+
+    if kernel == "apply_updates":
+        planes, now, deadline, union, want_masks, want_count, want_refute = args
+        o = fa.apply_updates_plain(fa.ApplyState(*planes[:10]), *planes[10:], now, deadline,
+                                   union, want_masks=want_masks, want_count=want_count,
+                                   want_refute=want_refute)
+        return (*o.state, o.union, o.applied, o.applied_rows, o.applied_count, o.refute_diag)
+    if kernel == "pb_budget":
+        return tuple(fp.pb_budget_plain(*args[:5], want_content=args[5]))
+    if kernel == "exchange":
+        return ex.exchange_plain(*args[:4], want_counts=args[4])
+    # the hash loops: rows are independent, so the B clusters' rows are
+    # one plain call
+    ops = args[0] if kernel == "fused_stream" else args
+    lead = tuple(ops[0].shape)
+    flat = [t.reshape((-1,) + tuple(t.shape[2:])) for t in ops]
+    plain = sh.fused_stream_plain if kernel == "fused_stream" else bl.block_loop_plain
+    return tuple(t.reshape(lead) for t in plain(*flat))
+
+
+def _check_rule_capture(kept, label: str) -> dict:
+    """Each kept batching-rule call: the kernel's results (as the main path
+    got them) bitwise equal to the plain version on the same operands.
+    Returns the shapes held, per kernel."""
+    held = {}
+    for (kernel, _), (args, got) in kept.items():
+        want = _plain_clusters(kernel, args)
+        got = list(got)
+        if kernel == "apply_updates" and got[13] is not None and got[13].dim() == 2:
+            got[13] = got[13].sum(dim=-1, dtype=torch.int32)  # per row -> per cluster
+        first = args[0][0] if kernel in ("apply_updates", "fused_stream") else args[0]
+        what = "%s %s %s" % (label, kernel, "x".join(str(d) for d in first.shape))
+        _same(tuple(got), tuple(want), what)
+        held.setdefault(kernel, []).append(list(first.shape))
+    return held
+
+
+def _stack(per_cluster):
+    """B per-cluster operand tuples -> one tuple of [B, ...] tensors."""
+    return tuple(torch.stack(list(xs)) for xs in zip(*per_cluster))
+
+
+def _batch_case(wrapper, call, per_cluster, want, label, symbol=None) -> dict:
+    """One kernel at one batch: ``vmap`` of the wrapper over the stacked
+    operands launches the kernel once, and equals the B single-cluster
+    launches and ``want`` (the plain version's outputs, cluster first),
+    bitwise.  Timed (``device_ms`` of the one launch, ``call_ms`` of the
+    vmapped call) when ``symbol`` is given, with its byte bound."""
+    from torch.func import vmap
+
+    args = _stack(per_cluster)
+    vfn = vmap(lambda *a: tuple(_leaves(tuple(call(a)))))
+    before = wrapper.launches
+    got = vfn(*args)
+    torch.cuda.synchronize()
+    if wrapper.launches - before != 1:
+        raise AssertionError("%s: %d launches for one batched call"
+                             % (label, wrapper.launches - before))
+    err = 0
+    for i, single_args in enumerate(per_cluster):
+        single = tuple(_leaves(tuple(call(single_args))))
+        err = max(err, _same(tuple(g[i] for g in got), single, "%s cluster %d" % (label, i)))
+        err = max(err, _same(single, tuple(w[i] for w in want), "%s cluster %d plain" % (label, i)))
+    out = dict(max_abs_err=err, launches_per_call=1)
+    if symbol is not None:
+        out.update(_times(lambda: vfn(*args), 20, symbol))
+        out["bound"] = _bound(_nbytes(args) + _nbytes(got), 0.0)
+        out["bound_ms"] = out["bound"][0]
+    return out
+
+
+def _per_cluster_plain(plain_call, per_cluster):
+    """The plain version's outputs for each cluster, stacked cluster first."""
+    outs = [tuple(_leaves(tuple(plain_call(a)))) for a in per_cluster]
+    return tuple(torch.stack(list(xs)) for xs in zip(*outs))
+
+
+def _rows_plain(plain, per_cluster):
+    """A row-wise plain version (the hash loops: rows are independent) run
+    once over every cluster's rows, split back per cluster: one slow plain
+    call in place of B."""
+    args = _stack(per_cluster)
+    b, rows = args[0].shape[:2]
+    flat = [a.reshape((b * rows,) + tuple(a.shape[2:])) for a in args]
+    return tuple(x.reshape(b, rows) for x in plain(*flat))
+
+
+def check_batch_rules(dev) -> dict:
+    """Each kernel's batching rule at B in (1, 4) over check_kernels'
+    shapes: one launch per batched call, equal to B single launches and
+    to the plain version; the batched call's times at the main shape.
+    B = 1 runs the first cluster of the B = 4 operands."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.ops import exchange as ex
+    from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_piggyback as fp
+    from ringpop_tpu_torch.ops import stream_hash as sh
+    from ringpop_tpu_torch.ops import u32
+
+    top = max(BATCHES)
+    report = {k: {} for k in ("apply_updates", "pb_budget", "fused_stream", "block_loop",
+                              "exchange")}
+
+    def run(name, call, plain_call, per, label, timed, rows_plain=None):
+        want = (_rows_plain(rows_plain, per) if rows_plain is not None
+                else _per_cluster_plain(plain_call, per))
+        for b in BATCHES:
+            r = _batch_case(getattr(mod[name], name), call, per[:b],
+                            tuple(w[:b] for w in want), "%s B=%d %s" % (name, b, label),
+                            "%s_kernel" % name if timed else None)
+            if timed:
+                report[name]["B=%d" % b] = r
+
+    mod = dict(apply_updates=fa, pb_budget=fp, fused_stream=sh, block_loop=bl, exchange=ex)
+    site = dict(want_masks=True, want_count=False, want_refute=True)
+    counted = dict(want_masks=False, want_count=True, want_refute=False)
+    for n in (N_HEAD, 1001):
+        # per-cluster stamps differ: cluster i's now is 37 + i
+        per = []
+        for i in range(top):
+            st, upd, union, now, deadline = _apply_inputs(n, 40 + i, dev)
+            per.append((*st, *upd, now + i, deadline + i, union))
+        for kw in (site, counted):
+            run("apply_updates",
+                lambda a, kw=kw: fa.apply_updates(fa.ApplyState(*a[:10]), *a[10:17], a[17], **kw),
+                lambda a, kw=kw: fa.apply_updates_plain(fa.ApplyState(*a[:10]), *a[10:17], a[17],
+                                                        **kw),
+                per, "n=%d %s" % (n, sorted(k for k in kw if kw[k])), n == N_HEAD and kw is site)
+        run("pb_budget", lambda a: fp.pb_budget(*a), lambda a: fp.pb_budget_plain(*a),
+            [_budget_inputs(n, 50 + i, dev) for i in range(top)], "n=%d" % n, n == N_HEAD)
+    for rows, n in ((256, N_HEAD), (16, 1001)):
+        run("fused_stream", lambda a: sh.fused_stream(*a), None,
+            [_stream_inputs(rows, n, 60 + i, dev) for i in range(top)],
+            "%d rows x N=%d" % (rows, n), n == N_HEAD, rows_plain=sh.fused_stream_plain)
+    per = [_block_inputs(256, 70 + i, dev) for i in range(top)]
+    run("block_loop", lambda a: bl.block_loop(*a), None, per,
+        "256 rows x I=%d" % per[0][3].shape[1], True, rows_plain=bl.block_loop_plain)
+    rng = np.random.default_rng(7)
+    per = [tuple(u32.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint32), dev)
+                 for shape in ((1000,), (1000,), (1000,), (1000, 7, 5)))
+           + (torch.as_tensor(rng.integers(0, 8, 1000).astype(np.int32), device=dev),)
+           for _ in range(top)]
+    run("block_loop", lambda a: bl.block_loop(*a), None, per, "1000 rows x I=7", False,
+        rows_plain=bl.block_loop_plain)
+    per = [_exchange_inputs(100_001, 16, 80 + i, dev) for i in range(top)]
+    for counts in (True, False):
+        run("exchange", lambda a, c=counts: ex.exchange(*a, want_counts=c),
+            lambda a, c=counts: ex.exchange_plain(*a, want_counts=c), per,
+            "N=100001 W=16 counts=%s" % counts, not counts)
+    for name, cases in report.items():
+        print("%s batched: %s" % (name, ", ".join(
+            "%s device %.4f ms call %.4f ms bound %.4f ms" % (k, v["device_ms"], v["call_ms"],
+                                                              v["bound_ms"])
+            for k, v in cases.items())), flush=True)
+    return report
+
+
+def _row_schedule(sched, t):
+    """Tick ``t`` of a schedule as a one-tick schedule."""
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule
+
+    return EventSchedule(ticks=1, n=sched.n, **{
+        k: None if getattr(sched, k) is None else getattr(sched, k)[t:t + 1]
+        for k in ("kill", "revive", "join", "partition", "resume", "leave")})
+
+
+def _fields_equal(a: dict, b: dict, what: str) -> None:
+    for f in a:
+        if (a[f] is None) != (b[f] is None) or (a[f] is not None and not (a[f] == b[f]).all()):
+            raise AssertionError("%s: %s differs" % (what, f))
+
+
+def check_batched_e2e(n=64, ticks=32, b=4):
+    """Phase 4, the batch axis: ``BatchedSimClusters(b=4, n=64)`` with the
+    flight recorder on, on the churn schedule, in fast, farmhash and
+    classic: card == CPU on every state and metric field of every tick,
+    each cluster == the card's solo ``SimCluster(gate_phases=False)`` with
+    seed + i on every tick, and the drained streams equal."""
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.fuzz.executor import event_capacity_for
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.batched import BatchedSimClusters
+    from ringpop_tpu_torch.models.sim.cluster import SimCluster
+
+    for mode in ("fast", "farmhash", "classic"):
+        p = engine.SimParams(n=n, checksum_mode="fast" if mode == "fast" else "farmhash",
+                             suspicion_ticks=6, flight_recorder=True,
+                             event_capacity=event_capacity_for(n, ticks))
+        if mode == "classic":
+            p = p._replace(fused_tick="off", fused_checksum="off")
+        bats = [BatchedSimClusters(b, n, params=p, seed=1, device=d) for d in ("cuda", "cpu")]
+        assert bats[0].params.hash_impl == "kernel" and not bats[0].params.gate_phases
+        solos = [SimCluster(n=n, params=p._replace(gate_phases=False), seed=1 + i, device="cuda")
+                 for i in range(b)]
+        sched = _churn_schedule(n, ticks)
+        ms = [x.bootstrap() for x in bats]
+        sms = [s.bootstrap() for s in solos]
+        for t in range(ticks + 1):
+            what = "batched n=%d %s tick %d" % (n, mode, t)
+            for f in engine.TickMetrics._fields:
+                got = getattr(ms[0], f).reshape(-1)
+                if not (got == getattr(ms[1], f).reshape(-1)).all():
+                    raise AssertionError("%s: metric %s card != cpu" % (what, f))
+                if not all(got[i] == getattr(sms[i], f).reshape(-1)[-1] for i in range(b)):
+                    raise AssertionError("%s: metric %s != solo" % (what, f))
+            card = convert.state_to_numpy(bats[0].state)
+            _fields_equal(card, convert.state_to_numpy(bats[1].state), what + " card != cpu")
+            if t == ticks:
+                for i, s in enumerate(solos):
+                    _fields_equal({f: None if v is None else v[i] for f, v in card.items()},
+                                  convert.state_to_numpy(s.state), "%s cluster %d != solo" % (what, i))
+            if t < ticks:
+                row = _row_schedule(sched, t)
+                ms = [x.run(row) for x in bats]
+                sms = [s.run(row) for s in solos]
+        streams = bats[0].drain_events()
+        if streams != bats[1].drain_events() or streams != [s.drain_events() for s in solos]:
+            raise AssertionError("batched n=%d %s: drained streams differ" % (n, mode))
+        print("batched n=%d b=%d %s: %d ticks, card == cpu on every state and metric field, "
+              "== the solo clusters (metrics every tick, final state), %d events drained"
+              % (n, b, mode, ticks + 1, sum(len(x) for x in streams)), flush=True)
+
+
+def _fuzz_runs_equal(got, want, label) -> None:
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.sim import engine
+
+    for r, w in zip(got, want):
+        if r.seeds != w.seeds or r.events != w.events or r.drops != w.drops:
+            raise AssertionError("%s: seeds, events or drops differ" % label)
+        conv = (convert.state_to_numpy if isinstance(r.final_state, engine.SimState)
+                else convert.scalable_state_to_numpy)
+        _fields_equal(conv(r.final_state), conv(w.final_state), label + " final state")
+        for f, x, y in zip(type(r.metrics)._fields, r.metrics, w.metrics):
+            if not (x == y).all():
+                raise AssertionError("%s: metric %s differs" % (label, f))
+
+
+def check_fuzz_e2e():
+    """Phase 4, the fuzz executors: the tier-1 smoke sweeps (full n=8 and
+    scalable n=32, 8 seeds, loss 0 and 0.1) on the card equal the CPU
+    (final states, metrics, event streams), with no violation; the
+    scalable sweep once more through the ``exchange`` kernel."""
+    from ringpop_tpu_torch.fuzz import executor as fex
+    from ringpop_tpu_torch.fuzz import invariants as inv
+    from ringpop_tpu_torch.fuzz import scenarios as sc
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    for cfg in (sc.ScenarioConfig(engine="full", n=8, ticks=20, loss_levels=(0.0, 0.1)),
+                sc.ScenarioConfig(engine="scalable", n=32, ticks=24, loss_levels=(0.0, 0.1))):
+        seeds = list(range(8))
+        card, cpu = (fex.sweep(seeds, cfg, device=d) for d in ("cuda", "cpu"))
+        _fuzz_runs_equal(card, cpu, "fuzz %s" % cfg.engine)
+        bad = {r.seeds[i]: vs for r in card for i, vs in inv.check_run(r).items()}
+        if bad:
+            raise AssertionError("fuzz %s: violations %s" % (cfg.engine, bad))
+        if cfg.engine == "scalable":
+            kernel_runs = []
+            for r in cpu:
+                params = r.params._replace(fused_exchange="kernel")
+                before = ex.exchange.launches
+                kernel_runs.append(fex.ScalableFuzzExecutor(cfg, params=params, device="cuda")
+                                   .run_seeds(r.seeds))
+                if ex.exchange.launches - before != cfg.ticks:
+                    raise AssertionError("fuzz scalable: %d exchange launches in %d batched ticks"
+                                         % (ex.exchange.launches - before, cfg.ticks))
+            _fuzz_runs_equal(kernel_runs, cpu, "fuzz scalable fused_exchange=kernel")
+        print("fuzz %s n=%d: %d seeds, card == cpu (final states, metrics, streams), no "
+              "violation%s" % (cfg.engine, cfg.n, len(seeds),
+                               "; again through the exchange kernel" if cfg.engine == "scalable"
+                               else ""), flush=True)
+
+
+def _one_group_per_cluster(bat) -> bool:
+    import numpy as np
+
+    cs = bat.checksums()
+    live = (bat.state.proc_alive & bat.state.ready).to("cpu").numpy()
+    return all(len(np.unique(cs[i][live[i]])) == 1 for i in range(bat.b))
+
+
+def _checksum_string(bat, b: int, i: int) -> str:
+    """Node i of cluster b's checksum string (``SimCluster.checksum_string_of``)."""
+    p = bat.params
+    known = bat.state.known[b, i].to("cpu").numpy()
+    status = bat.state.status[b, i].to("cpu").numpy()
+    inc = bat.state.inc[b, i].to("cpu").numpy()
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+
+    return ";".join(
+        "%s%s%d" % (a, ce.STATUS_STRINGS[int(status[j])],
+                    p.epoch_ms + (int(inc[j]) - 1) * p.period_ms if inc[j] > 0 else 0)
+        for j, a in enumerate(bat.universe.addresses) if known[j])
+
+
+def batched_headline(mode: str, b: int, window: int = CHURN_TICKS) -> dict:
+    """``BatchedSimClusters(b, n=1024)`` with the headline params: bootstrap,
+    quiet ticks until every cluster converged, then a timed churn window
+    and a timed quiet window; aggregate node-ticks/s, ms/tick, launches
+    and host reads a tick and the busy share (a profiled churn window of
+    ``PROFILE_TICKS``), peak memory; then one tick whose batching-rule
+    calls are held against the plain versions (:class:`_RuleCapture`)."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.batched import BatchedSimClusters
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule
+    from ringpop_tpu_torch.ops import farmhash32
+
+    n = N_HEAD
+    torch.cuda.reset_peak_memory_stats()
+    bat = BatchedSimClusters(b, n, params=engine.SimParams(n=n, checksum_mode=mode), device="cuda")
+    t0 = time.perf_counter()
+    bat.bootstrap()
+    quiet1 = EventSchedule(ticks=1, n=n)
+    converged_in = -1
+    for t in range(96):
+        if bool(bat.run(quiet1).converged.all()) and t >= 1:
+            converged_in = t + 1
+            break
+    if converged_in < 0:
+        raise AssertionError("batched %s b=%d: not converged within 96 ticks" % (mode, b))
+    converge_s = time.perf_counter() - t0
+    out = dict(mode=mode, b=b, n=n, converged_in=converged_in, converge_s=converge_s)
+    for label, sched in (("churn", EventSchedule.churn_window(window, n)),
+                         ("quiet", EventSchedule(ticks=window, n=n))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = bat.run(sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[label] = dict(ticks=window, wall_s=wall, ms_per_tick=wall / window * 1e3,
+                          node_ticks_per_s=b * n * window / wall)
+    if not (bool(m.converged[-1].all()) and _one_group_per_cluster(bat)):
+        raise AssertionError("batched %s b=%d: not one checksum group per cluster" % (mode, b))
+    t0 = time.perf_counter()
+    out["profile"] = _profile_window(
+        lambda: bat.run(EventSchedule.churn_window(PROFILE_TICKS, n)), PROFILE_TICKS, "cuda")
+    out["profile_s"] = time.perf_counter() - t0
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # one tick more with every batching rule's operands and results kept:
+    # each kernel held against its plain version at this path's shapes
+    # (a straight-line tick calls every rule, with the same shapes, each
+    # tick)
+    t0 = time.perf_counter()
+    with _RuleCapture() as cap:
+        bat.run(EventSchedule(ticks=1, n=n))
+    out["held_plain"] = _check_rule_capture(cap.kept, "batched %s b=%d" % (mode, b))
+    del cap
+    out["held_plain_s"] = time.perf_counter() - t0
+    if mode == "farmhash":
+        want = farmhash32.hash32(_checksum_string(bat, 0, 0))
+        got = int(bat.checksums()[0, 0])
+        if got != want:
+            raise AssertionError("batched: node 0 checksum %#x != host farmhash32 %#x"
+                                 % (got, want))
+        out["node0_checksum"] = "%#010x" % got
+    print("batched %s" % json.dumps(out), flush=True)
+    return out
+
+
+def batched_paths() -> list:
+    """The batched n=1024 main path: fast at B in (1, 8, 32), farmhash at
+    B in (1, 8)."""
+    return [batched_headline(mode, b) for mode, b in
+            (("fast", 1), ("fast", 8), ("fast", 32), ("farmhash", 1), ("farmhash", 8))]
+
+
+def fuzz_throughput() -> dict:
+    """The JAX slow tier's wide sweep on the card: 640 full scenarios (n=8,
+    24 ticks, loss 0 / 0.05 / 0.2) and 384 scalable ones (n=32), zero
+    violations required; scenarios/s of the batched runs and with the host
+    checks, and launches per batched tick (one loss bucket's batch profiled
+    over runs of ``PROFILE_TICKS`` and twice as many ticks)."""
+    from ringpop_tpu_torch.fuzz import executor as fex
+    from ringpop_tpu_torch.fuzz import invariants as inv
+    from ringpop_tpu_torch.fuzz import scenarios as sc
+
+    out = {}
+    for kw, count in ((FUZZ_FULL, 640), (FUZZ_SCALABLE, 384)):
+        cfg = sc.ScenarioConfig(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = fex.sweep(list(range(count)), cfg, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bad = {r.seeds[i]: vs for r in runs for i, vs in inv.check_run(r).items()}
+        check_s = time.perf_counter() - t0
+        if bad:
+            raise AssertionError("fuzz sweep %s: violations %s" % (cfg.engine, bad))
+        first = runs[0]
+        held = None
+        if cfg.engine == "full":
+            # the first bucket as the sweep ran it through the kernels (B
+            # instances a launch) equals the same bucket run with the plain
+            # versions on the card: final states, metrics and streams
+            plain = fex.FullFuzzExecutor(cfg, params=first.params._replace(fused_tick="plain"),
+                                         device="cuda").run_seeds(first.seeds)
+            _fuzz_runs_equal([plain], [first], "fuzz sweep full B=%d plain" % len(first.seeds))
+            held = len(first.seeds)
+        # a batched tick's launches and host reads: the first bucket's batch
+        # run under the profiler with its scenarios cut to PROFILE_TICKS
+        # and to twice that, the difference over PROFILE_TICKS (the run's
+        # set-up and drain cancel; a straight-line tick issues the same
+        # launches whatever its schedule)
+        profs = []
+        for ticks in (PROFILE_TICKS, 2 * PROFILE_TICKS):
+            ex = fex.executor_for(cfg._replace(ticks=ticks), packet_loss=first.params.packet_loss,
+                                  device="cuda")
+            profs.append(_profile_window(lambda: ex.run_seeds(first.seeds), ticks, "cuda"))
+        prof = {k: (2 * profs[1][k] - profs[0][k]) for k in ("launches_per_tick",
+                                                             "host_reads_per_tick")}
+        prof["busy_share"] = profs[1]["busy_share"]
+        out[cfg.engine] = dict(
+            scenarios=count, n=cfg.n, ticks=cfg.ticks, batches=[len(r.seeds) for r in runs],
+            run_s=run_s, check_s=check_s, scenarios_per_s=count / run_s,
+            scenarios_per_s_with_checks=count / (run_s + check_s),
+            launches_per_batched_tick=prof["launches_per_tick"],
+            host_reads_per_batched_tick=prof["host_reads_per_tick"],
+            busy_share=prof["busy_share"], violations=0, held_plain_instances=held,
+        )
+    print("fuzz %s" % json.dumps(out), flush=True)
+    return out
+
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -1751,10 +2328,17 @@ def main(argv) -> int:
     print("kernel build: %.1f s (%s, %s)" % (lib.build_seconds, "built" if lib.built else "cached",
                                             lib.path.name), flush=True)
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     report = check_kernels(dev)
     report["exchange"] = check_exchange(dev)
     report["block_loop"] = check_block_loop(dev)
-    for phase in (check_e2e, check_storm_e2e, check_storm_planes_e2e, check_route_e2e):
+    print("check_kernels, check_exchange, check_block_loop: %.1f s"
+          % (time.perf_counter() - t0), flush=True)
+    t0 = time.perf_counter()
+    batch_report = check_batch_rules(dev)
+    print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
+    for phase in (check_e2e, check_batched_e2e, check_fuzz_e2e, check_storm_e2e,
+                  check_storm_planes_e2e, check_route_e2e):
         t0 = time.perf_counter()
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
@@ -1779,6 +2363,9 @@ def main(argv) -> int:
         ("routed 1M storm histograms", route_planes_headline, ("exchange",)),
         ("tick-cluster", tick_cluster_headline,
          ("apply_updates", "pb_budget", "fused_stream", "exchange")),
+        # the batch axis: B clusters a tick, and the fuzz campaigns
+        ("BatchedSimClusters n=1024", batched_paths, ("apply_updates", "pb_budget", "fused_stream")),
+        ("fuzz sweeps", fuzz_throughput, ("apply_updates", "pb_budget")),
     )
     launches = {k: 0 for k in wrappers}
     if not quick:
@@ -1809,6 +2396,10 @@ def main(argv) -> int:
                 extra.setdefault("cases", {}).update({c: _brief(v) for c, v in cases.items()})
         if twin.also_replaces:
             extra["also_replaces"] = list(twin.also_replaces)
+        # the batching rule: one launch for B clusters, at B in BATCHES
+        extra["batched"] = {k: {f: v[f] for f in ("device_ms", "call_ms", "bound_ms",
+                                                  "launches_per_call", "max_abs_err")}
+                            for k, v in batch_report[twin.kernel_entry].items()}
         kernels.append(dict(
             name=twin.kernel_entry,
             route="cuda",

@@ -16,6 +16,12 @@
 // union word of those 32 columns; __syncthreads_count per column sweep
 // gives the per-row count and OR without a second pass.  Columns past n
 // (a partial last word) take part in the ballot with gate = 0.
+//
+// The batch axis: B clusters' planes stacked [B, N, N] run in one launch
+// of B x N blocks.  Block x is row x % N of cluster x / N: its planes'
+// row is the x-th of the flattened [B * N, N] view, so only the diagonal
+// test (the local row) and the stamps (cluster b's now and deadline, one
+// each) read the cluster index; the per-row outputs are [B * N].
 #include "common.cuh"
 
 namespace {
@@ -54,10 +60,12 @@ struct ApplyArgs {
 
 __global__ void __launch_bounds__(THREADS)
 apply_updates_kernel(ApplyArgs a, int n, int words) {
-  const int row = blockIdx.x;
-  const int now = *a.now;
-  const int deadline = *a.deadline;
-  const size_t base = static_cast<size_t>(row) * n;
+  const int flat = blockIdx.x;  // row of the flattened [B * N, N] planes
+  const int cluster = flat / n;
+  const int row = flat - cluster * n;
+  const int now = a.now[cluster];
+  const int deadline = a.deadline[cluster];
+  const size_t base = static_cast<size_t>(flat) * n;
   int total = 0;
   for (int c0 = 0; c0 < n; c0 += THREADS) {
     const int c = c0 + threadIdx.x;
@@ -92,27 +100,29 @@ apply_updates_kernel(ApplyArgs a, int n, int words) {
       const bool stop = gate && st != SUSPECT;
       a.o_susp[i] = start ? deadline : (stop ? -1 : a.susp[i]);
       if (a.applied) a.applied[i] = gate;
-      if (a.refute && is_self) a.refute[row] = refute;
+      if (a.refute && is_self) a.refute[flat] = refute;
     }
     if (a.union_out) {
       const unsigned bits = __ballot_sync(0xffffffffu, gate);
       const int word = c >> 5;
       if ((threadIdx.x & 31) == 0 && word < words) {
-        const size_t w = static_cast<size_t>(row) * words + word;
+        const size_t w = static_cast<size_t>(flat) * words + word;
         a.union_out[w] = a.union_in[w] | bits;
       }
     }
     total += __syncthreads_count(gate);
   }
   if (threadIdx.x == 0) {
-    a.rows[row] = total > 0;
-    if (a.count) a.count[row] = total;
+    a.rows[flat] = total > 0;
+    if (a.count) a.count[flat] = total;
   }
 }
 
 }  // namespace
 
-RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, void* stream) {
+// b: the clusters stacked on the planes' leading axis (1 for one [N, N]
+// cluster), with b stamps each for now and deadline.
+RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, int b, void* stream) {
   ApplyArgs a;
   a.known = static_cast<const uint8_t*>(p[IN_KNOWN]);
   a.status = static_cast<const int32_t*>(p[IN_STATUS]);
@@ -147,8 +157,8 @@ RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, void* strea
   a.rows = static_cast<uint8_t*>(p[OUT_ROWS]);
   a.count = static_cast<int32_t*>(p[OUT_COUNT]);
   a.refute = static_cast<uint8_t*>(p[OUT_REFUTE]);
-  if (n <= 0) return 0;
-  apply_updates_kernel<<<n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n <= 0 || b <= 0) return 0;
+  apply_updates_kernel<<<b * n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, n, words);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,14 @@
 // spans `seg` lanes of one warp (seg a power of two <= 32); a lane takes
 // ceil(W / (VEC * seg)) items of a row, and the row's partial sums meet by
 // xor shuffles (wrapping uint32 adds: any order gives the same sum).
+//
+// The batch axis: B clusters' masks stacked [B, N, W] run in one launch
+// whose grid has a cluster axis (blockIdx.y).  A block offsets its planes,
+// outputs and delta table by its cluster and then runs the design above
+// inside that cluster: it stages its own cluster's table once and walks
+// the cluster's row tiles with a stride of gridDim.x (the persistent grid
+// is split between the clusters by ops/exchange.py `exchange_plan`).  A
+// table shared by every cluster is passed once, with a cluster stride of 0.
 #include "common.cuh"
 
 namespace {
@@ -119,8 +127,18 @@ exchange_kernel(const uint32_t* __restrict__ heard,
                 const uint32_t* __restrict__ pushed,
                 const uint32_t* __restrict__ r_delta,
                 uint32_t* __restrict__ o_new, uint32_t* __restrict__ o_acc,
-                int32_t* __restrict__ o_cnt, int n, int w, int seg) {
+                int32_t* __restrict__ o_cnt, int n, int w, int seg, int delta_stride) {
   extern __shared__ uint32_t s_delta[];
+  {
+    const size_t plane = static_cast<size_t>(blockIdx.y) * n * w;
+    heard += plane;
+    pulled += plane;
+    pushed += plane;
+    o_new += plane;
+    o_acc += static_cast<size_t>(blockIdx.y) * n;
+    if (o_cnt) o_cnt += static_cast<size_t>(blockIdx.y) * n;
+    r_delta += static_cast<size_t>(blockIdx.y) * delta_stride;
+  }
   const uint32_t* tbl = r_delta;
   if (SMEM) {
     const int u = w * 32;
@@ -195,8 +213,9 @@ struct Args {
 };
 
 template <int VEC>
-cudaError_t launch(const Args& a, int n, int w, int seg, int blocks, bool smem_table,
-                   cudaStream_t s) {
+cudaError_t launch(const Args& a, int n, int w, int seg, int blocks, bool smem_table, int b,
+                   int delta_stride, cudaStream_t s) {
+  const dim3 grid(blocks, b);
   if (smem_table) {
     const size_t bytes = static_cast<size_t>(w) * 32 * sizeof(uint32_t);
     if (bytes > DEFAULT_SMEM) {
@@ -205,11 +224,13 @@ cudaError_t launch(const Args& a, int n, int w, int seg, int blocks, bool smem_t
           SMEM_TABLE_MAX * static_cast<int>(sizeof(uint32_t)));
       if (e != cudaSuccess) return e;
     }
-    exchange_kernel<VEC, true><<<blocks, THREADS, bytes, s>>>(
-        a.heard, a.pulled, a.pushed, a.delta, a.o_new, a.o_acc, a.o_cnt, n, w, seg);
+    exchange_kernel<VEC, true><<<grid, THREADS, bytes, s>>>(
+        a.heard, a.pulled, a.pushed, a.delta, a.o_new, a.o_acc, a.o_cnt, n, w, seg,
+        delta_stride);
   } else {
-    exchange_kernel<VEC, false><<<blocks, THREADS, 0, s>>>(
-        a.heard, a.pulled, a.pushed, a.delta, a.o_new, a.o_acc, a.o_cnt, n, w, seg);
+    exchange_kernel<VEC, false><<<grid, THREADS, 0, s>>>(
+        a.heard, a.pulled, a.pushed, a.delta, a.o_new, a.o_acc, a.o_cnt, n, w, seg,
+        delta_stride);
   }
   return cudaGetLastError();
 }
@@ -219,10 +240,13 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // vec, seg and blocks come from ops/exchange.py `exchange_plan`; a plan the
-// kernel cannot run is refused with cudaErrorInvalidValue.
+// kernel cannot run is refused with cudaErrorInvalidValue.  b: the clusters
+// stacked on the planes' leading axis (1 for one [N, W] mask); delta_stride:
+// the words between two clusters' tables (0: one table for all).
 RINGPOP_EXPORT int ringpop_exchange(void** p, int n, int w, int vec, int seg, int blocks,
-                                    int smem_table, void* stream) {
-  if (n <= 0 || w <= 0) return 0;
+                                    int smem_table, int b, int delta_stride, void* stream) {
+  if (n <= 0 || w <= 0 || b <= 0) return 0;
+  if (b > 65535 || delta_stride < 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{
       static_cast<const uint32_t*>(p[IN_HEARD]), static_cast<const uint32_t*>(p[IN_PULLED]),
       static_cast<const uint32_t*>(p[IN_PUSHED]), static_cast<const uint32_t*>(p[IN_DELTA]),
@@ -238,8 +262,8 @@ RINGPOP_EXPORT int ringpop_exchange(void** p, int n, int w, int vec, int seg, in
         !aligned16(a.o_new)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(launch<4>(a, n, w, seg, blocks, smem_table != 0, s));
+    return static_cast<int>(launch<4>(a, n, w, seg, blocks, smem_table != 0, b, delta_stride, s));
   }
   if (vec != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<1>(a, n, w, seg, blocks, smem_table != 0, s));
+  return static_cast<int>(launch<1>(a, n, w, seg, blocks, smem_table != 0, b, delta_stride, s));
 }

@@ -13,6 +13,11 @@
 // bool planes out; a few integer operations per cell).  Design: one block
 // per row, threads over columns (coalesced), one __syncthreads_count per
 // column sweep for the drops.
+//
+// The batch axis: B clusters' planes stacked [B, N, N] (with [B, N] bump
+// counts and bounds) are B * N rows of one [B * N, N] pass — the grid
+// runs over the rows, so one launch serves every cluster and the drops
+// come back per row of each cluster.
 #include "common.cuh"
 
 namespace {
@@ -56,9 +61,10 @@ pb_budget_kernel(const uint8_t* active, const int32_t* pb,
 
 }  // namespace
 
-RINGPOP_EXPORT int ringpop_pb_budget(void** p, int n, void* stream) {
-  if (n <= 0) return 0;
-  pb_budget_kernel<<<n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+// rows: the rows of the pass (n for one cluster, B * n for B clusters).
+RINGPOP_EXPORT int ringpop_pb_budget(void** p, int n, int rows, void* stream) {
+  if (n <= 0 || rows <= 0) return 0;
+  pb_budget_kernel<<<rows, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(p[IN_ACTIVE]),
       static_cast<const int32_t*>(p[IN_PB]),
       static_cast<const int32_t*>(p[IN_NBUMP]),

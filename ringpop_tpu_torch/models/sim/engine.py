@@ -152,6 +152,20 @@ class SimState(NamedTuple):
     hist: Optional[torch.Tensor] = None
 
 
+# Every SimState field is either trajectory (protocol state, compared
+# bitwise between the engines) or obs-only (a write-only telemetry plane
+# the trajectory never reads); the sets are the JAX engine's
+# (``SIM_OBS_ONLY_FIELDS`` / ``SIM_TRAJECTORY_FIELDS``), spelled out so a
+# new field must be placed in one.  ``fuzz.executor.split_obs`` drains the
+# obs-only planes by these names.
+SIM_OBS_ONLY_FIELDS = frozenset({"ev_buf", "ev_head", "ev_drops", "first_heard", "hist"})
+SIM_TRAJECTORY_FIELDS = frozenset({
+    "tick_index", "proc_alive", "ready", "gossip_on", "partition", "known", "status",
+    "inc", "ch_active", "ch_status", "ch_inc", "ch_source", "ch_source_inc", "ch_pb",
+    "susp_deadline", "perm_inv", "iter_pos", "rng", "checksum", "rec_bytes", "rec_len",
+})
+
+
 class TickInputs(NamedTuple):
     """Per-tick event-schedule inputs (the fault-injection plane)."""
 

@@ -133,6 +133,17 @@ class ScalableState(NamedTuple):
     exch_hist: Optional[torch.Tensor] = None
 
 
+# trajectory vs obs-only ScalableState fields, as in the JAX engine
+# (``SCALABLE_OBS_ONLY_FIELDS`` / ``SCALABLE_TRAJECTORY_FIELDS``; the note
+# at engine.SIM_OBS_ONLY_FIELDS)
+SCALABLE_OBS_ONLY_FIELDS = frozenset({"first_heard", "hist", "exch", "exch_hist"})
+SCALABLE_TRAJECTORY_FIELDS = frozenset({
+    "tick_index", "proc_alive", "gossip_on", "partition", "truth_status", "truth_inc",
+    "r_active", "r_delta", "r_birth", "heard", "susp_subject", "susp_since", "defame_slot",
+    "defame_by", "base_sum", "rng", "checksum",
+})
+
+
 class ScalableMetrics(NamedTuple):
     live_nodes: torch.Tensor
     active_rumors: torch.Tensor
@@ -185,16 +196,18 @@ def _phase(gate: bool, pred, true_fn, false_fn, *ops):
 
 
 def _rand_u32(key: torch.Tensor, shape, salt: int) -> torch.Tensor:
+    """``shape`` uint32 draws from the [2] key (``[..., 2]`` keys give
+    ``[..., *shape]``: one row of draws per key)."""
     size = math.prod(shape)
     i = torch.arange(size, dtype=torch.int32, device=key.device)
-    x = key[0] + i * u32.s32(0x01000193) + u32.s32(salt)
-    x = x ^ u32.srl(key[1], 7)
+    x = key[..., 0, None] + i * u32.s32(0x01000193) + u32.s32(salt)
+    x = x ^ u32.srl(key[..., 1, None], 7)
     x = x ^ u32.srl(x, 15)
     x = x * u32.s32(0x2C1B3C6D)
     x = x ^ u32.srl(x, 12)
     x = x * u32.s32(0x297A2D39)
     x = x ^ u32.srl(x, 15)
-    return x.reshape(shape)
+    return x.reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
 def _uniform(key, shape, salt) -> torch.Tensor:
@@ -273,23 +286,24 @@ def _prp_half_bits(n: int) -> int:
 
 
 def _prp_apply(v: torch.Tensor, keys: torch.Tensor, hb: int, inverse: bool = False) -> torch.Tensor:
-    """One PRP pass over [0, 4^hb); ``inverse`` runs the rounds backwards."""
+    """One PRP pass over [0, 4^hb); ``inverse`` runs the rounds backwards.
+    ``keys``: [ROUNDS], or [B, ROUNDS] with ``v`` [B, N] (one key set a row)."""
     mask = (1 << hb) - 1
     left = u32.srl(v, hb)
     right = v & mask
     if not inverse:
         for r in range(_PRP_ROUNDS):
-            left, right = right, left ^ _prp_f(right, keys[r], mask)
+            left, right = right, left ^ _prp_f(right, keys[..., r, None], mask)
     else:
         for r in reversed(range(_PRP_ROUNDS)):
-            left, right = right ^ _prp_f(left, keys[r], mask), left
+            left, right = right ^ _prp_f(left, keys[..., r, None], mask), left
     return (left << hb) | right
 
 
-def _prp_perm(key: torch.Tensor, n: int, salt: int, inverse: bool = False) -> torch.Tensor:
-    """[N] int32 keyed bijection over [0, n), cycle-walked back into range
-    (each step of the walk is one host read); ``inverse=True`` evaluates
-    the analytic inverse."""
+def _prp_walk(key: torch.Tensor, n: int, salt: int, inverse: bool) -> torch.Tensor:
+    """The keyed bijection over [0, n) for a [2] key ([N]) or for B keys
+    ``[B, 2]`` ([B, N]), cycle-walked back into range: each step of the
+    walk is one host read, of every row at once."""
     hb = _prp_half_bits(n)
     keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
     x = _prp_apply(torch.arange(n, dtype=torch.int32, device=key.device), keys, hb, inverse)
@@ -298,6 +312,30 @@ def _prp_perm(key: torch.Tensor, n: int, salt: int, inverse: bool = False) -> to
         if not host_read(out.any()):
             return x
         x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
+
+
+def _prp_perm(key: torch.Tensor, n: int, salt: int, inverse: bool = False) -> torch.Tensor:
+    """[N] int32 keyed bijection over [0, n), cycle-walked back into range
+    (each step of the walk is one host read); ``inverse=True`` evaluates
+    the analytic inverse.  Inside ``torch.func.vmap`` (a batched key) the
+    custom op ``ringpop_torch::prp_perm`` walks all B rows together, as the
+    JAX engine's vmapped ``while_loop`` does: until every row is in range,
+    the rows already done masked, one host read a step."""
+    if toolkit.is_batched(key):
+        return _prp_perm_op(key, n, salt, inverse)
+    return _prp_walk(key, n, salt, inverse)
+
+
+@torch.library.custom_op(toolkit.LIB + "::prp_perm", mutates_args=())
+def _prp_perm_op(key: torch.Tensor, n: int, salt: int, inverse: bool) -> torch.Tensor:
+    return _prp_walk(key, n, salt, inverse)
+
+
+def _prp_perm_rule(info, in_dims, key, n, salt, inverse):
+    return _prp_walk(toolkit.batch_front(key, in_dims[0], info.batch_size), n, salt, inverse), 0
+
+
+torch.library.register_vmap(toolkit.LIB + "::prp_perm", _prp_perm_rule)
 
 
 def resolve_perm_impl(params: ScalableParams, device_type: str = "cpu") -> str:
@@ -427,8 +465,13 @@ def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mas
     if fh is not None:
         # wavefront: the publishers are the rumor's first hearers.  The
         # matrix is this tick's own copy (the stamp in tick() made it), so
-        # the column is written in place rather than copying [N, U] again.
-        fh.index_copy_(1, at, torch.where(hears, tick, fh.index_select(1, at)[:, 0])[:, None])
+        # the column is written in place rather than copying [N, U] again
+        # (out of place under vmap, where index_copy_ has no batching rule).
+        col = torch.where(hears, tick, fh.index_select(1, at)[:, 0])[:, None]
+        if toolkit.is_batched(fh):
+            state = state._replace(first_heard=fh.index_copy(1, at, col))
+        else:
+            fh.index_copy_(1, at, col)
     # an empty batch leaves the (inactive) slot's delta and birth as they
     # were, so a straight-line publish equals a skipped one bit for bit
     return state._replace(
@@ -574,7 +617,7 @@ def _column_bit_counts(words: torch.Tensor) -> torch.Tensor:
     """[N, W] int32 bit words -> [W*32] int32: per bit column b (word
     b // 32, bit b % 32), how many rows have it set — a per-bit sum over
     the words' bytes, with no [N, W*32] expansion."""
-    b8 = words.contiguous().view(torch.uint8)  # byte k of word w: bits 8k..8k+7
+    b8 = u32.words_to_bytes(words)  # byte k of word w: bits 8k..8k+7
     cols = [((b8 >> j) & 1).sum(dim=0, dtype=torch.int32) for j in range(8)]
     return torch.stack(cols, dim=1).reshape(-1)
 

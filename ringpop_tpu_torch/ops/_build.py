@@ -35,10 +35,10 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # each C entry point: its pointer-table length and its int arguments
 ENTRY_POINTS = {
-    "ringpop_apply_updates": (33, 2),
-    "ringpop_pb_budget": (9, 1),
+    "ringpop_apply_updates": (33, 3),
+    "ringpop_pb_budget": (9, 2),
     "ringpop_fused_stream": (9, 3),
-    "ringpop_exchange": (7, 6),
+    "ringpop_exchange": (7, 8),
     "ringpop_block_loop": (8, 3),
 }
 

@@ -25,9 +25,11 @@ uint32 values are int32 bit patterns (:mod:`ringpop_tpu_torch.ops.u32`).
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
-from ringpop_tpu_torch.ops import _build
+from ringpop_tpu_torch.ops import _build, toolkit
 from ringpop_tpu_torch.ops.farmhash import C1, _mur
 
 
@@ -49,7 +51,9 @@ def block_loop_plain(h0, g0, f0, blocks, iters):
     rounds are inactive on every row)."""
     B, n_iter, _ = blocks.shape
     h, g, f = h0, g0, f0
-    steps = min(n_iter, int(iters.max())) if B else 0
+    # inside vmap the trip counts cannot be read on the host: every round
+    # runs (the rounds past a row's count are inactive, so bit-neutral)
+    steps = n_iter if toolkit.is_batched(iters) else (min(n_iter, int(iters.max())) if B else 0)
     for i in range(steps):
         active = i < iters
         a, b, c, d, e = blocks[:, i].unbind(1)
@@ -86,11 +90,19 @@ def block_loop(h0, g0, f0, blocks, iters):
     per-row trip counts.  Returns ``(h, g, f)`` [B] int32 (uint32).
 
     A CUDA tensor launches ``csrc/block_loop.cu``; a CPU tensor runs
-    :func:`block_loop_plain`."""
+    :func:`block_loop_plain`.  Inside ``torch.func.vmap`` the call goes
+    through the custom op ``ringpop_torch::block_loop``, whose batching
+    rule runs the rows of every cluster in one launch."""
+    if toolkit.is_batched(h0, g0, f0, blocks, iters):
+        return tuple(_loop_op(h0, g0, f0, blocks, iters))
     if blocks.ndim != 3 or blocks.shape[2] != 5:
         raise ValueError("block_loop wants [B, I, 5] blocks, got %r" % (tuple(blocks.shape),))
     if blocks.device.type == "cpu":
         return block_loop_plain(h0, g0, f0, blocks, iters)
+    return _launch(h0, g0, f0, blocks, iters)
+
+
+def _launch(h0, g0, f0, blocks, iters):
     B, n_iter, _ = blocks.shape
     dev = blocks.device
     i32 = torch.int32
@@ -109,3 +121,45 @@ def block_loop(h0, g0, f0, blocks, iters):
 
 
 block_loop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: the rows of B clusters in one launch
+
+
+def _clusters(h0, g0, f0, blocks, iters):
+    """C clusters' ``[C, R]`` carries and ``[C, R, I, 5]`` blocks as one
+    ``[C * R]`` row set.  The blocks keep their row stride when the
+    clusters' rows are evenly spaced (a batched word view of checksum rows),
+    else they are copied contiguous."""
+    c, r, n_iter, _ = blocks.shape
+    flat = [t.reshape(-1).contiguous() for t in (h0, g0, f0, iters)]
+    s_c, s_r, s_i, s_w = blocks.stride()
+    if s_w == 1 and (n_iter <= 1 or s_i == 5) and (c <= 1 or s_c == r * s_r) and s_r >= 5 * n_iter:
+        rows = blocks.as_strided((c * r, n_iter, 5), (s_r, 5, 1))
+    else:
+        rows = blocks.contiguous().reshape(c * r, n_iter, 5)
+    if blocks.device.type == "cpu":
+        out = block_loop_plain(flat[0], flat[1], flat[2], rows, flat[3])
+    else:
+        out = _launch(flat[0], flat[1], flat[2], rows, flat[3])
+    return [t.reshape(c, r) for t in out]
+
+
+@torch.library.custom_op(toolkit.LIB + "::block_loop", mutates_args=())
+def _loop_op(
+    h0: torch.Tensor, g0: torch.Tensor, f0: torch.Tensor, blocks: torch.Tensor,
+    iters: torch.Tensor,
+) -> List[torch.Tensor]:
+    """One cluster's rows through the op (the wrapper calls it only inside
+    vmap, where the rule below runs instead)."""
+    return [t[0] for t in _clusters(h0[None], g0[None], f0[None], blocks[None], iters[None])]
+
+
+def _loop_rule(info, in_dims, *args):
+    b = info.batch_size
+    out = _clusters(*(toolkit.batch_front(t, d, b) for t, d in zip(args, in_dims)))
+    return out, [0, 0, 0]
+
+
+torch.library.register_vmap(toolkit.LIB + "::block_loop", _loop_rule)

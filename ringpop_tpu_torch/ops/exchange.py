@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,28 +49,26 @@ def popcount_u32(x: torch.Tensor) -> torch.Tensor:
     return toolkit.popcount(x).to(torch.int32)
 
 
-def _delta_table(r_delta: torch.Tensor, w: int) -> torch.Tensor:
-    """[W, 32] int64 unsigned deltas: entry (w, b) is rumor w*32+b's."""
-    return (r_delta.to(torch.int64) & 0xFFFFFFFF).reshape(w, WORD)
-
-
 def delta_sum_plain(
     words: torch.Tensor, r_delta: torch.Tensor, _chunk_rows: int = 65536
 ) -> torch.Tensor:
-    """[N] int32 (uint32): per-row sum of ``r_delta`` over the row's set
-    bits, mod 2^32.  An exact int64 sum over row chunks, so the ``[C, W,
-    32]`` bit expansion never exists at full ``[N, U]``; no floating point
-    (and so no dependence on the TF32 matmul switch)."""
-    n, w = words.shape
-    tbl = _delta_table(r_delta, w)
+    """[..., N] int32 (uint32): per-row sum of ``r_delta`` over the row's
+    set bits, mod 2^32.  ``words``: [..., N, W] masks; ``r_delta``: one
+    [U] table for every leading index, or [..., U] tables.  An exact int64
+    sum over row chunks of at most ``_chunk_rows`` rows in all, so the
+    ``[C, W, 32]`` bit expansion never exists at full ``[N, U]``; no
+    floating point (and so no dependence on the TF32 matmul switch)."""
+    n, w = words.shape[-2:]
+    # [..., 1, W, 32] unsigned deltas: entry (w, b) is rumor w*32+b's
+    tbl = (r_delta.to(torch.int64) & 0xFFFFFFFF).reshape(r_delta.shape[:-1] + (1, w, WORD))
     bit_ids = torch.arange(WORD, dtype=torch.int32, device=words.device)
-    out = torch.empty(n, dtype=torch.int32, device=words.device)
-    chunk = max(1, min(n, _chunk_rows))
-    for lo in range(0, n, chunk):
-        d = words[lo:lo + chunk]
-        bits = (d[:, :, None] >> bit_ids) & 1  # [C, W, 32]
-        out[lo:lo + chunk] = from_u64((bits * tbl).sum(dim=(1, 2)))
-    return out
+    chunk = max(1, min(n, _chunk_rows // max(1, math.prod(words.shape[:-2]))))
+
+    def row_sums(d):
+        bits = (d[..., None] >> bit_ids) & 1  # [..., C, W, 32]
+        return from_u64((bits * tbl).sum(dim=(-2, -1)))
+
+    return torch.cat([row_sums(words[..., lo:lo + chunk, :]) for lo in range(0, n, chunk)], dim=-1)
 
 
 def exchange_plain(
@@ -82,11 +80,12 @@ def exchange_plain(
     want_counts: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of :func:`exchange` (the counterpart of
-    ``exchange_xla``): the same arithmetic as chunked tensor ops."""
+    ``exchange_xla``): the same arithmetic as chunked tensor ops.  Takes
+    leading batch dims as :func:`delta_sum_plain` does."""
     new = heard | pulled | pushed
     diff = new ^ heard
     acc = delta_sum_plain(diff, r_delta, _chunk_rows)
-    cnt = popcount_u32(diff).sum(dim=1, dtype=torch.int32) if want_counts else None
+    cnt = popcount_u32(diff).sum(dim=-1, dtype=torch.int32) if want_counts else None
     return new, acc, cnt
 
 
@@ -105,9 +104,11 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
-def exchange_plan(n: int, w: int, aligned: bool, sm_count: int) -> ExchangePlan:
+def exchange_plan(n: int, w: int, aligned: bool, sm_count: int, clusters: int = 1) -> ExchangePlan:
     """The kernel's geometry for an [n, w] mask on a card of ``sm_count``
     SMs.  ``aligned``: the three input planes start on 16-byte boundaries.
+    ``clusters``: masks stacked on the grid's second axis, which share the
+    card's resident blocks (``blocks`` is per cluster).
 
     4-word lanes where they tile a row with no idle lane (w / 4 a power of
     two up to 32, or a multiple of 32) and the planes are aligned, unless
@@ -123,7 +124,7 @@ def exchange_plan(n: int, w: int, aligned: bool, sm_count: int) -> ExchangePlan:
     per_sm = BLOCKS_PER_SM
     if smem_table:
         per_sm = min(per_sm, SMEM_PER_SM // (table_bytes + SMEM_PER_BLOCK))
-    capacity = sm_count * per_sm
+    capacity = max(1, sm_count * per_sm // max(1, clusters))
 
     def tiling(vec):
         seg = min(32, _pow2_at_least(w // vec))
@@ -168,7 +169,13 @@ def exchange(
     popcount output (the engine's hot path consumes only the delta).
 
     CUDA tensors launch ``csrc/exchange.cu`` with the geometry of
-    :func:`exchange_plan`; CPU tensors run :func:`exchange_plain`."""
+    :func:`exchange_plan`; CPU tensors run :func:`exchange_plain`.  Inside
+    ``torch.func.vmap`` the call goes through the custom op
+    ``ringpop_torch::exchange``, whose batching rule launches the kernel
+    once with a cluster axis (each block stages its own cluster's table)."""
+    if toolkit.is_batched(heard, pulled, pushed, r_delta):
+        new, acc, cnt = _exchange_op(heard, pulled, pushed, r_delta, want_counts)
+        return new, acc, cnt if want_counts else None
     if heard.ndim != 2:
         raise ValueError("exchange wants an [N, U/32] mask, got %r" % (tuple(heard.shape),))
     n, w = heard.shape
@@ -177,26 +184,78 @@ def exchange(
             "delta table must cover the mask: [%d] for %d words, got %r"
             % (w * WORD, w, tuple(r_delta.shape))
         )
-    dev = heard.device
-    if dev.type == "cpu":
+    if heard.device.type == "cpu":
         return exchange_plain(heard, pulled, pushed, r_delta, want_counts=want_counts)
+    return _launch(heard, pulled, pushed, r_delta, want_counts, clusters=None)
+
+
+def _launch(heard, pulled, pushed, r_delta, want_counts, clusters):
+    """One launch over one cluster's ``[N, W]`` planes (``clusters`` None)
+    or ``clusters`` stacked ``[B, N, W]`` ones, whose delta tables are
+    ``[B, U]`` or one shared ``[U]`` table."""
+    dev = heard.device
+    n, w = heard.shape[-2:]
+    lead = () if clusters is None else (clusters,)
+    shared_table = r_delta.ndim == 1
     i32 = torch.int32
     _build.check("exchange", dev, (
-        ("heard", heard, i32, (n, w)), ("pulled", pulled, i32, (n, w)),
-        ("pushed", pushed, i32, (n, w)), ("r_delta", r_delta, i32, (w * WORD,)),
+        ("heard", heard, i32, lead + (n, w)), ("pulled", pulled, i32, lead + (n, w)),
+        ("pushed", pushed, i32, lead + (n, w)),
+        ("r_delta", r_delta, i32, ((w * WORD,) if shared_table else lead + (w * WORD,))),
     ))
-    new = torch.empty((n, w), dtype=torch.int32, device=dev)
-    acc = torch.empty(n, dtype=torch.int32, device=dev)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev) if want_counts else None
-    plan = exchange_plan(n, w, _aligned(heard, pulled, pushed), _sm_count(dev.index))
+    new = torch.empty(lead + (n, w), dtype=torch.int32, device=dev)
+    acc = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    cnt = torch.empty(lead + (n,), dtype=torch.int32, device=dev) if want_counts else None
+    b = 1 if clusters is None else clusters
+    plan = exchange_plan(n, w, _aligned(heard, pulled, pushed), _sm_count(dev.index), b)
     ptrs = [_build.ptr(t) for t in (heard, pulled, pushed, r_delta, new, acc, cnt)]
     _build.library().call("ringpop_exchange", ptrs, n, w, plan.vec, plan.seg, plan.blocks,
-                          int(plan.smem_table))
+                          int(plan.smem_table), b, 0 if shared_table else w * WORD)
     exchange.launches += 1
     return new, acc, cnt
 
 
 exchange.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: B clusters in one launch
+
+
+def _clusters(heard, pulled, pushed, r_delta, want_counts):
+    """B stacked clusters, with ``[B, U]`` tables or one shared ``[U]``
+    table: one launch on the card (a shared table is passed once, with a
+    zero cluster stride), :func:`exchange_plain` over the batch on the
+    CPU."""
+    if heard.device.type == "cpu":
+        return exchange_plain(heard, pulled, pushed, r_delta, want_counts=want_counts)
+    return _launch(heard.contiguous(), pulled.contiguous(), pushed.contiguous(),
+                   r_delta.contiguous(), want_counts, clusters=heard.shape[0])
+
+
+@torch.library.custom_op(toolkit.LIB + "::exchange", mutates_args=())
+def _exchange_op(
+    heard: torch.Tensor, pulled: torch.Tensor, pushed: torch.Tensor, r_delta: torch.Tensor,
+    want_counts: bool,
+) -> List[torch.Tensor]:
+    """One cluster through the op (the wrapper calls it only inside vmap,
+    where the rule below runs instead)."""
+    new, acc, cnt = _clusters(heard[None], pulled[None], pushed[None], r_delta, want_counts)
+    return [new[0], acc[0], acc.new_empty(0) if cnt is None else cnt[0]]
+
+
+def _exchange_rule(info, in_dims, heard, pulled, pushed, r_delta, want_counts):
+    b = info.batch_size
+    planes = [toolkit.batch_front(t, d, b) for t, d in zip((heard, pulled, pushed), in_dims[:3])]
+    if in_dims[3] is not None:
+        r_delta = r_delta.movedim(in_dims[3], 0)
+    new, acc, cnt = _clusters(*planes, r_delta, want_counts)
+    if cnt is None:
+        return [new, acc, acc.new_empty(0)], [0, 0, None]
+    return [new, acc, cnt], [0, 0, 0]
+
+
+torch.library.register_vmap(toolkit.LIB + "::exchange", _exchange_rule)
 
 
 def exchange_local(heard, pulled, pushed, r_delta, *, impl: str):

@@ -19,6 +19,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ringpop_tpu_torch.ops import toolkit, u32
 from ringpop_tpu_torch.ops.u32 import rotr, s32, srl
 
 C1 = s32(0xCC9E2D51)
@@ -65,7 +66,7 @@ def _hash_0_4(mat: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     for i in range(4):
         active = lens > i
         # signed char semantics: sign-extend bytes >= 0x80
-        v = mat[:, min(i, mat.shape[1] - 1)].view(torch.int8).to(torch.int32)
+        v = u32.signed_bytes(mat[:, min(i, mat.shape[1] - 1)])
         nb = b * C1 + v
         b = torch.where(active, nb, b)
         c = torch.where(active, c ^ nb, c)
@@ -109,9 +110,9 @@ def pack_words(mat: torch.Tensor) -> torch.Tensor:
     if pad:
         mat = torch.nn.functional.pad(mat, (0, pad))
     mat = mat.contiguous()
-    if mat.storage_offset() % 4:
+    if not toolkit.is_batched(mat) and mat.storage_offset() % 4:
         mat = mat.clone()
-    return mat.view(torch.int32)
+    return u32.bytes_to_words(mat)
 
 
 def _hash_long(
@@ -192,7 +193,6 @@ def hash32_strings(
 ) -> np.ndarray:
     """Host convenience: encode on the host, hash on ``device``; returns
     numpy uint32."""
-    from ringpop_tpu_torch.ops import u32
     from ringpop_tpu_torch.ops.farmhash32 import encode_rows
 
     mat, lens = encode_rows(strings)

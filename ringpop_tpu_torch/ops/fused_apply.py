@@ -18,7 +18,7 @@ and runs :func:`apply_updates_plain` on CPU tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -80,8 +80,10 @@ class ApplyOut(NamedTuple):
 
 
 def _formula(st: ApplyState, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline):
-    """One application site's exact cell arithmetic over full planes."""
-    n = st.status.shape[0]
+    """One application site's exact cell arithmetic over full planes
+    (``[N, N]``, or ``[B, N, N]`` with ``now``/``deadline`` of shape
+    ``[B, 1, 1]``)."""
+    n = st.status.shape[-1]
     ids = torch.arange(n, dtype=torch.int32, device=st.status.device)
     is_self = ids[None, :] == ids[:, None]
 
@@ -135,19 +137,22 @@ def apply_updates_plain(
     want_count: bool = False,
     want_refute: bool = True,
 ) -> ApplyOut:
-    """Plain PyTorch version of :func:`apply_updates`: full-plane ops."""
+    """Plain PyTorch version of :func:`apply_updates`: full-plane ops.
+    Also takes B stacked clusters: ``[B, N, N]`` planes with ``[B]``
+    stamps, ``applied_count`` then per cluster."""
     dev = st.status.device
+    now, deadline = (_as_i32(x, dev) for x in (now, deadline))
     new_st, gate, refute = _formula(
         st, recv_mask, u_status, u_inc, u_source, u_source_inc,
-        _as_i32(now, dev), _as_i32(deadline, dev),
+        now.reshape(now.shape + (1, 1)), deadline.reshape(deadline.shape + (1, 1)),
     )
     return ApplyOut(
         state=new_st,
         union=None if union is None else union | toolkit.pack_bool_rows(gate),
         applied=gate if want_masks else None,
-        applied_rows=gate.any(dim=1),
-        applied_count=gate.sum(dtype=torch.int32) if want_count else None,
-        refute_diag=refute.any(dim=1) if want_refute else None,
+        applied_rows=gate.any(dim=-1),
+        applied_count=gate.sum(dim=(-2, -1), dtype=torch.int32) if want_count else None,
+        refute_diag=refute.any(dim=-1) if want_refute else None,
     )
 
 
@@ -193,7 +198,16 @@ def apply_updates(
     the applied-cell count and refute diagonal.
 
     CUDA tensors launch ``csrc/apply_updates.cu``; CPU tensors run
-    :func:`apply_updates_plain`."""
+    :func:`apply_updates_plain`.  Inside ``torch.func.vmap`` the call goes
+    through the custom op ``ringpop_torch::apply_updates``, whose batching
+    rule launches the kernel once for all B clusters (per-cluster stamps;
+    ``applied_count`` then comes back per cluster)."""
+    upd = (recv_mask, u_status, u_inc, u_source, u_source_inc)
+    if toolkit.is_batched(*st, *upd, now, deadline, union):
+        dev = st.status.device
+        outs = _apply_op(*st, *upd, _as_i32(now, dev), _as_i32(deadline, dev), union,
+                         want_masks, want_count, want_refute)
+        return _apply_out(outs, union, want_masks, want_count, want_refute)
     dev = st.status.device
     if dev.type == "cpu":
         _validate(st, union)
@@ -201,44 +215,65 @@ def apply_updates(
             st, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline,
             union, want_masks=want_masks, want_count=want_count, want_refute=want_refute,
         )
-    n = st.status.shape[0]
+    outs = _launch(tuple(st) + upd, _stamp(now, dev), _stamp(deadline, dev), union,
+                   want_masks, want_count, want_refute, clusters=None)
+    return _apply_out(outs, union, want_masks, want_count, want_refute)
+
+
+def _apply_out(outs, union, want_masks, want_count, want_refute) -> ApplyOut:
+    """The fifteen outputs of a launch (or of the custom op, whose absent
+    outputs are empty tensors) as an ``ApplyOut``; the applied counts
+    (per row from a launch, per cluster from the plain version) summed,
+    per cluster inside vmap."""
+    return ApplyOut(
+        state=ApplyState(*outs[:10]),
+        union=outs[10] if union is not None else None,
+        applied=outs[11] if want_masks else None,
+        applied_rows=outs[12],
+        applied_count=outs[13].sum(dtype=torch.int32) if want_count else None,
+        refute_diag=outs[14] if want_refute else None,
+    )
+
+
+def _launch(planes, now_t, deadline_t, union, want_masks, want_count, want_refute, clusters):
+    """One launch of ``csrc/apply_updates.cu`` over one cluster's ``[N, N]``
+    planes (``clusters`` None) or ``clusters`` stacked ``[B, N, N]`` ones
+    (``now_t``/``deadline_t`` then ``[B]``).  Returns the fifteen outputs
+    in the op's order; an output that was not asked for is None."""
+    dev = planes[1].device
+    lead = () if clusters is None else (clusters,)
+    n = planes[1].shape[-1]
     words = toolkit.packed_width(n)
-    upd = (recv_mask, u_status, u_inc, u_source, u_source_inc)
-    nn = (n, n)
-    _build.check("apply_updates", dev, zip(_OPERANDS, (*st, *upd), _OPERAND_DTYPES, (nn,) * 15))
+    nn = lead + (n, n)
+    _build.check("apply_updates", dev, zip(_OPERANDS, planes, _OPERAND_DTYPES, (nn,) * 15))
     if union is not None:
-        _build.check("apply_updates", dev, (("union", union, torch.int32, (n, words)),))
+        _build.check("apply_updates", dev, (("union", union, torch.int32, lead + (n, words)),))
+    if clusters is not None:
+        _build.check("apply_updates", dev, (
+            ("now", now_t, torch.int32, lead), ("deadline", deadline_t, torch.int32, lead),
+        ))
     # the outputs in two allocations: the eight int32 planes and the byte
     # planes (known, ch_active and, under want_masks, the applied mask)
-    p32 = torch.empty((8, n, n), dtype=torch.int32, device=dev).unbind(0)
-    p8 = torch.empty((3 if want_masks else 2, n, n), dtype=torch.bool, device=dev).unbind(0)
+    p32 = torch.empty((8,) + nn, dtype=torch.int32, device=dev).unbind(0)
+    p8 = torch.empty((3 if want_masks else 2,) + nn, dtype=torch.bool, device=dev).unbind(0)
     outs = (p8[0], p32[0], p32[1], p8[1], *p32[2:])
     applied = p8[2] if want_masks else None
-    new_union = torch.empty((n, words), dtype=torch.int32, device=dev) if union is not None else None
-    rows = torch.empty(n, dtype=torch.bool, device=dev)
-    count = torch.empty(n, dtype=torch.int32, device=dev) if want_count else None
-    refute = torch.empty(n, dtype=torch.bool, device=dev) if want_refute else None
-    # the stamps stay on the device: the kernel reads them, so no
-    # host sync is needed to launch
-    now_t = _stamp(now, dev)
-    deadline_t = _stamp(deadline, dev)
+    new_union = torch.empty(lead + (n, words), dtype=torch.int32, device=dev) if union is not None else None
+    rows = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
+    count = torch.empty(lead + (n,), dtype=torch.int32, device=dev) if want_count else None
+    refute = torch.empty(lead + (n,), dtype=torch.bool, device=dev) if want_refute else None
+    # the stamps stay on the device: the kernel reads them (cluster b's
+    # at index b), so no host sync is needed to launch
     ptr = _build.ptr
     _build.library().call(
         "ringpop_apply_updates",
-        (*(t.data_ptr() for t in st), *(t.data_ptr() for t in upd), ptr(union),
-         now_t.data_ptr(), deadline_t.data_ptr(), *(t.data_ptr() for t in outs),
-         ptr(new_union), ptr(applied), rows.data_ptr(), ptr(count), ptr(refute)),
-        n, words,
+        (*(t.data_ptr() for t in planes), ptr(union), now_t.data_ptr(), deadline_t.data_ptr(),
+         *(t.data_ptr() for t in outs), ptr(new_union), ptr(applied), rows.data_ptr(),
+         ptr(count), ptr(refute)),
+        n, words, 1 if clusters is None else clusters,
     )
     apply_updates.launches += 1
-    return ApplyOut(
-        state=ApplyState(*outs),
-        union=new_union,
-        applied=applied,
-        applied_rows=rows,
-        applied_count=count.sum(dtype=torch.int32) if want_count else None,
-        refute_diag=refute,
-    )
+    return (*outs, new_union, applied, rows, count, refute)
 
 
 def _stamp(x, dev) -> torch.Tensor:
@@ -249,3 +284,59 @@ def _stamp(x, dev) -> torch.Tensor:
 
 
 apply_updates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: B clusters in one launch
+
+
+def _clusters(planes, now, deadline, union, want_masks, want_count, want_refute):
+    """B stacked clusters (``[B, N, N]`` planes, ``[B]`` stamps): one
+    kernel launch on the card, :func:`apply_updates_plain` on the CPU.
+    Returns the fifteen outputs in the op's order; absent ones are None."""
+    if now.device.type == "cpu":
+        o = apply_updates_plain(ApplyState(*planes[:10]), *planes[10:], now, deadline, union,
+                                want_masks=want_masks, want_count=want_count,
+                                want_refute=want_refute)
+        return (*o.state, o.union, o.applied, o.applied_rows, o.applied_count, o.refute_diag)
+    return _launch(tuple(t.contiguous() for t in planes), now.contiguous(),
+                   deadline.contiguous(), None if union is None else union.contiguous(),
+                   want_masks, want_count, want_refute, clusters=now.shape[0])
+
+
+def _filled(outs, ref: torch.Tensor):
+    """A custom op returns tensors only: absent outputs become empty ones."""
+    return [ref.new_empty(0) if o is None else o for o in outs]
+
+
+@torch.library.custom_op(toolkit.LIB + "::apply_updates", mutates_args=())
+def _apply_op(
+    known: torch.Tensor, status: torch.Tensor, inc: torch.Tensor, ch_active: torch.Tensor,
+    ch_status: torch.Tensor, ch_inc: torch.Tensor, ch_source: torch.Tensor,
+    ch_source_inc: torch.Tensor, ch_pb: torch.Tensor, susp_deadline: torch.Tensor,
+    recv_mask: torch.Tensor, u_status: torch.Tensor, u_inc: torch.Tensor,
+    u_source: torch.Tensor, u_source_inc: torch.Tensor, now: torch.Tensor,
+    deadline: torch.Tensor, union: Optional[torch.Tensor], want_masks: bool,
+    want_count: bool, want_refute: bool,
+) -> List[torch.Tensor]:
+    """One cluster through the op: the kernel on the card, the plain
+    version on the CPU (the wrapper calls the op only inside vmap, where
+    the rule below runs instead)."""
+    planes = (known, status, inc, ch_active, ch_status, ch_inc, ch_source, ch_source_inc,
+              ch_pb, susp_deadline, recv_mask, u_status, u_inc, u_source, u_source_inc)
+    outs = _clusters(tuple(t[None] for t in planes), now.reshape(1), deadline.reshape(1),
+                     None if union is None else union[None], want_masks, want_count,
+                     want_refute)
+    return _filled([None if o is None else o[0] for o in outs], status)
+
+
+def _apply_rule(info, in_dims, *args):
+    b = info.batch_size
+    planes = tuple(toolkit.batch_front(t, d, b) for t, d in zip(args[:15], in_dims[:15]))
+    now, deadline = (toolkit.batch_front(t, d, b).reshape(b) for t, d in zip(args[15:17], in_dims[15:17]))
+    union = toolkit.batch_front(args[17], in_dims[17], b)
+    outs = _clusters(planes, now, deadline, union, *args[18:])
+    return _filled(outs, planes[1]), [None if o is None else 0 for o in outs]
+
+
+torch.library.register_vmap(toolkit.LIB + "::apply_updates", _apply_rule)

@@ -29,7 +29,7 @@ import torch
 
 from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import farmhash as fh
-from ringpop_tpu_torch.ops import stream_hash
+from ringpop_tpu_torch.ops import stream_hash, u32
 
 MAX_DIGITS = ce.MAX_DIGITS
 
@@ -162,7 +162,7 @@ def pack_record_words(rec_bytes: torch.Tensor) -> torch.Tensor:
     pad = (-rec_bytes.shape[-1]) % 4
     if pad:
         rec_bytes = torch.nn.functional.pad(rec_bytes, (0, pad))
-    return rec_bytes.contiguous().view(torch.int32)
+    return u32.bytes_to_words(rec_bytes)
 
 
 def _row_bytes_at(

@@ -14,11 +14,11 @@ surviving message-content mask and count the drops.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
-from ringpop_tpu_torch.ops import _build
+from ringpop_tpu_torch.ops import _build, toolkit
 
 
 class BudgetOut(NamedTuple):
@@ -45,15 +45,17 @@ def _formula(active, pb, hits, nbump_col, max_pb_col):
 def pb_budget_plain(
     ch_active, ch_pb, nbump, max_pb, hits=None, *, want_content: bool = True
 ) -> BudgetOut:
-    """Plain PyTorch version of :func:`pb_budget`: full-plane ops."""
+    """Plain PyTorch version of :func:`pb_budget`: full-plane ops.  Also
+    takes B stacked clusters (``[B, N, N]`` planes, ``[B, N]`` vectors),
+    ``drops`` then per cluster."""
     pb2, active2, content, over = _formula(
-        ch_active, ch_pb, hits, nbump[:, None], max_pb[:, None]
+        ch_active, ch_pb, hits, nbump[..., None], max_pb[..., None]
     )
     return BudgetOut(
         ch_pb=pb2,
         ch_active=active2,
         content=content if want_content else None,
-        drops=over.sum(dtype=torch.int32),
+        drops=over.sum(dim=(-2, -1), dtype=torch.int32),
     )
 
 
@@ -69,7 +71,14 @@ def pb_budget(
     ``want_content=False`` skips the content mask.
 
     CUDA tensors launch ``csrc/pb_budget.cu``; CPU tensors run
-    :func:`pb_budget_plain`."""
+    :func:`pb_budget_plain`.  Inside ``torch.func.vmap`` the call goes
+    through the custom op ``ringpop_torch::pb_budget``, whose batching rule
+    runs the B clusters' rows as one launch (``drops`` per cluster)."""
+    if toolkit.is_batched(ch_active, ch_pb, nbump, max_pb, hits):
+        pb2, active2, content, drops = _budget_op(ch_active, ch_pb, nbump, max_pb, hits,
+                                                  want_content)
+        return BudgetOut(pb2, active2, content if want_content else None,
+                         drops.sum(dtype=torch.int32))
     if ch_active.shape != ch_pb.shape or ch_active.ndim != 2:
         raise ValueError(
             "pb_budget wants matching [N, N] planes, got %r / %r"
@@ -81,32 +90,79 @@ def pb_budget(
             "nbump/max_pb must be [N] vectors, got %r / %r"
             % (tuple(nbump.shape), tuple(max_pb.shape))
         )
-    dev = ch_pb.device
-    if dev.type == "cpu":
+    if ch_pb.device.type == "cpu":
         return pb_budget_plain(
             ch_active, ch_pb, nbump, max_pb, hits, want_content=want_content
         )
-    i32, nn = torch.int32, (n, n)
+    pb2, active2, content, drops = _launch(ch_active, ch_pb, nbump, max_pb, hits, want_content)
+    return BudgetOut(pb2, active2, content, drops.sum(dtype=torch.int32))
+
+
+def _launch(ch_active, ch_pb, nbump, max_pb, hits, want_content):
+    """One launch of ``csrc/pb_budget.cu`` over ``[..., N, N]`` planes: one
+    cluster, or B stacked ones whose B * N rows form one pass.  Returns
+    ``(ch_pb, ch_active, content or None, per-row drops [..., N])``."""
+    dev = ch_pb.device
+    shape = tuple(ch_pb.shape)
+    n = shape[-1]
+    i32 = torch.int32
     _build.check("pb_budget", dev, (
-        ("ch_active", ch_active, torch.bool, nn), ("ch_pb", ch_pb, i32, nn),
-        ("nbump", nbump, i32, (n,)), ("max_pb", max_pb, i32, (n,)),
-    ) + ((("hits", hits, i32, nn),) if hits is not None else ()))
-    pb2 = torch.empty((n, n), dtype=torch.int32, device=dev)
-    active2 = torch.empty((n, n), dtype=torch.bool, device=dev)
-    content = torch.empty((n, n), dtype=torch.bool, device=dev) if want_content else None
-    drops = torch.empty(n, dtype=torch.int32, device=dev)
+        ("ch_active", ch_active, torch.bool, shape), ("ch_pb", ch_pb, i32, shape),
+        ("nbump", nbump, i32, shape[:-1]), ("max_pb", max_pb, i32, shape[:-1]),
+    ) + ((("hits", hits, i32, shape),) if hits is not None else ()))
+    pb2 = torch.empty(shape, dtype=torch.int32, device=dev)
+    active2 = torch.empty(shape, dtype=torch.bool, device=dev)
+    content = torch.empty(shape, dtype=torch.bool, device=dev) if want_content else None
+    drops = torch.empty(shape[:-1], dtype=torch.int32, device=dev)
     ptrs = [
         _build.ptr(t)
         for t in (ch_active, ch_pb, nbump, max_pb, hits, pb2, active2, content, drops)
     ]
-    _build.library().call("ringpop_pb_budget", ptrs, n)
+    _build.library().call("ringpop_pb_budget", ptrs, n, drops.numel())
     pb_budget.launches += 1
-    return BudgetOut(
-        ch_pb=pb2,
-        ch_active=active2,
-        content=content,
-        drops=drops.sum(dtype=torch.int32),
-    )
+    return pb2, active2, content, drops
 
 
 pb_budget.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: B clusters in one launch
+
+
+def _clusters(ch_active, ch_pb, nbump, max_pb, hits, want_content):
+    """B stacked clusters (``[B, N, N]`` planes, ``[B, N]`` vectors): one
+    launch on the card, :func:`pb_budget_plain` on the CPU; drops per
+    cluster."""
+    if ch_pb.device.type == "cpu":
+        return tuple(pb_budget_plain(ch_active, ch_pb, nbump, max_pb, hits,
+                                     want_content=want_content))
+    c = (lambda t: None if t is None else t.contiguous())
+    pb2, active2, content, drops = _launch(c(ch_active), c(ch_pb), c(nbump), c(max_pb),
+                                           c(hits), want_content)
+    return pb2, active2, content, drops.sum(dim=1, dtype=torch.int32)
+
+
+@torch.library.custom_op(toolkit.LIB + "::pb_budget", mutates_args=())
+def _budget_op(
+    ch_active: torch.Tensor, ch_pb: torch.Tensor, nbump: torch.Tensor, max_pb: torch.Tensor,
+    hits: Optional[torch.Tensor], want_content: bool,
+) -> List[torch.Tensor]:
+    """One cluster through the op (the wrapper calls it only inside vmap,
+    where the rule below runs instead)."""
+    outs = _clusters(ch_active[None], ch_pb[None], nbump[None], max_pb[None],
+                     None if hits is None else hits[None], want_content)
+    return [ch_pb.new_empty(0) if o is None else o[0] for o in outs]
+
+
+def _budget_rule(info, in_dims, ch_active, ch_pb, nbump, max_pb, hits, want_content):
+    b = info.batch_size
+    ops = [toolkit.batch_front(t, d, b) for t, d in
+           zip((ch_active, ch_pb, nbump, max_pb, hits), in_dims[:5])]
+    pb2, active2, content, drops = _clusters(*ops, want_content)
+    if content is None:
+        return [pb2, active2, ch_pb.new_empty(0), drops], [0, 0, None, 0]
+    return [pb2, active2, content, drops], [0, 0, 0, 0]
+
+
+torch.library.register_vmap(toolkit.LIB + "::pb_budget", _budget_rule)

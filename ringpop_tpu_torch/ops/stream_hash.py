@@ -17,9 +17,11 @@ zero (records are zero-padded past their length), so append is a plain OR.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
-from ringpop_tpu_torch.ops import _build
+from ringpop_tpu_torch.ops import _build, toolkit
 from ringpop_tpu_torch.ops.farmhash import C1, _mur
 from ringpop_tpu_torch.ops.u32 import srl_var
 
@@ -120,9 +122,18 @@ def fused_stream(h0, g0, f0, rec_words, rec_len, total_blocks):
     ``rec_len``: [B, N] int32 record byte lengths (0 = absent);
     ``total_blocks``: [B] int32 blocks to mix ((len-1)//20 for long rows,
     0 otherwise).  A CUDA tensor launches ``csrc/fused_stream.cu``; a CPU
-    tensor runs :func:`fused_stream_plain`."""
+    tensor runs :func:`fused_stream_plain`.  Inside ``torch.func.vmap``
+    the call goes through the custom op ``ringpop_torch::fused_stream``,
+    whose batching rule hashes the rows of every cluster in one launch."""
+    args = (h0, g0, f0, rec_words, rec_len, total_blocks)
+    if toolkit.is_batched(*args):
+        return tuple(_stream_op(*args))
     if rec_words.device.type == "cpu":
-        return fused_stream_plain(h0, g0, f0, rec_words, rec_len, total_blocks)
+        return fused_stream_plain(*args)
+    return _launch(*args)
+
+
+def _launch(h0, g0, f0, rec_words, rec_len, total_blocks):
     B, N, RW = rec_words.shape
     dev = rec_words.device
     i32 = torch.int32
@@ -141,3 +152,39 @@ def fused_stream(h0, g0, f0, rec_words, rec_len, total_blocks):
 
 
 fused_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: the rows of B clusters in one launch
+
+
+def _clusters(args):
+    """C clusters' ``[C, R, ...]`` operands hashed as one ``[C * R, ...]``
+    row set (the kernel's rows are independent)."""
+    h0 = args[0]
+    flat = tuple(t.reshape((-1,) + tuple(t.shape[2:])).contiguous() for t in args)
+    if h0.device.type == "cpu":
+        out = fused_stream_plain(*flat)
+    else:
+        out = _launch(*flat)
+    return [t.reshape(h0.shape) for t in out]
+
+
+@torch.library.custom_op(toolkit.LIB + "::fused_stream", mutates_args=())
+def _stream_op(
+    h0: torch.Tensor, g0: torch.Tensor, f0: torch.Tensor, rec_words: torch.Tensor,
+    rec_len: torch.Tensor, total_blocks: torch.Tensor,
+) -> List[torch.Tensor]:
+    """One cluster's rows through the op (the wrapper calls it only inside
+    vmap, where the rule below runs instead)."""
+    args = (h0, g0, f0, rec_words, rec_len, total_blocks)
+    return [t[0] for t in _clusters(tuple(t[None] for t in args))]
+
+
+def _stream_rule(info, in_dims, *args):
+    b = info.batch_size
+    out = _clusters(tuple(toolkit.batch_front(t, d, b) for t, d in zip(args, in_dims)))
+    return out, [0, 0, 0]
+
+
+torch.library.register_vmap(toolkit.LIB + "::fused_stream", _stream_rule)

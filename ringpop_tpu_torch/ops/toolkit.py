@@ -5,7 +5,11 @@ registry at :340): knob resolution and its run-log note
 (:func:`resolution_note`, :func:`emit_resolution`), the packed bool-row
 bitmask helpers, and :data:`TWIN_REGISTRY` — one row per CUDA kernel of the port naming its
 wrapper, its plain PyTorch version, the JAX function it is held against
-and the test that holds it.
+and the test that holds it — and the batch axis shared by every kernel
+wrapper (:func:`is_batched`, :func:`batch_front`): inside
+``torch.func.vmap`` a wrapper routes its functorch ``BatchedTensor``
+operands through a ``torch.library.custom_op`` of namespace :data:`LIB`
+whose ``register_vmap`` rule launches the kernel once for all B clusters.
 """
 
 from __future__ import annotations
@@ -74,24 +78,48 @@ def emit_resolution(note: dict, recorder=None, statsd=None, *,
         recorder.record_event(event, **note)
 
 
+# the namespace of the port's custom ops (``torch.ops.ringpop_torch.*``)
+LIB = "ringpop_torch"
+
+
+def is_batched(*tensors) -> bool:
+    """True when any operand is a functorch ``BatchedTensor``: the caller
+    runs inside ``torch.func.vmap``, whose tensors have no storage a
+    kernel could read."""
+    return any(
+        isinstance(t, torch.Tensor) and torch._C._functorch.is_batchedtensor(t)
+        for t in tensors
+    )
+
+
+def batch_front(t: Optional[torch.Tensor], dim: Optional[int], b: int) -> Optional[torch.Tensor]:
+    """A vmap rule's operand with its batch axis first: ``[B, ...]``.  An
+    operand that is not batched (``dim`` None) is expanded, a stride-0
+    view that costs no copy until a kernel needs it contiguous."""
+    if t is None:
+        return None
+    if dim is None:
+        return t.expand(b, *t.shape)
+    return t.movedim(dim, 0)
+
+
 def packed_width(n_cols: int) -> int:
     """Words per row of a :func:`pack_bool_rows` bitmask."""
     return -(-n_cols // 32)
 
 
 def pack_bool_rows(mask: torch.Tensor) -> torch.Tensor:
-    """[N, M] bool -> [N, ceil(M/32)] int32 (uint32) row bitmask, bit c%32
-    of word c//32 = mask[:, c]."""
-    n, m = mask.shape
-    pad = (-m) % 32
+    """[..., N, M] bool -> [..., N, ceil(M/32)] int32 (uint32) row bitmask,
+    bit c%32 of word c//32 = mask[..., c]."""
+    pad = (-mask.shape[-1]) % 32
     if pad:
         mask = torch.nn.functional.pad(mask, (0, pad))
-    w = mask.reshape(n, -1, 32).to(torch.int64)
+    w = mask.reshape(mask.shape[:-1] + (-1, 32)).to(torch.int64)
     bits = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=mask.device),
         torch.arange(32, dtype=torch.int64, device=mask.device),
     )
-    packed = (w * bits).sum(dim=2)  # distinct bits: the sum is the OR
+    packed = (w * bits).sum(dim=-1)  # distinct bits: the sum is the OR
     return ((packed ^ (1 << 31)) - (1 << 31)).to(torch.int32)
 
 
@@ -114,7 +142,11 @@ class KernelTwin:
     ``jax_entry``: the JAX function (``module:function``) the plain version
     is held against on the CPU; ``gate_test``: the test file doing that;
     ``replaces``: the Pallas kernel's file:line; ``also_replaces``: other
-    Pallas kernels the same CUDA kernel stands for."""
+    Pallas kernels the same CUDA kernel stands for; ``batch_gate_test``:
+    the test holding the kernel's batching rule (the custom op
+    ``torch.ops.ringpop_torch.<kernel_entry>``, which launches the kernel
+    once for B clusters under ``torch.func.vmap``) against the plain
+    version per cluster."""
 
     module: str
     kernel_entry: str
@@ -124,6 +156,7 @@ class KernelTwin:
     gate_test: str
     replaces: str
     also_replaces: Tuple[str, ...] = ()
+    batch_gate_test: str = "tests/test_torch_vmap_rules.py"
 
 
 TWIN_REGISTRY: Tuple[KernelTwin, ...] = (

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ringpop_tpu_torch.ops import toolkit
+
 MASK = 0xFFFFFFFF
 _SIGN = -(2**31)
 
@@ -64,6 +66,36 @@ def ugt(a, b):
 
 def uge(a, b):
     return _flip(a) >= _flip(b)
+
+
+# Byte <-> word reinterpretation.  Outside ``torch.func.vmap`` these are
+# dtype views (no copy); a dtype view has no batching rule on every torch
+# release, so on functorch ``BatchedTensor``s the same bits come from
+# shifts and masks.
+
+def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4k] uint8 -> [..., k] int32: little-endian words of the bytes
+    (contiguous, 4-byte aligned storage outside vmap)."""
+    if not toolkit.is_batched(b):
+        return b.contiguous().view(torch.int32)
+    q = b.reshape(tuple(b.shape[:-1]) + (-1, 4)).to(torch.int64)
+    return from_u64(q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24))
+
+
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """[..., k] int32 -> [..., 4k] uint8: each word's bytes, low first."""
+    if not toolkit.is_batched(w):
+        return w.contiguous().view(torch.uint8)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=w.device)
+    return ((w[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(tuple(w.shape[:-1]) + (-1,))
+
+
+def signed_bytes(b: torch.Tensor) -> torch.Tensor:
+    """uint8 -> int32 with C ``signed char`` semantics (bytes >= 0x80
+    sign-extend)."""
+    if not toolkit.is_batched(b):
+        return b.view(torch.int8).to(torch.int32)
+    return (b.to(torch.int32) ^ 0x80) - 0x80
 
 
 def to_u64(x: torch.Tensor) -> torch.Tensor:
