@@ -53,7 +53,19 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    route histograms on, a 30-tick 10% churn storm) in both ring
    implementations, on the card and on the CPU: every RouteState,
    RouteMetrics and ScalableMetrics field equal on every tick, the drained
-   request records and histograms too;
+   request records and histograms too; then checkpoints: the n=4096 storm
+   saved on the card at tick 20 (a 2-shard manifest), restored on the CPU
+   and on a fresh card cluster and run to tick 40, every state field
+   bitwise and every metric by the storm's rule equal to the card's
+   uninterrupted run; a farmhash ``SimCluster(n=64)`` (fused tick, flight
+   recorder) saved mid-churn in the legacy file and restored on both
+   devices, its rebuilt record cache equal to the saved run's and
+   ``fused_stream`` launched after the restore, the final state equal to
+   the uninterrupted run; and the crash harness
+   (``fuzz.crash.run_crash_resume(device="cuda")``) for the three drivers
+   at n=64, 12 ticks, seeds 1, 7, 8 and a forced torn manifest at tick 8
+   that must resume at 6, with no violation and every damaged newest
+   checkpoint skipped;
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -65,7 +77,17 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    end and the incremental checksums equal to the full recompute; the cold
    run keeps the ``exchange`` operands of ticks 4 and 32, on which the
    kernel is held against its plain version and timed after the path's
-   launch counts are read; and the
+   launch counts are read; the checkpointed storms: the 1M storm under
+   ``enable_checkpoints(every=20, keep=2)`` killed at tick 45 with its
+   forced save torn, restarted cold, ``restore_latest()`` skipping the
+   tick-45 checkpoint (``CheckpointTornError``) and resuming at 40, ticks
+   40-60 run, every state field bitwise the warm run's (kept as host
+   copies), one ``exchange`` launch a tick, every node live, exact
+   checksums, the ring digest unchanged, with a ``ckpt`` line of bytes,
+   save and restore walls split, ms/tick and host syncs a tick; and the
+   routed 100k storm (every=4, a torn manifest at tick 6, resumed at 4)
+   bitwise its uninterrupted twin in state, route carry, truth ring and
+   ring checksum; and the
    classic configuration ``SimCluster(n=1024, fused_tick="off",
    fused_checksum="off")`` (bootstrap, ``run_until_converged(96,
    quiet_after=1)``, a timed 64-tick ``EventSchedule.churn_window``, one
@@ -800,6 +822,9 @@ STORM_CAPTURED = {}
 # routed storms' incremental runs, keyed by n
 STORM_COLD = {}
 ROUTE_RUNS = {}
+# the 1M storm's warm run, the uninterrupted twin of the checkpointed path:
+# host copies of its final state, its numbers and its ring digest
+STORM_WARM = {}
 
 
 def check_exchange_storm_operands(ex_report: dict) -> None:
@@ -1103,16 +1128,27 @@ def headline(mode: str) -> dict:
     return out
 
 
+def _storm_config():
+    """benchmarks/storm_1m.py's params and schedule."""
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+
+    params = es.ScalableParams(n=N_STORM, u=512, checksum_in_tick=True)
+    return params, StormSchedule.churn_storm(STORM_TICKS, N_STORM, fraction=0.10, fail_tick=2,
+                                             seed=0)
+
+
 def storm_headline() -> list:
     """The 1M-node churn storm as benchmarks/storm_1m.py runs it: a cold
-    run, then a warm run on a fresh cluster with seed + 1."""
+    run, then a warm run on a fresh cluster with seed + 1 (whose final
+    state the checkpointed path's victim is held to)."""
+    from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.sim import engine_scalable as es
-    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
     from ringpop_tpu_torch.ops import exchange as ex
 
     n, ticks = N_STORM, STORM_TICKS
-    params = es.ScalableParams(n=n, u=512, checksum_in_tick=True)
-    sched = StormSchedule.churn_storm(ticks, n, fraction=0.10, fail_tick=2, seed=0)
+    params, sched = _storm_config()
     runs = []
     for label, seed in (("cold", 0), ("warm", 1)):
         cluster = ScalableCluster(n=n, params=params, seed=seed, device="cuda")
@@ -1167,6 +1203,8 @@ def storm_headline() -> list:
         )
         print("storm %s" % json.dumps(out), flush=True)
         runs.append(out)
+        if label == "warm":
+            STORM_WARM.update(state=convert.state_arrays(cluster.state), out=out, seed=seed)
         del cluster
     return runs
 
@@ -2304,6 +2342,322 @@ def fuzz_throughput() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# checkpoints and recovery (models/sim/checkpoint.py, recovery.py, fuzz/crash.py)
+
+
+def _metrics_close(got, want, label: str) -> int:
+    """The storm's metric rule: integers bitwise, ``mean_heard_frac``
+    within MEAN_FRAC_RTOL; returns the ticks where it is not bitwise."""
+    import numpy as np
+
+    for f in want._fields:
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        if a.shape != b.shape:
+            raise AssertionError("%s: metric %s shape %r vs %r" % (label, f, a.shape, b.shape))
+        if f == "mean_heard_frac":
+            if not (np.abs(a.astype(np.float64) - b) <= MEAN_FRAC_RTOL * np.abs(b)).all():
+                raise AssertionError("%s: metric %s beyond %g" % (label, f, MEAN_FRAC_RTOL))
+        elif not np.array_equal(a, b):
+            raise AssertionError("%s: metric %s differs" % (label, f))
+    return int((np.asarray(got.mean_heard_frac) != np.asarray(want.mean_heard_frac)).sum())
+
+
+def _arrays_same(got: dict, want: dict, label: str) -> None:
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: fields %r vs %r" % (label, sorted(got), sorted(want)))
+    for f in want:
+        a, b = got[f], want[f]
+        if (a is None) != (b is None) or (
+            a is not None and (a.dtype != b.dtype or not np.array_equal(a, b))
+        ):
+            raise AssertionError("%s: %s differs" % (label, f))
+
+
+def check_ckpt_e2e(n=N_MID, ticks=40):
+    """Phase 4, checkpoints: the n=4096 storm saved on the card at tick 20
+    (a manifest, shards=2), restored on the CPU and on a fresh card, both
+    run to tick 40 equal to the card's uninterrupted run; a farmhash
+    ``SimCluster(n=64)`` with the fused tick and the flight recorder saved
+    mid-churn, its record cache rebuilt equal, resumed through
+    ``fused_stream``; the crash harness for the three drivers on the card."""
+    import shutil
+    import tempfile
+
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.fuzz import crash
+    from ringpop_tpu_torch.fuzz.scenarios import CrashPlan, ScenarioConfig, crash_plan_of
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.cluster import SimCluster
+    from ringpop_tpu_torch.models.sim.recovery import concat_metrics
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+    from ringpop_tpu_torch.ops import stream_hash
+
+    root = tempfile.mkdtemp(prefix="ckpt_e2e_")
+    try:
+        # card -> CPU -> card
+        params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5)
+        sched = _mid_storm_schedule(n, ticks)
+        half = ticks // 2
+        twin = ScalableCluster(n=n, params=params, seed=2, device="cuda")
+        m_twin = twin.run(sched)
+        want = convert.state_arrays(twin.state)
+        victim = ScalableCluster(n=n, params=params, seed=2, device="cuda")
+        m_head = victim.run(sched.window(0, half))
+        victim.enable_checkpoints(os.path.join(root, "storm"), shards=2)
+        path = victim.checkpoint_now()
+        del victim
+        inexact = {}
+        for dev in ("cpu", "cuda"):
+            back = ScalableCluster(n=n, params=params, seed=7, device=dev)
+            back.enable_checkpoints(os.path.join(root, "storm"), shards=2)
+            if back.restore_latest() != half:
+                raise AssertionError("n=%d storm: %s restore did not resume at %d" % (n, dev, half))
+            m_tail = back.run(sched.window(half, ticks))
+            label = "n=%d storm card -> %s -> tick %d" % (n, dev, ticks)
+            _arrays_same(convert.state_arrays(back.state), want, label)
+            inexact[dev] = _metrics_close(concat_metrics([m_head, m_tail]), m_twin, label)
+        print("ckpt n=%d storm: saved on the card at tick %d (%s, shards=2), resumed on the cpu "
+              "and the card to tick %d: every state field == the uninterrupted card run, metrics "
+              "equal (mean_heard_frac not bitwise on %s ticks)"
+              % (n, half, os.path.basename(path), ticks, json.dumps(inexact)), flush=True)
+
+        # farmhash SimCluster: the record cache rebuilt, then hashed
+        sn, st = 64, 32
+        p = engine.SimParams(n=sn, checksum_mode="farmhash", suspicion_ticks=6,
+                             flight_recorder=True)
+        sched = _churn_schedule(sn, st)
+        twin = SimCluster(n=sn, params=p, seed=1, device="cuda")
+        assert twin.params.fused_tick == "kernel" and twin.params.fused_checksum == "on"
+        twin.bootstrap()
+        twin.run(sched)
+        want = convert.state_arrays(twin.state)
+        victim = SimCluster(n=sn, params=p, seed=1, device="cuda")
+        victim.bootstrap()
+        victim.run(sched.window(0, st // 2))
+        legacy = os.path.join(root, "sim.npz")
+        victim.save(legacy)
+        for dev in ("cpu", "cuda"):
+            back = SimCluster(n=sn, params=p, seed=5, device=dev)
+            back.load(legacy)
+            for f in ("rec_bytes", "rec_len"):
+                if not torch.equal(getattr(back.state, f).cpu(), getattr(victim.state, f).cpu()):
+                    raise AssertionError("farmhash restore on %s: rebuilt %s != the saved run's"
+                                         % (dev, f))
+            launches0 = stream_hash.fused_stream.launches
+            back.run(sched.window(st // 2, st))
+            fired = stream_hash.fused_stream.launches - launches0
+            if dev == "cuda" and fired == 0:
+                raise AssertionError("farmhash restore: fused_stream never launched after it")
+            _arrays_same(convert.state_arrays(back.state), want,
+                         "farmhash n=%d restore on %s" % (sn, dev))
+        print("ckpt farmhash n=%d: legacy save at tick %d, record cache rebuilt == saved, "
+              "resumed on the cpu and the card (%d fused_stream launches after the restore): "
+              "every state field == the uninterrupted run" % (sn, st // 2 + 1, fired), flush=True)
+
+        # the crash harness, three drivers on the card
+        cfg = ScenarioConfig(n=64, ticks=12)
+        reports = {}
+        for drv in crash.DRIVERS:
+            runs = [(seed, None) for seed in (1, 7, 8)]
+            runs.append((5, CrashPlan(kill_tick=8, corrupt="torn-manifest", frac=0.5)))
+            for seed, plan in runs:
+                r = crash.run_crash_resume(seed, root, driver=drv, config=cfg, every=3,
+                                           plan=plan, device="cuda")
+                label = "crash %s seed %d" % (drv, seed)
+                if r.violations:
+                    raise AssertionError("%s: %s" % (label, r.violations[0].message))
+                damaged = (plan or crash_plan_of(seed, crash.schedule_config(drv, cfg))).corrupt
+                if damaged != "none" and not r.skipped_errors:
+                    raise AssertionError("%s: the damaged newest checkpoint was not skipped"
+                                         % label)
+                if plan is not None and (r.resumed_tick != 6
+                                         or "CheckpointTornError" not in r.skipped_errors):
+                    raise AssertionError("%s: forced torn-manifest resumed at %r past %r"
+                                         % (label, r.resumed_tick, r.skipped_errors))
+                reports["%s/%d" % (drv, seed)] = dict(
+                    kill=r.kill_tick, corrupt=r.corrupt, resumed=r.resumed_tick,
+                    skipped=list(r.skipped_errors))
+        print("ckpt crash harness on the card (n=64, 12 ticks, every=3): no violation %s"
+              % json.dumps(reports), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _kept_saves(mgr) -> list:
+    """Keep a copy of ``mgr.last_save`` (the split seconds) after every
+    save the manager makes; returns the list it fills."""
+    saves, save_call = [], mgr.save
+
+    def save(tick, states, meta=None):
+        out = save_call(tick, states, meta)
+        saves.append(dict(mgr.last_save))
+        return out
+
+    mgr.save = save
+    return saves
+
+
+def _ckpt_storm_1m() -> dict:
+    """The 1M storm killed mid-save: a cadenced victim (every=20, keep=2)
+    runs to tick 45, its forced tick-45 save is torn, a cold restart skips
+    it and resumes at 40, and ticks 40-60 land bitwise on the warm run."""
+    import shutil
+    import tempfile
+
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.fuzz.crash import corrupt_checkpoint
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    if not STORM_WARM:
+        raise AssertionError("the checkpointed storm needs the 1M storm path's warm twin")
+    n, ticks, every, kill = N_STORM, STORM_TICKS, 20, 45
+    params, sched = _storm_config()
+    twin = STORM_WARM["out"]
+    root = tempfile.mkdtemp(prefix="ckpt_1m_")
+    try:
+        victim = ScalableCluster(n=n, params=params, seed=STORM_WARM["seed"], device="cuda")
+        saves = _kept_saves(victim.enable_checkpoints(root, every=every, keep=2))
+        torch.cuda.synchronize()
+        launches0, reads0 = ex.exchange.launches, es.host_read.count
+        t0 = time.perf_counter()
+        victim.run(sched.window(0, kill))
+        torch.cuda.synchronize()
+        victim_wall = time.perf_counter() - t0
+        victim_reads = es.host_read.count - reads0
+        torn = victim.checkpoint_now()
+        nbytes = sum(os.path.getsize(os.path.join(torn, f)) for f in os.listdir(torn))
+        manifest_nbytes = saves[-1]["nbytes"]
+        corrupt_checkpoint(torn, "torn-array", 0.5)
+        del victim
+
+        back = ScalableCluster(n=n, params=params, seed=STORM_WARM["seed"], device="cuda")
+        mgr = back.enable_checkpoints(root, every=every, keep=2)
+        tail_saves = _kept_saves(mgr)
+        t0 = time.perf_counter()
+        resumed = back.restore_latest()
+        restore_wall = time.perf_counter() - t0
+        skipped = [(t, type(e).__name__) for t, _, e in mgr.last_errors]
+        if resumed != 40 or skipped != [(kill, "CheckpointTornError")]:
+            raise AssertionError("1M restore resumed at %r past %r" % (resumed, skipped))
+        reads1 = es.host_read.count
+        t0 = time.perf_counter()
+        metrics = back.run(sched.window(resumed, ticks))
+        torch.cuda.synchronize()
+        tail_wall = time.perf_counter() - t0
+        tail_reads = es.host_read.count - reads1
+        launches = ex.exchange.launches - launches0
+        driven = kill + ticks - resumed
+        if launches != driven:
+            raise AssertionError("1M checkpointed: %d exchange launches in %d ticks"
+                                 % (launches, driven))
+        _arrays_same(convert.state_arrays(back.state), STORM_WARM["state"],
+                     "1M storm resumed at %d" % resumed)
+        live = int(metrics.live_nodes[-1])
+        if live != n:
+            raise AssertionError("1M checkpointed: %d of %d nodes live" % (live, n))
+        if not torch.equal(es.compute_checksums(back.state, back.params), back.state.checksum):
+            raise AssertionError("1M checkpointed: incremental checksums != the full recompute")
+        ring = "%#010x" % back.ring_checksum()
+        if ring != twin["ring_checksum_after"]:
+            raise AssertionError("1M checkpointed: ring digest %s != %s"
+                                 % (ring, twin["ring_checksum_after"]))
+        cadence_saves = [s for s in saves if s["tick"] % every == 0 and s["tick"] <= kill]
+        save_wall = sum(s["wall_s"] for s in cadence_saves)
+        out = dict(
+            n=n, every=every, keep=2, kill_tick=kill, resumed_tick=resumed, skipped=skipped,
+            checkpoint_bytes=nbytes, manifest_nbytes=manifest_nbytes,
+            saves=[{k: s[k] for k in ("tick", "wall_s", "device_to_host_s", "serialise_crc_s",
+                                      "write_fsync_s", "nbytes")} for s in saves],
+            restore=dict(wall_s=restore_wall, scan_verify_s=mgr.last_restore["scan_verify_s"],
+                         host_to_device_s=mgr.last_restore["install_s"]),
+            victim_wall_s=victim_wall,
+            victim_ms_per_tick_between_saves=(victim_wall - save_wall) / kill * 1e3,
+            victim_ms_per_tick_with_saves=victim_wall / kill * 1e3,
+            twin_ms_per_tick=twin["ms_per_tick"],
+            resumed_ms_per_tick_between_saves=(
+                tail_wall - sum(s["wall_s"] for s in tail_saves)) / (ticks - resumed) * 1e3,
+            resumed_saves=[s["tick"] for s in tail_saves],
+            host_syncs_per_tick_cadence_on=victim_reads / kill,
+            save_transfers_per_tick_cadence_on=len(cadence_saves) / kill,
+            host_syncs_per_tick_resumed=tail_reads / (ticks - resumed),
+            host_syncs_per_tick_cadence_off=twin["host_syncs_per_tick"],
+            exchange_launches=launches, ticks_driven=driven, ring_checksum=ring,
+            bitwise_equal_to_twin=True,
+        )
+        print("ckpt %s" % json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _ckpt_routed_100k() -> dict:
+    """``RoutedStorm`` at bench.py's 100k (incremental ring): killed at
+    tick 6 with the forced save's manifest torn, restored at 4 (every=4),
+    equal to an uninterrupted twin in sim state, RouteCarry, truth ring
+    and ring checksum."""
+    import shutil
+    import tempfile
+
+    from ringpop_tpu_torch.fuzz import crash
+    from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+
+    cfg = ROUTE_100K
+    n, ticks, every, kill = cfg["n"], cfg["ticks"], 4, 6
+
+    def build():
+        return RoutedStorm(n, params=es.ScalableParams(n=n),
+                           route=RouteParams(n=n, queries_per_tick=cfg["q"],
+                                             ring_impl="incremental"),
+                           seed=0, device="cuda")
+
+    sched = StormSchedule.sparse_churn(ticks, n, cfg["churn"])
+    twin = build()
+    twin.run(sched)
+    want, want_ring = crash.snapshot(crash.ROUTED, twin), twin.ring_checksum()
+    del twin
+    root = tempfile.mkdtemp(prefix="ckpt_route_")
+    try:
+        victim = build()
+        victim.enable_checkpoints(root, every=every)
+        victim.run(sched.window(0, kill))
+        crash.corrupt_checkpoint(victim.checkpoint_now(), "torn-manifest", 0.5)
+        del victim
+        back = build()
+        mgr = back.enable_checkpoints(root, every=every)
+        t0 = time.perf_counter()
+        resumed = back.restore_latest()
+        torch.cuda.synchronize()
+        restore_wall = time.perf_counter() - t0
+        skipped = [type(e).__name__ for _, _, e in mgr.last_errors]
+        if resumed != every or skipped != ["CheckpointTornError"]:
+            raise AssertionError("routed 100k restore resumed at %r past %r" % (resumed, skipped))
+        back.run(sched.window(resumed, ticks))
+        _arrays_same(crash.snapshot(crash.ROUTED, back), want, "routed n=%d resumed" % n)
+        if back.ring_checksum() != want_ring:
+            raise AssertionError("routed n=%d resumed: ring checksum differs" % n)
+        out = dict(n=n, q=cfg["q"], ticks=ticks, every=every, kill_tick=kill,
+                   resumed_tick=resumed, skipped=skipped, restore_wall_s=restore_wall,
+                   ring_checksum="%#010x" % want_ring, bitwise_equal_to_twin=True)
+        print("ckpt_routed %s" % json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ckpt_paths() -> dict:
+    """The checkpointed main paths: the 1M storm killed mid-save and the
+    routed 100k storm killed after a torn manifest."""
+    return dict(storm_1m=_ckpt_storm_1m(), routed_100k=_ckpt_routed_100k())
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -2338,7 +2692,7 @@ def main(argv) -> int:
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
     for phase in (check_e2e, check_batched_e2e, check_fuzz_e2e, check_storm_e2e,
-                  check_storm_planes_e2e, check_route_e2e):
+                  check_storm_planes_e2e, check_route_e2e, check_ckpt_e2e):
         t0 = time.perf_counter()
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
@@ -2355,6 +2709,8 @@ def main(argv) -> int:
         ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
          ("apply_updates", "pb_budget", "fused_stream")),
         ("1M storm", storm_headline, ("exchange",)),
+        # killed mid-save and resumed: held to the 1M storm's warm run
+        ("checkpointed storms", ckpt_paths, ("exchange",)),
         ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
         ("routed storm", route_headline, ("exchange",)),
         # the obs planes at full width, each against its planes-off run

@@ -15,12 +15,20 @@ constants, the obs-plane knobs and the kernel knobs of a JAX
 ``base_sum`` and the ``hist``, ``exch`` and ``exch_hist`` planes), and the
 ``route_*`` functions for the routing plane (``hist`` uint32).
 
+The checkpoint format is the JAX package's: ``DISK_DTYPES`` names the
+numpy dtype every field of ``SimState``, ``ScalableState`` and
+``RouteCarry`` is stored as, ``state_arrays`` reads a state to the host in
+those dtypes (one transfer) and ``state_from_arrays`` builds the port's
+state back, refusing any other stored dtype; ``params_to_jax_fields``
+gives the ``_asdict()`` a JAX params tuple would have, so a manifest's
+``params`` block is the one JAX writes.
+
 Nothing here imports JAX: the arrays are plain numpy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,6 +36,7 @@ import torch
 from ringpop_tpu_torch.models.sim import engine
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.ops import u32
+from ringpop_tpu_torch.utils.host import to_host
 
 U32_FIELDS = ("rng", "checksum", "hist")
 
@@ -71,17 +80,8 @@ def state_from_numpy(
 
 
 def state_to_numpy(state: engine.SimState) -> Dict[str, Optional[np.ndarray]]:
-    """numpy arrays of every field; uint32 fields as uint32."""
-    out = {}
-    for f in engine.SimState._fields:
-        t = getattr(state, f)
-        if t is None:
-            out[f] = None
-        elif f in U32_FIELDS:
-            out[f] = u32.to_numpy(t)
-        else:
-            out[f] = t.detach().to("cpu").numpy()
-    return out
+    """numpy copies of every field; uint32 fields as uint32 (one transfer)."""
+    return state_arrays(state)
 
 
 # JAX knob value -> the port's (the same program either way)
@@ -140,17 +140,8 @@ def scalable_state_from_numpy(
 
 
 def scalable_state_to_numpy(state: es.ScalableState) -> Dict[str, Optional[np.ndarray]]:
-    """numpy arrays of every field; uint32 fields as uint32."""
-    out = {}
-    for f in es.ScalableState._fields:
-        t = getattr(state, f)
-        if t is None:
-            out[f] = None
-        elif f in SCALABLE_U32_FIELDS:
-            out[f] = u32.to_numpy(t)
-        else:
-            out[f] = t.detach().to("cpu").numpy()
-    return out
+    """numpy copies of every field; uint32 fields as uint32 (one transfer)."""
+    return state_arrays(state)
 
 
 def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
@@ -246,3 +237,114 @@ def route_state_to_numpy(state) -> dict:
     for f in _ROUTE_TRACE_FIELDS:
         out[f] = plain(getattr(state, f))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint format (the JAX package's dtypes and params)
+
+
+def _disk_dtypes(fields, bools, u32s, u8s=()) -> Dict[str, np.dtype]:
+    def dt(f):
+        if f in bools:
+            return np.dtype(np.bool_)
+        if f in u32s:
+            return np.dtype(np.uint32)
+        if f in u8s:
+            return np.dtype(np.uint8)
+        return np.dtype(np.int32)
+
+    return {f: dt(f) for f in fields}
+
+
+# state class name -> {field: the numpy dtype JAX stores it as}
+DISK_DTYPES: Dict[str, Dict[str, np.dtype]] = {
+    "SimState": _disk_dtypes(
+        engine.SimState._fields, {"proc_alive", "ready", "gossip_on", "known", "ch_active"},
+        U32_FIELDS, {"rec_bytes"},
+    ),
+    "ScalableState": _disk_dtypes(
+        es.ScalableState._fields, {"proc_alive", "gossip_on", "r_active"}, SCALABLE_U32_FIELDS,
+    ),
+    "RouteCarry": _disk_dtypes(("mask", "rng"), {"mask"}, {"rng"}),
+}
+
+
+def disk_dtypes(state_cls) -> Dict[str, np.dtype]:
+    """The stored dtype of every field of ``state_cls`` (by class name)."""
+    name = state_cls if isinstance(state_cls, str) else state_cls.__name__
+    if name not in DISK_DTYPES:
+        raise TypeError("no checkpoint format for state class %r" % name)
+    return DISK_DTYPES[name]
+
+
+def states_arrays(states: Dict[str, Any]) -> Dict[str, Dict[str, Optional[np.ndarray]]]:
+    """Host copies of every field of several states, in their stored
+    dtypes (uint32 fields as uint32), read in one transfer.  numpy fields
+    pass through as copies; None stays None."""
+    flat = [(name, f, getattr(st, f)) for name, st in states.items() for f in st._fields]
+    tensors = [v if isinstance(v, torch.Tensor) else None for _, _, v in flat]
+    host = to_host(tensors)
+    out: Dict[str, Dict[str, Optional[np.ndarray]]] = {name: {} for name in states}
+    for (name, f, v), h in zip(flat, host):
+        if v is None:
+            out[name][f] = None
+            continue
+        want = disk_dtypes(type(states[name]))[f]
+        a = np.array(v, copy=True) if h is None else h
+        if a.dtype != want:
+            if a.dtype.itemsize != want.itemsize or a.dtype.kind not in "biu":
+                raise TypeError("%s.%s is %s, stored as %s" % (name, f, a.dtype, want))
+            a = a.view(want)  # the int32 bits of a uint32 field
+        out[name][f] = a
+    return out
+
+
+def state_arrays(state) -> Dict[str, Optional[np.ndarray]]:
+    """:func:`states_arrays` of one state."""
+    return states_arrays({"state": state})["state"]
+
+
+def state_from_arrays(state_cls, arrays: Dict[str, Optional[np.ndarray]], device="cpu"):
+    """The port's ``state_cls`` from stored arrays: uint32 fields become
+    int32 views of the same bits, every array is copied into a tensor the
+    state owns.  A field whose array is not in its stored dtype raises
+    ``TypeError`` (a silent widening or narrowing corrupts a run)."""
+    dtypes = disk_dtypes(state_cls)
+    out = {}
+    for f in state_cls._fields:
+        a = arrays.get(f)
+        if a is None:
+            out[f] = None
+            continue
+        if a.dtype != dtypes[f]:
+            raise TypeError("field %r is %s, the port holds it as %s" % (f, a.dtype, dtypes[f]))
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[f] = torch.from_numpy(np.array(a, copy=True)).to(device)
+    return state_cls(**out)
+
+
+# the float params: held as Python floats so they print as JAX's do
+_FLOAT_PARAMS = frozenset({"packet_loss", "zipf_s", "multi_key_frac"})
+
+
+def _json_value(name: str, v):
+    if isinstance(v, torch.Tensor):
+        raise TypeError("params.%s is a tensor; params hold Python values" % name)
+    if isinstance(v, np.generic):
+        v = v.item()
+    if name in _FLOAT_PARAMS:
+        return float(v)
+    if isinstance(v, (bool, int, float, str)) or v is None:
+        return v
+    raise TypeError("params.%s is %r, not a JSON value" % (name, type(v)))
+
+
+def params_to_jax_fields(params) -> Dict[str, Any]:
+    """The ``_asdict()`` of the JAX params tuple for the port's
+    ``SimParams``, ``ScalableParams`` or ``RouteParams`` (the same field
+    names): Python values only, floats as floats.  Knobs the port resolves
+    to its own values (``fused_tick``, ``hash_impl``, ``fused_exchange``,
+    ...) are written as the port holds them; the checkpoint's
+    trajectory-neutral set covers every one of them."""
+    return {k: _json_value(k, v) for k, v in params._asdict().items()}

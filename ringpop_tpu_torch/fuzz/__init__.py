@@ -4,9 +4,10 @@ Counterpart of ``ringpop_tpu/fuzz/``: :mod:`.scenarios` (seeded storm
 schedules over both engines' fault primitives), :mod:`.executor` (B
 instances stepped together under ``torch.func.vmap``, their flight-recorder
 streams drained), :mod:`.invariants` (the protocol invariants over streams,
-states and metrics) and :mod:`.shrinker` (a failing seed bisected to a
-minimal fixture).  The JAX package's ``crash`` harness imports its
-checkpoints and waits for the port's (ROADMAP.md queue A item 4).
+states and metrics), :mod:`.shrinker` (a failing seed bisected to a
+minimal fixture) and :mod:`.crash` (a driver killed at a seed-drawn tick,
+mid-checkpoint-write included, restored from its newest valid checkpoint
+and held bitwise to its uninterrupted twin).
 """
 
 from ringpop_tpu_torch.fuzz.scenarios import (  # noqa: F401
@@ -28,6 +29,16 @@ from ringpop_tpu_torch.fuzz.executor import (  # noqa: F401
 from ringpop_tpu_torch.fuzz.invariants import (  # noqa: F401
     Violation,
     check_run,
+)
+from ringpop_tpu_torch.fuzz.crash import (  # noqa: F401
+    DRIVERS,
+    RESUME_BITWISE,
+    ROUTED,
+    CrashReport,
+    build_driver,
+    corrupt_checkpoint,
+    run_crash_resume,
+    sweep_crash,
 )
 from ringpop_tpu_torch.fuzz.shrinker import (  # noqa: F401
     ShrinkResult,

@@ -12,8 +12,8 @@ as a fixture (:mod:`ringpop_tpu_torch.fuzz.shrinker`).
 Packet loss is a per-scenario config axis (``packet_loss_of``), since it
 is a static engine parameter: ``executor.sweep`` buckets seeds by level so
 each level shares one executor.  ``crash_plan_of`` draws the host-level
-``crash_resume`` move's plan; its harness (``fuzz/crash.py``) waits for
-the port's checkpoints.
+``crash_resume`` move's plan, which :mod:`ringpop_tpu_torch.fuzz.crash`
+executes.
 """
 
 from __future__ import annotations

@@ -23,9 +23,15 @@ one engine tick, then one routing tick against the new truth.  It runs
 on the card unless ``device="cpu"`` is passed.  ``RouteParams(histograms=
 True)`` keeps the log2 counters of :data:`ROUTE_HIST_TRACKS` (write-only,
 from the same masks as the counters, so identical across ring impls);
-``attach_recorder`` and ``drain_histograms`` are the host halves.  The
-JAX driver's checkpoints are not ported yet (ROADMAP.md queue A, A10):
-those entry points raise ``NotImplementedError``.
+``attach_recorder`` and ``drain_histograms`` are the host halves.
+
+Checkpoints are the JAX driver's (``models/sim/recovery.py``): two named
+states, ``"sim"`` (the engine state, node fields shardable) and
+``"route"`` (:class:`RouteCarry`: the stale-ring membership and the
+traffic rng).  ``save(path, shards=)`` writes a manifest directory,
+``load`` and ``restore_latest()`` rebuild the bucketed (or flat) ring from
+the restored mask, bit for bit the incrementally kept one, and open fresh
+histogram and request-trace windows under the current params.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ from ringpop_tpu_torch.models.ring import device as ringdev
 from ringpop_tpu_torch.models.route import reqtrace as rt
 from ringpop_tpu_torch.models.route import ring_kernel as rk
 from ringpop_tpu_torch.models.route import traffic
+from ringpop_tpu_torch.models.sim import checkpoint as ckpt
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.models.sim.cluster import _tick_at, metrics_to_numpy
-from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, CheckpointSpec, states_to
+from ringpop_tpu_torch.models.sim.storm import ScalableCluster, fixup_scalable_state
 from ringpop_tpu_torch.obs import histograms as oh
 from ringpop_tpu_torch.obs import requests as oreq
 from ringpop_tpu_torch.ops import histogram as hg
@@ -51,12 +59,6 @@ from ringpop_tpu_torch.ops import threefry, u32
 # it was retried) and forwarding hops (2 if rerouted to a remote owner),
 # and per tick the ring's dirty buckets
 ROUTE_HIST_TRACKS = ("retry_depth", "reroute_hops", "dirty_buckets")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        "%s is not ported yet (ROADMAP.md queue A, %s)" % (what, item)
-    )
 
 
 class RouteParams(NamedTuple):
@@ -104,7 +106,7 @@ class RouteState(NamedTuple):
 
 
 class RouteCarry(NamedTuple):
-    """What a JAX checkpoint keeps of the route state (the ring is rebuilt
+    """What a checkpoint keeps of the route state (the ring is rebuilt
     from ``mask`` on load)."""
 
     mask: torch.Tensor  # [N] bool
@@ -295,7 +297,7 @@ def in_ring_mask(state: es.ScalableState) -> torch.Tensor:
     return state.proc_alive & (state.truth_status <= es.SUSPECT)
 
 
-class RoutedStorm:
+class RoutedStorm(CheckpointableMixin):
     """``ScalableCluster`` plus the routing plane: every engine tick is
     followed by a routing tick against the new truth (the truth ring) and
     the pre-tick view (the stale ring).  ``step``/``run`` return
@@ -347,11 +349,17 @@ class RoutedStorm:
         if inputs is None:
             inputs = es.ChurnInputs.quiet(self.route_params.n, self.device)
         em, rm = self._tick(inputs)
-        return self._record(metrics_to_numpy(em), metrics_to_numpy(rm))
+        out = self._record(metrics_to_numpy(em), metrics_to_numpy(rm))
+        self._after_ticks(1)
+        return out
 
     def run(self, schedule):
         """Loop the tick over a ``StormSchedule``; returns ``[T]`` numpy
-        stacks of ``(ScalableMetrics, RouteMetrics)``."""
+        stacks of ``(ScalableMetrics, RouteMetrics)``.  With a checkpoint
+        cadence on the run splits at the cadence lines (bitwise-neutral)."""
+        return self._run_chunked(schedule, self._run_window)
+
+    def _run_window(self, schedule):
         inputs = schedule.as_inputs(self.device)
         per_tick = [self._tick(_tick_at(inputs, t)) for t in range(schedule.ticks)]
         ems, rms = zip(*per_tick)
@@ -381,8 +389,8 @@ class RoutedStorm:
         """Drain both histogram planes — the routing plane's
         (``RouteState.hist``) and the engine's (``ScalableState.hist``, when
         on) — into ``{"route": ..., "sim": ...}`` summaries, one
-        ``hist.drain`` row each on the attached recorder, then (``reset``)
-        zeroed counters.  ``statsd`` is not ported yet."""
+        ``hist.drain`` row each on the attached recorder and timer keys on
+        ``statsd``, then (``reset``) zeroed counters."""
         st = self.cluster.state
         if self.rstate.hist is None and st.hist is None:
             raise ValueError(
@@ -411,7 +419,7 @@ class RoutedStorm:
     def drain_requests(self, reset: bool = True, statsd=None):
         """Decode the sampled request-trace window (``obs.requests.drain``'s
         dict: records, counts, drops), with a ``reqtrace.drain`` row on the
-        attached recorder.  ``reset=True`` zeroes the buffer and counters;
+        attached recorder and ``sim.reqtrace.*`` keys on ``statsd``.  ``reset=True`` zeroes the buffer and counters;
         the plane's tick stamp keeps running."""
         st = self.rstate
         if st.req_buf is None:
@@ -449,13 +457,46 @@ class RoutedStorm:
     def ring_checksum(self) -> int:
         return int(u32.to_numpy(ringdev.ring_checksum(self._truth_flat())))
 
-    # -- not ported yet ---------------------------------------------------
+    # -- checkpoint/resume ------------------------------------------------
+
+    def _route_carry(self) -> RouteCarry:
+        mask = (self.rstate.ring.mask if self.route_params.ring_impl == "incremental"
+                else self.rstate.mask)
+        return RouteCarry(mask=mask, rng=self.rstate.rng)
+
+    def _rebuild_route_state(self, carry: RouteCarry) -> RouteState:
+        mask, rng = carry.mask.to(self.device), carry.rng.to(self.device)
+        # telemetry, not trajectory: a restore starts fresh histogram
+        # counters and a fresh request-trace window under the current params
+        hist = hg.init(len(ROUTE_HIST_TRACKS), self.device) if self.route_params.histograms else None
+        req = _init_reqtrace(self.route_params, self.device)
+        if self.route_params.ring_impl == "incremental":
+            return RouteState(ring=rk.full_rebuild(self.buckets, mask), flat_ring=None, mask=None,
+                              rng=rng, hist=hist, **req)
+        return RouteState(ring=None, flat_ring=ringdev.build_ring(self.reps, mask), mask=mask,
+                          rng=rng, hist=hist, **req)
+
+    def _ckpt_spec(self) -> CheckpointSpec:
+        return CheckpointSpec(
+            state_cls={"sim": es.ScalableState, "route": RouteCarry},
+            params={"sim": self.cluster.params, "route": self.route_params},
+            sharded_fields={"sim": es.NODE_SHARDED_FIELDS, "route": frozenset({"mask"})},
+        )
+
+    def _ckpt_states(self):
+        return {"sim": self.cluster.state, "route": self._route_carry()}
+
+    def _ckpt_install(self, states) -> None:
+        self.cluster.state = fixup_scalable_state(states_to(states["sim"], self.device),
+                                                  self.cluster.params)
+        self.rstate = self._rebuild_route_state(states["route"])
 
     def save(self, path: str, shards: int = 1) -> None:
-        raise _not_ported("RoutedStorm.save (checkpoints)", "item 4, A10")
+        """Manifest-format checkpoint directory at ``path``."""
+        spec = self._ckpt_spec()
+        ckpt.save_checkpoint(path, self._ckpt_states(), spec.params, shards=shards,
+                             sharded_fields=spec.sharded_fields)
 
     def load(self, path: str) -> None:
-        raise _not_ported("RoutedStorm.load (checkpoints)", "item 4, A10")
-
-    def enable_checkpoints(self, *args, **kwargs) -> None:
-        raise _not_ported("RoutedStorm.enable_checkpoints (checkpoint cadence)", "item 4, A10")
+        spec = self._ckpt_spec()
+        self._ckpt_install(ckpt.load_checkpoint(path, spec.state_cls, spec.params))

@@ -17,11 +17,19 @@ state under an exact shape — "full" on the fused checksum pipeline,
 
 The obs planes' host halves: ``drain_events`` / ``event_drops`` /
 ``first_heard`` / ``export_flight_trace`` (``SimParams(flight_recorder=
-True)``), ``drain_histograms`` (``histograms=True``), and
-``attach_recorder``, which folds every step's and window's metrics and
-every replay into an ``obs.recorder.RunRecorder``.  Each drain resets the
-device counters after its sinks took the window; draining is
-trajectory-neutral.
+True)``), ``drain_histograms`` (``histograms=True``; ``statsd=`` takes an
+``obs.statsd_bridge.StatsdBridge``), and ``attach_recorder``, which folds
+every step's and window's metrics and every replay into an
+``obs.recorder.RunRecorder``.  Each drain resets the device counters after
+its sinks took the window; draining is trajectory-neutral.
+
+Checkpoints (``models/sim/recovery.py``): ``save``/``load`` write and read
+the JAX package's legacy file (``load`` also takes a manifest directory),
+``enable_checkpoints(dir, every=k)`` saves every k driven ticks (``run``
+splits its window at those lines, bitwise-neutrally) and
+``restore_latest()`` resumes from the newest valid checkpoint;
+:func:`fixup_sim_state` rebuilds the fused record cache and the obs planes
+for the resuming params.
 
 The cluster runs on the card unless ``device="cpu"`` is passed.
 """
@@ -35,11 +43,14 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import resolve_device
-from ringpop_tpu_torch.models.sim import engine
+from ringpop_tpu_torch.models.sim import checkpoint as ckpt
+from ringpop_tpu_torch.models.sim import engine, flight
+from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, CheckpointSpec, states_to
 from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
 from ringpop_tpu_torch.obs import events as obs_events
 from ringpop_tpu_torch.obs import histograms as oh
 from ringpop_tpu_torch.ops import checksum_encode as ce
+from ringpop_tpu_torch.ops import fused_checksum as fc
 from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import toolkit, u32
 
@@ -114,7 +125,52 @@ def metrics_to_numpy(metrics):
     return type(metrics)(*(x.to("cpu").numpy() for x in metrics))
 
 
-class SimCluster:
+def fixup_sim_state(
+    state: engine.SimState, params: engine.SimParams, universe: ce.Universe
+) -> engine.SimState:
+    """Align a just-loaded SimState with the resuming engine's params (the
+    JAX cluster's ``fixup_sim_state``; the checkpoint's trajectory-neutral
+    knobs may differ between save and resume).  Runs on the state's
+    device."""
+    dev = state.known.device
+    if engine.resolve_fused_checksum(params) == "on":
+        # the record cache is a pure function of (known, status, inc):
+        # rebuild it UNCONDITIONALLY.  A stored cache cannot be trusted —
+        # an unfused resume in between carries it through unchanged while
+        # the views evolve, and hashing those stale bytes would break parity
+        rec_b, rec_l = fc.member_records(
+            universe, state.known, state.status, engine.stamp_to_ms(state.inc, params),
+            params.max_digits,
+        )
+        state = state._replace(rec_bytes=rec_b, rec_len=rec_l)
+    elif state.rec_bytes is not None:
+        # unfused resume of a fused checkpoint: drop the cache so this run
+        # never saves forward bytes it does not maintain
+        state = state._replace(rec_bytes=None, rec_len=None)
+    # flight-recorder plane: telemetry, not trajectory.  A recorder-on
+    # resume starts a fresh buffer when the checkpoint has none or its
+    # capacity differs (keeping the wavefront); a recorder-off resume drops it
+    if params.flight_recorder:
+        buf = state.ev_buf
+        if buf is None or buf.shape[0] != params.event_capacity:
+            ev_buf, ev_head, ev_drops, first_heard = flight.init_recorder_fields(
+                params.n, params.event_capacity, dev
+            )
+            if state.first_heard is not None:
+                first_heard = state.first_heard
+            state = state._replace(ev_buf=ev_buf, ev_head=ev_head, ev_drops=ev_drops,
+                                   first_heard=first_heard)
+    elif state.ev_buf is not None:
+        state = state._replace(ev_buf=None, ev_head=None, ev_drops=None, first_heard=None)
+    # latency-histogram plane: the same contract; counters start fresh
+    if params.histograms and state.hist is None:
+        state = state._replace(hist=hg.init(len(engine.HIST_TRACKS), dev))
+    elif not params.histograms and state.hist is not None:
+        state = state._replace(hist=None)
+    return state
+
+
+class SimCluster(CheckpointableMixin):
     def __init__(
         self,
         n: Optional[int] = None,
@@ -222,11 +278,18 @@ class SimCluster:
         metrics = metrics_to_numpy(metrics)
         if self.recorder is not None:
             self.recorder.record_ticks(metrics)
+        self._after_ticks(1)
         return metrics
 
     def run(self, schedule: EventSchedule) -> engine.TickMetrics:
         """Loop the tick over a dense event schedule; returns a TickMetrics
-        of numpy ``[T]`` arrays."""
+        of numpy ``[T]`` arrays.  With a checkpoint cadence on
+        (``enable_checkpoints(every=k)``) the run splits at the cadence
+        lines, each window replayed on its own overflow — state and
+        metrics bitwise those of the unsplit run."""
+        return self._run_chunked(schedule, self._run_schedule)
+
+    def _run_schedule(self, schedule: EventSchedule) -> engine.TickMetrics:
         inputs = schedule.as_inputs(self.device)
         pre = self.state
         self.state, metrics = self._run_window(pre, inputs, schedule.ticks, self.params)
@@ -335,7 +398,8 @@ class SimCluster:
     def drain_histograms(self, reset: bool = True, statsd=None) -> dict:
         """Per-track summaries (exact p50/p95/p99, ``obs.histograms``) of
         the device counters, a ``hist.drain`` row on the attached recorder,
-        then (``reset``) zeroed counters.  ``statsd`` is not ported yet."""
+        then (``reset``) zeroed counters; ``statsd`` (a ``StatsdBridge``)
+        gets the percentile timer keys."""
         hist = self._need("hist", "histograms")
         summary = oh.drain(hist, engine.HIST_TRACKS, "sim.engine", recorder=self.recorder,
                            statsd=statsd)
@@ -382,3 +446,25 @@ class SimCluster:
             "%s%s%d" % (m["address"], m["status"], m["incarnationNumber"])
             for m in self.membership_of(i)
         )
+
+    # -- checkpoint/resume ------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """The JAX package's legacy single-file checkpoint at ``path``."""
+        ckpt.save_state(path, self.state, self.params)
+
+    def load(self, path: str) -> None:
+        """Resume from ``path`` — a legacy ``.npz`` file or a manifest
+        checkpoint directory (any shard count), written by either package."""
+        self._ckpt_install(ckpt.load_any(path, engine.SimState, self.params))
+
+    def _ckpt_spec(self) -> CheckpointSpec:
+        # sharded_fields=None -> dynamic: every non-scalar SimState field
+        # is node-leading
+        return CheckpointSpec(engine.SimState, self.params, None)
+
+    def _ckpt_states(self):
+        return self.state
+
+    def _ckpt_install(self, state) -> None:
+        self.state = fixup_sim_state(states_to(state, self.device), self.params, self.universe)

@@ -133,6 +133,32 @@ class ScalableState(NamedTuple):
     exch_hist: Optional[torch.Tensor] = None
 
 
+# ScalableState fields indexed by NODE along axis 0 — the sharded
+# checkpoint split (models/sim/recovery.py) and, on a mesh, the node
+# sharding.  Decided by NAME, not shape: u == n would make shape checks
+# ambiguous.  Everything else — the bounded [U] rumor table, the scalar
+# clock/base, the rng, the telemetry wavefront — stays in the common
+# checkpoint file.  The exchange-telemetry planes (``exch``,
+# ``exch_hist``) are indexed by SHARD, not node, and are not in this set,
+# so checkpoints keep the tiny planes in the common file at any shard
+# count.
+NODE_SHARDED_FIELDS = frozenset(
+    {
+        "proc_alive",
+        "gossip_on",
+        "partition",
+        "truth_status",
+        "truth_inc",
+        "heard",
+        "susp_subject",
+        "susp_since",
+        "defame_slot",
+        "defame_by",
+        "checksum",
+    }
+)
+
+
 # trajectory vs obs-only ScalableState fields, as in the JAX engine
 # (``SCALABLE_OBS_ONLY_FIELDS`` / ``SCALABLE_TRAJECTORY_FIELDS``; the note
 # at engine.SIM_OBS_ONLY_FIELDS)

@@ -9,9 +9,14 @@ commutative record hash.
 each tick's metrics stay on the device until the loop ends.  The obs
 planes' host halves are here: ``attach_recorder`` (an
 ``obs.recorder.RunRecorder`` folds every step's and run's metrics),
-``drain_histograms``, ``drain_exchange_metrics``, ``wavefront_snapshot``
-and ``wavefront_summary``.  The checkpoint cadence is not ported yet
-(ROADMAP.md queue A, A10), so a run is one window.
+``drain_histograms``, ``drain_exchange_metrics`` (both take a
+``statsd=`` ``obs.statsd_bridge.StatsdBridge``), ``wavefront_snapshot`` and
+``wavefront_summary``.  Checkpoints are the JAX package's format
+(``models/sim/recovery.py``): ``save``/``load``, and
+``enable_checkpoints(dir, every=k)``, which splits a run at every k-th
+driven tick and saves there, then ``restore_latest()``;
+:func:`fixup_scalable_state` aligns a loaded state's obs planes with the
+resuming params.
 
 The cluster runs on the card unless ``device="cpu"`` is passed.
 """
@@ -30,8 +35,10 @@ from ringpop_tpu_torch.models.ring.device import (  # noqa: F401 — re-exported
     device_replica_hashes,
     ring_checksum,
 )
+from ringpop_tpu_torch.models.sim import checkpoint as ckpt
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.models.sim.cluster import _tick_at, metrics_to_numpy
+from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, CheckpointSpec, states_to
 from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
 from ringpop_tpu_torch.obs import events as obs_events
 from ringpop_tpu_torch.obs import exchange_stats as oxs
@@ -107,7 +114,35 @@ class StormSchedule(DeviceScheduleMixin):
         return sched
 
 
-class ScalableCluster:
+def fixup_scalable_state(state: es.ScalableState, params: es.ScalableParams) -> es.ScalableState:
+    """Align a just-loaded ScalableState with the resuming engine's params
+    (the JAX ``fixup_scalable_state``, shared by ScalableCluster and
+    RoutedStorm).  The obs planes are telemetry, not trajectory: a resume
+    may toggle them whatever the checkpoint carried."""
+    dev = state.proc_alive.device
+    if params.wavefront and state.first_heard is None:
+        state = state._replace(
+            first_heard=torch.full((params.n, params.u), -1, dtype=torch.int32, device=dev)
+        )
+    elif not params.wavefront and state.first_heard is not None:
+        state = state._replace(first_heard=None)
+    if params.histograms and state.hist is None:
+        state = state._replace(hist=hg.init(len(es.SCALABLE_HIST_TRACKS), dev))
+    elif not params.histograms and state.hist is not None:
+        state = state._replace(hist=None)
+    # the exchange planes: the same contract, and a resume under a
+    # DIFFERENT shard count re-zeroes (counter rows are keyed by shard id)
+    if params.exchange_metrics:
+        s = int(params.exchange_metrics)
+        if state.exch is None or int(state.exch.shape[0]) != s:
+            state = state._replace(exch=_exchange.init_exchange_counters(s, dev),
+                                   exch_hist=_exchange.init_exchange_hist(s, dev))
+    elif state.exch is not None:
+        state = state._replace(exch=None, exch_hist=None)
+    return state
+
+
+class ScalableCluster(CheckpointableMixin):
     """The scalable engine's cluster: construction pins the "auto" knobs
     for the device; ``step``/``run`` advance the state."""
 
@@ -166,10 +201,17 @@ class ScalableCluster:
         if inputs is None:
             inputs = es.ChurnInputs.quiet(self.params.n, self.device)
         self.state, m = es.tick(self.state, inputs, self.params)
-        return self._recorded(m)
+        m = self._recorded(m)
+        self._after_ticks(1)
+        return m
 
     def run(self, schedule: StormSchedule) -> es.ScalableMetrics:
-        """Loop the tick over the storm plan; returns ``[T]`` numpy metrics."""
+        """Loop the tick over the storm plan; returns ``[T]`` numpy metrics.
+        With a checkpoint cadence on the run splits at the cadence lines
+        (bitwise-neutral in state and metrics)."""
+        return self._run_chunked(schedule, self._run_window)
+
+    def _run_window(self, schedule: StormSchedule) -> es.ScalableMetrics:
         inputs = schedule.as_inputs(self.device)
         per_tick = []
         for t in range(schedule.ticks):
@@ -199,8 +241,8 @@ class ScalableCluster:
 
     def drain_histograms(self, reset: bool = True, statsd=None) -> dict:
         """Per-track summaries (exact p50/p95/p99) of ``ScalableState.hist``,
-        a ``hist.drain`` row on the attached recorder, then (``reset``)
-        zeroed counters.  ``statsd`` is not ported yet."""
+        a ``hist.drain`` row on the attached recorder and timer keys on
+        ``statsd``, then (``reset``) zeroed counters."""
         if self.state.hist is None:
             raise ValueError("histograms are off — construct with ScalableParams(histograms=True)")
         summary = oh.drain(self.state.hist, es.SCALABLE_HIST_TRACKS, "sim.engine_scalable",
@@ -215,8 +257,8 @@ class ScalableCluster:
 
     def drain_exchange_metrics(self, reset: bool = True, statsd=None) -> dict:
         """The per-shard exchange counters through ``obs.exchange_stats.
-        drain`` (priced against the default cap), then (``reset``) zeroed
-        planes.  ``statsd`` is not ported yet."""
+        drain`` (priced against the default cap; ``sharded.exchange.*`` keys
+        on ``statsd``), then (``reset``) zeroed planes."""
         if self.state.exch is None:
             raise ValueError(
                 "exchange telemetry is off — construct with "
@@ -264,3 +306,23 @@ class ScalableCluster:
         return obs_events.scalable_wavefront_summary(
             snap["first_heard"], snap["r_birth"], snap["r_active"], snap["live"]
         )
+
+    # -- checkpoint/resume ------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """The JAX package's legacy single-file checkpoint at ``path``."""
+        ckpt.save_state(path, self.state, self.params)
+
+    def load(self, path: str) -> None:
+        """Resume from ``path`` — a legacy ``.npz`` file or a manifest
+        checkpoint directory (any shard count), written by either package."""
+        self._ckpt_install(ckpt.load_any(path, es.ScalableState, self.params))
+
+    def _ckpt_spec(self) -> CheckpointSpec:
+        return CheckpointSpec(es.ScalableState, self.params, es.NODE_SHARDED_FIELDS)
+
+    def _ckpt_states(self):
+        return self.state
+
+    def _ckpt_install(self, state) -> None:
+        self.state = fixup_scalable_state(states_to(state, self.device), self.params)

@@ -11,8 +11,9 @@ counters to the host, prices the wire bytes exactly
 (:func:`ringpop_tpu_torch.ops.exchange.drain_exchange_counters`), logs one
 ``mesh.exchange.drain`` run-log row per shard and reconciles the measured
 bytes against the analytic traffic model
-(:func:`ringpop_tpu_torch.ops.exchange.cross_shard_traffic_bytes`).  The
-statsd sink is not ported yet (ROADMAP.md queue A item 7).
+(:func:`ringpop_tpu_torch.ops.exchange.cross_shard_traffic_bytes`) and
+emits the ``sharded.exchange.*`` statsd keys through the port's
+``obs.statsd_bridge``.
 """
 
 from __future__ import annotations
@@ -108,16 +109,12 @@ def drain(
     """The ONE host half of every driver's ``drain_exchange_metrics()``
     (the single-device ScalableCluster twin; the mesh driver is A11):
     price the device counters into per-shard :class:`ExchangeMetrics` rows, log
-    one ``mesh.exchange.drain`` event per shard on ``recorder`` (``statsd``
-    raises: not ported yet), and return ``{"shards": [row dicts],
+    one ``mesh.exchange.drain`` event per shard on ``recorder``, emit the
+    summed ``sharded.exchange.*`` keys through ``statsd`` (an
+    ``obs.statsd_bridge.StatsdBridge``), and return ``{"shards": [row dicts],
     "totals": {...}, "cap_util": {...}, "reconcile": {...}}``.  Sinks run before any caller-side reset — a raising sink
     leaves the window on device for a retry (the drain_events
     contract, same as obs.histograms.drain)."""
-    if statsd is not None:
-        raise NotImplementedError(
-            "the statsd sink of the exchange drain is not ported yet "
-            "(ROADMAP.md queue A item 7, A13)"
-        )
     counters = oh.host_counts(counters)
     rows = _exch.drain_exchange_counters(
         counters, w=w, cap=cap, local_rows=local_rows
@@ -151,6 +148,12 @@ def drain(
         recorder.record_event(
             TRAFFIC_RECONCILE_EVENT, source=source, **rec
         )
+    if statsd is not None:
+        statsd.emit_exchange_drain(tot)
+        if cap_util is not None:
+            from ringpop_tpu_torch.obs.statsd_bridge import EXCHANGE_HIST_KEYS
+
+            statsd.emit_hist_summary(cap_util, key_map=EXCHANGE_HIST_KEYS)
     return {
         "shards": [r._asdict() for r in rows],
         "totals": tot,

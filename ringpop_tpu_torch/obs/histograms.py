@@ -10,7 +10,7 @@ plus the ``hist.drain`` run-log row.  The counters may be numpy uint32
 arrays or the port's int32 tensors of uint32 bit patterns
 (:func:`host_counts`).  The JAX module's host twins (``HostHistogram``,
 ``AdaptiveProtocolPeriod``) have no caller in the port and are not
-copied; its statsd sink is not ported yet (ROADMAP.md queue A item 7).
+copied; its statsd sink is the port's ``obs.statsd_bridge``.
 
 Percentile semantics (exact, given the bucketization): the q-th
 percentile is the nearest-rank order statistic — the ``ceil(q/100 * N)``
@@ -160,18 +160,16 @@ def drain(
 ) -> Dict[str, Dict[str, object]]:
     """The ONE host half of every driver's ``drain_histograms()``:
     summarize the device counters, log the ``hist.drain`` event row on
-    ``recorder`` (a RunRecorder); ``statsd`` raises (not ported yet).
-    Returns the summary; the CALLER owns
+    ``recorder`` (a RunRecorder), emit percentile timer keys through
+    ``statsd`` (an ``obs.statsd_bridge.StatsdBridge``).  Returns the
+    summary; the CALLER owns
     the device-side reset — sinks run first, so a raising sink leaves
     the window on device for a retry (the drain_events contract)."""
-    if statsd is not None:
-        raise NotImplementedError(
-            "the statsd sink of the histogram drain is not ported yet "
-            "(ROADMAP.md queue A item 7, A13)"
-        )
     summary = summarize(hist, tracks, qs)
     if recorder is not None:
         recorder.record_event("hist.drain", **drain_row(source, summary))
+    if statsd is not None:
+        statsd.emit_hist_summary(summary)
     return summary
 
 

@@ -153,16 +153,11 @@ def drain(
     statsd=None,
 ) -> Dict[str, object]:
     """The host half of ``RoutedStorm.drain_requests()``: decode the
-    window and log the ``reqtrace.drain`` event row on ``recorder`` (a
-    ``RunRecorder``).  Returns {"records": [...], "drops", "cap",
-    "counts", ...}; the caller owns the device-side reset, after the sink
-    ran.  The statsd sink of the JAX drain is not ported yet: passing one
-    raises."""
-    if statsd is not None:
-        raise NotImplementedError(
-            "the request-trace drain's statsd sink is not ported yet "
-            "(ROADMAP.md queue A item 7, A13)"
-        )
+    window, log the ``reqtrace.drain`` event row on ``recorder`` (a
+    ``RunRecorder``), emit the sampled counters through ``statsd`` (an
+    ``obs.statsd_bridge.StatsdBridge``).  Returns {"records": [...],
+    "drops", "cap", "counts", ...}; the caller owns the device-side reset,
+    after the sinks ran."""
     cap = int(np.asarray(buf).shape[0])
     records = decode_requests(buf, head, drops)
     counts = counts_dict(req_counts)
@@ -172,6 +167,8 @@ def drain(
     )
     if recorder is not None:
         recorder.record_event("reqtrace.drain", **row)
+    if statsd is not None:
+        statsd.emit_reqtrace_drain(row)
     out = dict(row)
     out["records"] = records
     return out

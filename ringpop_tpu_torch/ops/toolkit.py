@@ -65,17 +65,20 @@ def resolution_note(
 
 
 def emit_resolution(note: dict, recorder=None, statsd=None, *,
-                    event: str = "op_resolution") -> None:
+                    event: str = "op_resolution", gauge_prefix: Optional[str] = None) -> None:
     """Publish a resolution note as one run-log event row on ``recorder``
-    (an ``obs.recorder.RunRecorder``).  The statsd gauges of the JAX
-    toolkit are not ported yet (ROADMAP.md queue A item 7): passing
-    ``statsd`` raises."""
-    if statsd is not None:
-        raise NotImplementedError(
-            "the statsd sink of emit_resolution is not ported yet (ROADMAP.md queue A item 7, A13)"
-        )
+    (an ``obs.recorder.RunRecorder``) and, with ``gauge_prefix``, the JAX
+    toolkit's statsd gauges on ``statsd`` (an ``obs.statsd_bridge.
+    StatsdBridge``): ``<prefix>.resolution_differs`` 1/0, plus
+    ``<prefix>.cap`` when the note carries a static cap.  Either sink may
+    be None."""
     if recorder is not None:
         recorder.record_event(event, **note)
+    if statsd is not None and gauge_prefix is not None:
+        statsd.gauge("%s.resolution_differs" % gauge_prefix,
+                     int(bool(note.get("differs_from_single_device", False))))
+        if note.get("cap") is not None:
+            statsd.gauge("%s.cap" % gauge_prefix, int(note["cap"]))
 
 
 # the namespace of the port's custom ops (``torch.ops.ringpop_torch.*``)

@@ -182,9 +182,18 @@ def test_drains_need_their_plane():
         with pytest.raises(ValueError, match="SimParams"):
             call()
     assert p.event_drops() == 0
-    _, h = _pair(flight=False, hist=True, n=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        h.drain_histograms(statsd=object())
+    # the statsd sink: the port's bridge emits the JAX bridge's calls
+    from ringpop_tpu.obs.statsd_bridge import StatsdBridge as JaxBridge
+    from ringpop_tpu.utils.stats import CapturingStatsd
+    from ringpop_tpu_torch.obs.statsd_bridge import StatsdBridge
+
+    j, h = _pair(flight=False, hist=True, n=8)
+    j.bootstrap()
+    h.bootstrap()
+    jcap, pcap = CapturingStatsd(), CapturingStatsd()
+    j.drain_histograms(statsd=JaxBridge(statsd=jcap, host_port="127.0.0.1:3000"))
+    h.drain_histograms(statsd=StatsdBridge(statsd=pcap, host_port="127.0.0.1:3000"))
+    assert pcap.records == jcap.records
 
 
 @pytest.mark.parametrize("gate", [True, False])

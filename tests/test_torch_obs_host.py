@@ -115,6 +115,16 @@ def test_chrome_trace_equal_jax(flight_run, tmp_path):
         assert json.load(f) == got
 
 
+def _bridges():
+    """A JAX and a port statsd bridge, each over its own capturing client."""
+    from ringpop_tpu.obs.statsd_bridge import StatsdBridge as JaxBridge
+    from ringpop_tpu_torch.obs.statsd_bridge import StatsdBridge
+
+    jcap, pcap = jstats.CapturingStatsd(), jstats.CapturingStatsd()
+    return (JaxBridge(statsd=jcap, host_port="10.0.0.1:3000"), jcap,
+            StatsdBridge(statsd=pcap, host_port="10.0.0.1:3000"), pcap)
+
+
 def test_histogram_summaries_equal_jax():
     rng = np.random.default_rng(5)
     hist = rng.integers(0, 50, (4, 32)).astype(np.uint32)
@@ -137,8 +147,10 @@ def test_histogram_summaries_equal_jax():
         poh.summarize(hist, names[:2])
     with pytest.raises(ValueError):
         poh.percentile(hist[0], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        poh.drain(hist, names, "s", statsd=object())
+    jb, jcap, pb, pcap = _bridges()
+    assert poh.drain(u32.from_numpy(hist), names, "s", statsd=pb) == joh.drain(
+        hist, names, "s", statsd=jb)
+    assert pcap.records == jcap.records and pcap.records
 
 
 def test_exchange_drain_equal_jax():
@@ -155,8 +167,10 @@ def test_exchange_drain_equal_jax():
         counters, None, w=16, local_rows=250_000, source="s", cap=9)
     tot = pxs.totals([])
     assert tot == jxs.totals([])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pxs.drain(counters, hist, w=16, local_rows=250_000, source="s", statsd=object())
+    jb, jcap, pb, pcap = _bridges()
+    pxs.drain(counters, hist, w=16, local_rows=250_000, source="s", statsd=pb)
+    jxs.drain(counters, hist, w=16, local_rows=250_000, source="s", statsd=jb)
+    assert pcap.records == jcap.records and pcap.records
 
 
 def test_resolution_note_equal_jax():

@@ -124,7 +124,14 @@ def test_host_registry_and_decoders_equal_jax():
     assert poreq.counts_dict(counts) == joreq.counts_dict(counts)
     assert poreq.drain_row("route", 1, 2, 3, 4, {"a": 1}) == joreq.drain_row(
         "route", 1, 2, 3, 4, {"a": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        poreq.drain(buf, 1, 0, counts, 2, statsd=object())
+    # the statsd sink: the port's bridge emits the JAX bridge's calls
+    from ringpop_tpu.obs.statsd_bridge import StatsdBridge as JaxBridge
+    from ringpop_tpu.utils.stats import CapturingStatsd
+    from ringpop_tpu_torch.obs.statsd_bridge import StatsdBridge
+
+    jcap, pcap = CapturingStatsd(), CapturingStatsd()
+    poreq.drain(buf, 7, 3, counts, 2, statsd=StatsdBridge(statsd=pcap, host_port="h:1"))
+    joreq.drain(buf, 7, 3, counts, 2, statsd=JaxBridge(statsd=jcap, host_port="h:1"))
+    assert pcap.records == jcap.records and pcap.records
     with pytest.raises(ValueError):
         poreq.counts_dict(counts[:3])

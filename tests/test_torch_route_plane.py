@@ -12,7 +12,8 @@ float32 mean, included).  The truth ring, its checksum and the final engine stat
 too.  The other cases: ``enforce_consistency=False``; ``step`` equals
 ``run``; a port started from a JAX state converted mid-run finishes like
 the JAX run; ``checksum_in_tick=False`` raises; the checkpoint entry
-points, not ported yet, raise ``NotImplementedError``.
+points, once unported, now save, load and enable a cadence
+(tests/test_torch_checkpoint.py holds them against JAX).
 """
 
 from __future__ import annotations
@@ -214,12 +215,20 @@ def test_checksum_in_tick_required():
                            device="cpu")
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(tmp_path):
+    """The checkpoint entry points that raised before they were ported
+    now work: a manifest save, a load into a fresh storm, a cadence."""
     _, p = _pair(n=16)
-    for call in (lambda: p.save("x"), lambda: p.load("x"),
-                 lambda: p.enable_checkpoints("x", every=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    p.step()
+    p.save(str(tmp_path / "ck"), shards=2)
+    _, q = _pair(n=16, seed=9)
+    q.load(str(tmp_path / "ck"))
+    assert np.array_equal(q.truth_ring(), p.truth_ring())
+    assert torch.equal(q.rstate.rng, p.rstate.rng)
+    mgr = q.enable_checkpoints(str(tmp_path / "fam"), every=3)
+    for _ in range(3):
+        q.step()
+    assert [t for t, _ in mgr.list_checkpoints()] == [3]
     # the histogram plane is ported: it constructs, converts and drains
     with pytest.raises(ValueError, match="histograms are off"):
         p.drain_histograms()
