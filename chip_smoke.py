@@ -65,7 +65,12 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    (``fuzz.crash.run_crash_resume(device="cuda")``) for the three drivers
    at n=64, 12 ticks, seeds 1, 7, 8 and a forced torn manifest at tick 8
    that must resume at 6, with no violation and every damaged newest
-   checkpoint skipped;
+   checkpoint skipped; and the shard mesh (``parallel/mesh.py``): the
+   n=4096 storm on ``make_mesh(4)`` (four shards on the card, ``exchange``
+   on each shard's tile) against the same mesh on the CPU and the card's
+   single-device cluster — every state field bitwise, metrics by the
+   storm's rule — and again with the all-to-all cap forced to 1 (every
+   route on the all-gather fallback);
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -117,8 +122,19 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    non-empty drains, peak memory); the routed 1M storm with route
    histograms (rings and metrics equal to its planes-off run); and the
    tick-cluster harness (``torch-sim`` at n=1024, ``torch-sim-scalable``
-   at n=100,000, lookups against a numpy host ring); each path's seconds
-   are printed;
+   at n=100,000, lookups against a numpy host ring); the 1M storm on a
+   4-shard mesh (``ShardedStorm``, all four shards on ``cuda:0``, and on
+   ``cuda:0..3`` too where there are four cards) beside its single-device
+   twin: a cold run with ``exchange_metrics=4`` checkpointed every 20
+   ticks and a timed warm run, each launching ``exchange`` 4 times a tick,
+   its final state bitwise the twin's, every node live, ring digest
+   0x29292e35, the drained exchange totals equal to the twin's, the
+   all-to-all bytes equal to the traffic model's per route; the tick-20
+   checkpoint (four shard files) resumed on 1 and 2 shards and run to 60
+   bitwise; launches and host reads a tick of its fail window, mesh and
+   twin; after the counts are read, ``exchange`` on two of the warm run's
+   own shard tiles ([250000, 16]) held against its plain version and
+   timed; each path's seconds are printed;
 6. the batch axis (``torch.func.vmap``): each kernel's batching rule at
    B in {1, 4} over phase 3's shapes (``apply_updates`` / ``pb_budget``
    at n=1024 and 1001 with per-cluster stamps, ``fused_stream`` at 256 x
@@ -213,11 +229,25 @@ DEVICE_MS_METHOD = ("torch.profiler CUDA activity (CUPTI kernel records): mean d
                     "times")
 
 
-def _device_ms(fn, reps: int, symbol: str):
+# written before each profiled call when a kernel is timed with a cold L2:
+# 256 MiB, five times the H100's 50 MB L2, so none of the operands of the
+# call before stays there
+_L2_SCRATCH = []
+
+
+def _evict_l2() -> None:
+    if not _L2_SCRATCH:
+        _L2_SCRATCH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    _L2_SCRATCH[0].fill_(1)
+
+
+def _device_ms(fn, reps: int, symbol: str, evict: bool = False):
     """Mean CUDA duration (ms) of the kernels whose name holds ``symbol``,
     over ``reps`` calls of ``fn`` under ``torch.profiler``: the kernel's
-    time on the card, apart from the host's cost to call it.  Returns it
-    with the number of launches the profiler reported."""
+    time on the card, apart from the host's cost to call it.  ``evict``:
+    flush the L2 before each call, so operands that would fit there are
+    read from HBM as on the path.  Returns it with the number of launches
+    the profiler reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,6 +259,8 @@ def _device_ms(fn, reps: int, symbol: str):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if evict:
+                    _evict_l2()
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
@@ -241,12 +273,13 @@ def _device_ms(fn, reps: int, symbol: str):
     raise AssertionError("profiler saw no launch of %s in 3 x %d calls" % (symbol, reps))
 
 
-def _times(fn, reps: int, symbol: str, warm: int = 1) -> dict:
+def _times(fn, reps: int, symbol: str, warm: int = 1, evict: bool = False) -> dict:
     """``call_ms`` (CUDA events around the wrapper calls) and
-    ``device_ms`` (the kernel alone, from the profiler) over ``reps``
-    calls each; ``ms`` repeats ``call_ms``, the name older notes use."""
+    ``device_ms`` (the kernel alone, from the profiler; ``evict``: with a
+    cold L2) over ``reps`` calls each; ``ms`` repeats ``call_ms``, the
+    name older notes use."""
     call = _time_ms(fn, reps, warm)
-    device, seen = _device_ms(fn, reps, symbol)
+    device, seen = _device_ms(fn, reps, symbol, evict)
     print("%s: device %.4f ms (%d of %d launches seen), call %.4f ms"
           % (symbol, device, seen, reps, call), flush=True)
     return dict(ms=call, call_ms=call, device_ms=device, device_launches_seen=seen)
@@ -255,7 +288,10 @@ def _times(fn, reps: int, symbol: str, warm: int = 1) -> dict:
 def _brief(r: dict) -> dict:
     """The numbers of one timed operand set, for the kernels line."""
     keep = ("device_ms", "call_ms", "share_of_bound", "new_bits_per_word")
-    return dict({k: r[k] for k in keep}, bound_ms=r["bound"][0])
+    out = dict({k: r[k] for k in keep}, bound_ms=r["bound"][0])
+    if "device_ms_warm_l2" in r:
+        out["device_ms_warm_l2"] = r["device_ms_warm_l2"]
+    return out
 
 
 def _leaves(x):
@@ -714,9 +750,13 @@ def _exchange_view(t, offset_words):
     return view
 
 
-def _exchange_timed(ex, args, label: str) -> dict:
+def _exchange_timed(ex, args, label: str, cold_l2: bool = False) -> dict:
     """One exchange operand set at the engine's call (counts off): its two
-    times, its byte bound, new bits per word and the share of the bound."""
+    times, its byte bound, new bits per word and the share of the bound.
+    ``cold_l2``: operands small enough to stay in the L2 between back-to-back
+    calls (a shard tile) are timed with the L2 flushed before each call, as
+    the path meets them; the back-to-back time is kept as
+    ``device_ms_warm_l2``."""
     out = ex.exchange(*args, want_counts=False)
     torch.cuda.synchronize()
     new_bits = int(ex.popcount_u32(out[0] ^ args[0]).sum())
@@ -724,20 +764,27 @@ def _exchange_timed(ex, args, label: str) -> dict:
     # per word: two ORs, an XOR, a store and a popcount; one add per new
     # bit; the per-row reduction (about one add per word)
     ops = 5.0 * n * w + new_bits + n * w
+    def call():
+        return ex.exchange(*args, want_counts=False)
+
     r = dict(
-        _times(lambda: ex.exchange(*args, want_counts=False), 50, "exchange_kernel"),
+        _times(call, 50, "exchange_kernel", evict=cold_l2),
         bound=_bound(_nbytes(args) + _nbytes(out), ops),
         new_bits=new_bits,
         new_bits_per_word=new_bits / (n * w),
     )
+    if cold_l2:
+        r["device_ms_warm_l2"] = _device_ms(call, 50, "exchange_kernel")[0]
     r["share_of_bound"] = r["bound"][0] / r["device_ms"]
     plan = _exchange_plan(ex, args)
     if plan is not None:
         r["plan"] = plan._asdict()
-    print("exchange %s: device %.4f ms, call %.4f ms, bound %.4f ms (%s), %.1f%% of the bound, "
-          "%.3f new bits a word, plan %s" % (label, r["device_ms"], r["call_ms"], r["bound"][0],
-                                             r["bound"][1], 100 * r["share_of_bound"],
-                                             r["new_bits_per_word"], r.get("plan")), flush=True)
+    print("exchange %s: device %.4f ms%s, call %.4f ms, bound %.4f ms (%s), %.1f%% of the bound, "
+          "%.3f new bits a word, plan %s"
+          % (label, r["device_ms"],
+             " (L2 flushed; back to back %.4f ms)" % r["device_ms_warm_l2"] if cold_l2 else "",
+             r["call_ms"], r["bound"][0], r["bound"][1], 100 * r["share_of_bound"],
+             r["new_bits_per_word"], r.get("plan")), flush=True)
     return r
 
 
@@ -2658,6 +2705,289 @@ def ckpt_paths() -> dict:
     return dict(storm_1m=_ckpt_storm_1m(), routed_100k=_ckpt_routed_100k())
 
 
+# ---------------------------------------------------------------------------
+# the shard mesh (parallel/mesh.py): ShardedStorm on make_mesh(4)
+
+MESH_SHARDS = 4
+RING_1M = "0x29292e35"  # the 1M storm's ring digest with every node live
+# the exchange calls of the mesh storm whose operands are kept (one call a
+# shard a tick): tick 4 shard 0, tick 32 shard 1
+MESH_CAPTURE_CALLS = (4 * MESH_SHARDS, 32 * MESH_SHARDS + 1)
+MESH_CAPTURED = {}
+
+
+def _trajectory_same(got, want, label: str) -> None:
+    """Every trajectory field of two ScalableStates bitwise (the obs
+    planes apart: a restore under another shard count re-zeroes them)."""
+    import numpy as np
+
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+
+    a, b = convert.scalable_state_to_numpy(got), convert.scalable_state_to_numpy(want)
+    for f in sorted(es.SCALABLE_TRAJECTORY_FIELDS):
+        if not np.array_equal(a[f], b[f]):
+            raise AssertionError("%s: state %s differs" % (label, f))
+
+
+def check_mesh_e2e(n=N_MID, ticks=40, device="cuda"):
+    """Phase 4, the shard mesh: the n=4096 storm of the storm phase on
+    ``make_mesh(4)`` on the card equals the same mesh on the CPU and the
+    single-device cluster on the card — every state field bitwise, every
+    integer metric equal, ``mean_heard_frac`` within MEAN_FRAC_RTOL (the
+    ticks where it is not bitwise counted; against the single-device run
+    the sharded sum order differs by design) — and so does the card mesh
+    with the all-to-all cap forced to 1 (every route on the all-gather
+    fallback)."""
+    from ringpop_tpu_torch import convert
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster
+    from ringpop_tpu_torch.parallel import mesh as pmesh
+
+    params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5)
+    sched = _mid_storm_schedule(n, ticks)
+    card = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device=device), params=params,
+                              seed=2)
+    cpu = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device="cpu"), params=params,
+                             seed=2)
+    single = ScalableCluster(n=n, params=params, seed=2, device=device)
+    if (card.exchange_mode, card.exchange_impl, cpu.exchange_impl) != ("shard_map", "kernel",
+                                                                         "plain"):
+        raise AssertionError("mesh resolution %r / %r" % (card.exchange_resolution(),
+                                                          cpu.exchange_resolution()))
+    m_card, m_cpu, m_single = card.run(sched), cpu.run(sched), single.run(sched)
+    inexact = {"cpu mesh": _metrics_close(m_card, m_cpu, "n=%d mesh card vs cpu" % n),
+               "card single": _metrics_close(m_card, m_single, "n=%d mesh vs single" % n)}
+    _arrays_same(convert.scalable_state_to_numpy(card.state),
+                 convert.scalable_state_to_numpy(cpu.state), "n=%d mesh card vs cpu" % n)
+    _arrays_same(convert.scalable_state_to_numpy(card.state),
+                 convert.scalable_state_to_numpy(single.state), "n=%d mesh vs single" % n)
+    forced = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device=device),
+                                params=params, seed=2, exchange_cap_override=1)
+    _metrics_close(forced.run(sched), m_card, "n=%d mesh cap=1" % n)
+    _arrays_same(convert.scalable_state_to_numpy(forced.state),
+                 convert.scalable_state_to_numpy(card.state), "n=%d mesh cap=1" % n)
+    if forced.comm.calls["all_to_all"] or not card.comm.calls["all_to_all"]:
+        raise AssertionError("mesh routes: cap=1 ran %d all-to-alls, the default cap %d"
+                             % (forced.comm.calls["all_to_all"], card.comm.calls["all_to_all"]))
+    print("n=%d storm on make_mesh(%d) %s: %d ticks, every state field == the CPU mesh and the "
+          "card's single-device cluster, metrics equal (mean_heard_frac not bitwise on %s ticks); "
+          "cap=1 (all-gather fallback on every route) bitwise too"
+          % (n, MESH_SHARDS, card.exchange_resolution()["devices"], ticks, json.dumps(inexact)),
+          flush=True)
+
+
+def _mesh_run(mesh, params, sched, seed: int = 0, ckpt_dir=None, capture=None) -> tuple:
+    """One ShardedStorm run of ``sched`` on ``mesh``: the storm, its metrics
+    and its numbers (wall, ms a tick, host reads a tick, exchange launches,
+    collectives and routed bytes a tick, peak memory)."""
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.ops import exchange as ex
+    from ringpop_tpu_torch.parallel import mesh as pmesh
+
+    storm = pmesh.ShardedStorm(params.n, mesh=mesh, params=params, seed=seed)
+    if ckpt_dir is not None:
+        storm.enable_checkpoints(ckpt_dir, every=20, keep=3)
+    cuda = storm.device.type == "cuda"
+    _sync(storm.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    launches0, reads0 = ex.exchange.launches, es.host_read.count
+    kernel = ex.exchange
+    if capture is not None:
+        ex.exchange = capture
+    try:
+        t0 = time.perf_counter()
+        metrics = storm.run(sched)
+        _sync(storm.device)
+        wall = time.perf_counter() - t0
+    finally:
+        ex.exchange = kernel
+    ticks = sched.ticks
+    out = dict(
+        devices=storm.exchange_resolution()["devices"],
+        wall_s=wall,
+        ms_per_tick=wall / ticks * 1e3,
+        host_reads_per_tick=(es.host_read.count - reads0) / ticks,
+        exchange_launches=ex.exchange.launches - launches0,
+        collectives_per_tick={k: v / ticks for k, v in sorted(storm.comm.calls.items())},
+        routes_per_tick=storm.comm.calls["all_to_all"] / 2 / ticks,
+        routed_bytes_per_tick=storm.comm.a2a_bytes / ticks,
+        gathered_bytes_per_tick=storm.comm.gather_bytes / ticks,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+    )
+    return storm, metrics, out
+
+
+def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
+                  ring: str = RING_1M) -> dict:
+    """The 1M churn storm (``_storm_config``) on a 4-shard mesh beside its
+    single-device twin: (b) a cold run with ``exchange_metrics=4`` and a
+    timed warm run; 4 ``exchange`` launches a tick, the final state
+    bitwise the twin's, every node live, the ring digest, the drained
+    exchange totals equal to the twin's, routed bytes a tick against the
+    traffic model; on a machine with 4 cards the warm run again on
+    cuda:0..3; (c) the cold run's tick-20 checkpoint (4 shard files)
+    restored on 1 and 2 shards and run to tick 60, bitwise; then launches
+    and host reads a tick of the fail window under the profiler, mesh and
+    single device."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.ops import exchange as ex
+    from ringpop_tpu_torch.parallel import mesh as pmesh
+
+    shards = MESH_SHARDS
+    params = es.ScalableParams(n=n, u=512, checksum_in_tick=True)
+    sched = StormSchedule.churn_storm(ticks, n, fraction=0.10, fail_tick=2, seed=0)
+    metered = params._replace(exchange_metrics=shards)
+    cuda = torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if cuda else 1
+    card0 = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    one_card = pmesh.make_mesh(devices=[card0] * shards)
+    # the single-device twin, with the exchange telemetry's analytic model
+    twin = ScalableCluster(n=n, params=metered, seed=0, device=card0)
+    _sync(card0)
+    launches0, reads0 = ex.exchange.launches, es.host_read.count
+    t0 = time.perf_counter()
+    m_twin = twin.run(sched)
+    _sync(card0)
+    twin_out = dict(wall_s=time.perf_counter() - t0,
+                    host_reads_per_tick=(es.host_read.count - reads0) / ticks,
+                    exchange_launches=ex.exchange.launches - launches0)
+    twin_out["ms_per_tick"] = twin_out["wall_s"] / ticks * 1e3
+    twin_drain = twin.drain_exchange_metrics(reset=False)
+    root = tempfile.mkdtemp(prefix="mesh_1m_")
+    try:
+        # (b) cold, metered and checkpointed every 20 ticks
+        cold, m_cold, cold_out = _mesh_run(one_card, metered, sched, ckpt_dir=root)
+        drain = cold.drain_exchange_metrics(reset=False)
+        if drain["totals"] != twin_drain["totals"]:
+            raise AssertionError("mesh 1M: drained totals %r != the twin's %r"
+                                 % (drain["totals"], twin_drain["totals"]))
+        _metrics_close(m_cold, m_twin, "mesh 1M cold vs twin")
+        _trajectory_same(cold.state, twin.state, "mesh 1M cold vs twin")
+        # warm, timed, the exchange operands of two shard calls kept
+        capture = _ExchangeCapture(ex.exchange, MESH_CAPTURE_CALLS)
+        warm, m_warm, warm_out = _mesh_run(one_card, params, sched, capture=capture)
+        MESH_CAPTURED.update(capture.kept)
+        runs = {"one card": warm_out}
+        for label, storm, m, out in (("cold", cold, m_cold, cold_out),
+                                     ("warm", warm, m_warm, warm_out)):
+            if out["exchange_launches"] != shards * ticks:
+                raise AssertionError("mesh 1M %s: %d exchange launches in %d ticks of %d shards"
+                                     % (label, out["exchange_launches"], ticks, shards))
+            if int(m.live_nodes[-1]) != n:
+                raise AssertionError("mesh 1M %s: %d of %d nodes live" % (label, int(m.live_nodes[-1]), n))
+            digest = "%#010x" % storm.ring_checksum()
+            if digest != ring:
+                raise AssertionError("mesh 1M %s: ring digest %s, not %s" % (label, digest, ring))
+            out["ring_checksum"] = digest
+        _metrics_close(m_warm, m_twin, "mesh 1M warm vs twin")
+        _trajectory_same(warm.state, twin.state, "mesh 1M warm vs twin")
+        st = warm.state
+        if not torch.equal(es.compute_checksums(st, warm.params), st.checksum):
+            raise AssertionError("mesh 1M: incremental checksums != the full recompute")
+        # the all-to-all bytes: every route costs half the model's tick (one
+        # direction); no route overflowed
+        model = ex.cross_shard_traffic_bytes(n, params.u // 32, shards)
+        routes = warm.comm.calls["all_to_all"] // 2
+        if warm.comm.a2a_bytes != routes * model["interconnect_total"] // 2:
+            raise AssertionError("mesh 1M: %d all-to-all bytes over %d routes, model %r"
+                                 % (warm.comm.a2a_bytes, routes, model))
+        if cuda and cards >= shards:
+            spread = pmesh.make_mesh(shards)
+            s_storm, s_m, s_out = _mesh_run(spread, params, sched)
+            _trajectory_same(s_storm.state, twin.state, "mesh 1M on %d cards" % shards)
+            runs["%d cards" % shards] = s_out
+            print("mesh 1M: also ran on %s" % s_out["devices"], flush=True)
+            del s_storm
+        else:
+            print("mesh 1M: %d shards on cuda:0 (%d card%s visible)"
+                  % (shards, cards, "" if cards == 1 else "s"), flush=True)
+        # (c) the tick-20 checkpoint resumed on 1 and 2 shards, run to 60
+        path = cold.checkpoint_manager.path_of(20)
+        restored = {}
+        for k in (1, 2):
+            r = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(devices=[card0] * k), params=params,
+                                   seed=9)
+            t1 = time.perf_counter()
+            r.load(path)
+            _sync(card0)
+            load_s = time.perf_counter() - t1
+            m_r = r.run(sched.window(20, ticks))
+            _metrics_close(m_r, es.ScalableMetrics(*(np.asarray(getattr(m_twin, f))[20:]
+                                                     for f in es.ScalableMetrics._fields)),
+                           "mesh 1M resumed on %d" % k)
+            _trajectory_same(r.state, twin.state, "mesh 1M resumed on %d shard(s)" % k)
+            restored["%d" % k] = dict(load_s=load_s)
+            del r
+        saved = cold.checkpoint_manager.last_save
+        del cold
+        # launches and host reads a tick: the fail window (ticks 0-5)
+        window = StormSchedule(ticks=6, n=n, kill=sched.kill[:6], revive=sched.revive[:6])
+        prof_storm = pmesh.ShardedStorm(n, mesh=one_card, params=params, seed=0)
+        prof_single = ScalableCluster(n=n, params=params, seed=0, device=card0)
+        profiled = {"mesh": _profile_window(lambda: prof_storm.run(window), window.ticks, card0,
+                                            top=1 << 30),
+                    "single": _profile_window(lambda: prof_single.run(window), window.ticks,
+                                              card0)}
+        # the shard tile's exchange time on the path itself, where the
+        # kernels between two shards' launches have moved its operands out
+        # of the L2
+        tiles = [k for k in profiled["mesh"].pop("top") if "exchange_kernel" in k["name"]]
+        tile_launches = sum(k["launches"] for k in tiles)
+        profiled["mesh"]["exchange_on_path"] = dict(
+            launches=tile_launches,
+            device_ms_mean=sum(k["device_ms"] for k in tiles) / max(tile_launches, 1))
+        del prof_storm, prof_single
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = dict(
+        n=n, ticks=ticks, shards=shards, resolution=warm.exchange_resolution(),
+        runs=runs, cold=cold_out, twin=twin_out,
+        model_interconnect_bytes_per_route=model["interconnect_total"] // 2,
+        traffic_model=model,
+        drained_totals={k: drain["totals"][k] for k in ("ticks", "a2a_pull", "a2a_push",
+                                                       "fallback_pull", "fallback_push",
+                                                       "pull_rows", "push_rows",
+                                                       "wire_bytes_pull", "wire_bytes_push")
+                        if k in drain["totals"]},
+        drained_totals_equal_twin=True, state_equal_twin=True,
+        checkpoint=dict(tick=20, shard_files=shards, last_save=saved, resumed_on=restored),
+        fail_window=profiled,
+    )
+    print("mesh storm %s" % json.dumps(out, default=str), flush=True)
+    del warm
+    return out
+
+
+def check_mesh_tile_operands(ex_report: dict) -> None:
+    """(d) The kernel on one shard's own ``[N/S, U/32]`` operands, kept from
+    the mesh storm's warm run, after the path's counts are read: equal to
+    its plain version, timed with the L2 flushed before each call (a tile's
+    64 MB of operands would otherwise be read largely from the 50 MB L2),
+    with its byte bound and launch plan."""
+    from ringpop_tpu_torch.ops import exchange as ex
+
+    if sorted(MESH_CAPTURED) != list(MESH_CAPTURE_CALLS):
+        raise AssertionError("kept the mesh storm's exchange calls %s, not %s"
+                             % (sorted(MESH_CAPTURED), MESH_CAPTURE_CALLS))
+    cases = {}
+    for call, args in sorted(MESH_CAPTURED.items()):
+        if tuple(args[0].shape) != (N_STORM // MESH_SHARDS, 16):
+            raise AssertionError("mesh tile %r" % (tuple(args[0].shape),))
+        _same(tuple(ex.exchange(*args)), tuple(ex.exchange_plain(*args)),
+              "exchange shard tile, call %d" % call)
+        label = "shard_tile_tick%d_shard%d" % divmod(call, MESH_SHARDS)
+        cases[label] = _exchange_timed(ex, args, "1M mesh %s" % label, cold_l2=True)
+    ex_report.setdefault("storm_operands", {}).update(cases)
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -2692,7 +3022,7 @@ def main(argv) -> int:
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
     for phase in (check_e2e, check_batched_e2e, check_fuzz_e2e, check_storm_e2e,
-                  check_storm_planes_e2e, check_route_e2e, check_ckpt_e2e):
+                  check_storm_planes_e2e, check_mesh_e2e, check_route_e2e, check_ckpt_e2e):
         t0 = time.perf_counter()
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
@@ -2711,6 +3041,8 @@ def main(argv) -> int:
         ("1M storm", storm_headline, ("exchange",)),
         # killed mid-save and resumed: held to the 1M storm's warm run
         ("checkpointed storms", ckpt_paths, ("exchange",)),
+        # the 1M storm on a 4-shard mesh: one exchange launch a shard a tick
+        ("1M storm on the shard mesh", mesh_headline, ("exchange",)),
         ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
         ("routed storm", route_headline, ("exchange",)),
         # the obs planes at full width, each against its planes-off run
@@ -2739,6 +3071,7 @@ def main(argv) -> int:
                 if wrappers[k].launches == 0:
                     raise AssertionError("kernel %s was never launched on the %s path" % (k, name))
         check_exchange_storm_operands(report["exchange"])
+        check_mesh_tile_operands(report["exchange"])
     kernels = []
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]

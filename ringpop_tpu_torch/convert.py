@@ -14,6 +14,9 @@ constants, the obs-plane knobs and the kernel knobs of a JAX
 (uint32 fields: ``r_delta``, ``rng``, ``checksum``, ``heard``, the 0-d
 ``base_sum`` and the ``hist``, ``exch`` and ``exch_hist`` planes), and the
 ``route_*`` functions for the routing plane (``hist`` uint32).
+``split_scalable_state`` and ``gather_scalable_state`` cut a scalable
+state into the per-shard states of the mesh (``parallel.mesh``) and join
+them back, so a sharded run compares with either package's whole state.
 
 The checkpoint format is the JAX package's: ``DISK_DTYPES`` names the
 numpy dtype every field of ``SimState``, ``ScalableState`` and
@@ -154,6 +157,45 @@ def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
     fe = fields.get("fused_exchange", "auto")
     kw["fused_exchange"] = {"xla": "plain", "pallas": "kernel"}.get(fe, fe)
     return es.ScalableParams(**kw)
+
+
+def split_scalable_state(state: es.ScalableState, devices, exch_rows: bool = False):
+    """One ScalableState per shard: shard s holds rows ``[s*L, (s+1)*L)``
+    (``L = n / S``) of every node-indexed field (``NODE_SHARDED_FIELDS``)
+    and a copy of every other field, on ``devices[s]``.  ``exch_rows``:
+    the exchange telemetry planes ``[S, ...]`` are split by shard row
+    too (one row a shard), else copied whole."""
+    shards = len(devices)
+    n = state.proc_alive.shape[0]
+    if n % shards:
+        raise ValueError("n=%d not divisible by %d shards" % (n, shards))
+    rows = n // shards
+    out = []
+    for s, dev in enumerate(devices):
+        fields = {}
+        for f in es.ScalableState._fields:
+            x = getattr(state, f)
+            if x is not None and f in es.NODE_SHARDED_FIELDS:
+                x = x[s * rows:(s + 1) * rows]
+            elif x is not None and exch_rows and f in ("exch", "exch_hist"):
+                x = x[s:s + 1]
+            fields[f] = None if x is None else x.to(dev, copy=True)
+        out.append(es.ScalableState(**fields))
+    return out
+
+
+def gather_scalable_state(states, device, exch_rows: bool = False) -> es.ScalableState:
+    """The one ScalableState the shards of :func:`split_scalable_state`
+    hold, on ``device``: node-indexed fields (and, with ``exch_rows``, the
+    telemetry planes) concatenated in shard order, the rest from shard 0."""
+    fields = {}
+    for f in es.ScalableState._fields:
+        x = getattr(states[0], f)
+        if x is not None and (f in es.NODE_SHARDED_FIELDS
+                              or (exch_rows and f in ("exch", "exch_hist"))):
+            x = torch.cat([getattr(st, f).to(device) for st in states])
+        fields[f] = None if x is None else x.to(device)
+    return es.ScalableState(**fields)
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,10 @@ What differs from the JAX engine is the execution, not the arithmetic:
 ``fused_exchange`` takes "kernel" (the CUDA kernel ``csrc/exchange.cu``),
 "plain" (its plain PyTorch version) or "off" (the inline classic phases);
 "auto" is "kernel" on the card and "plain" on the CPU.  All three give the
-same trajectory.  The mesh's ``exchange_plane`` seam is not ported yet
-(ROADMAP.md queue A, A11).
+same trajectory.  The tick is written as the body of one shard
+(:func:`shard_tick`), whose collectives its caller answers: :func:`tick` runs
+one shard holding every node, ``parallel.mesh.ShardedStorm`` runs S shards
+in lockstep and passes its ``exchange_plane`` for the direct round.
 
 The obs planes, off by default, write-only and trajectory-neutral (no host
 read either): ``wavefront`` keeps ``first_heard[i, r]``, the tick node i's
@@ -208,24 +210,66 @@ def host_read(pred) -> bool:
 host_read.count = 0
 
 
-def _phase(gate: bool, pred, true_fn, false_fn, *ops):
-    """``true_fn(*ops)`` if ``pred`` else ``false_fn(*ops)`` when gated,
-    else ``true_fn(*ops)`` unconditionally (the JAX engine's
-    ``gating.phase``; the TRUE branch is a masked no-op on empty inputs)."""
-    if gate and not host_read(pred):
-        return false_fn(*ops)
-    return true_fn(*ops)
+def _agreed(gate: bool, pred):
+    """Whether a gated phase runs (a shard body's generator): always when
+    ungated (its TRUE branch is a masked no-op on empty inputs), else the
+    predicate agreed across the shards and read on the host once — the
+    JAX engine's ``gating.phase``, whose ``lax.cond`` takes one global
+    predicate."""
+    if not gate:
+        return True
+    return (yield ("pred", pred))
+
+
+class Solo:
+    """The shard context of a tick that holds every node (the single-device
+    engine).  A shard body (:func:`shard_tick`) reads ``index``, ``shards``,
+    ``lo`` (its first global row) and ``rows``; ``exch_rows`` says whether
+    its ``exch``/``exch_hist`` planes hold only its own shard row; and
+    ``route_rows(rows, dest, src)`` is the generator that delivers row ``g``
+    to global row ``dest[g]``, i.e. returns ``rows[src]`` for this shard's
+    rows.  Alone, that is a gather."""
+
+    index, shards, lo, exch_rows = 0, 1, 0, False
+
+    def __init__(self, n: int):
+        self.rows = n
+
+    @staticmethod
+    def route_rows(rows, dest, src):
+        return rows.index_select(0, src)
+        yield  # a generator, like the mesh's route
+
+
+def run_solo(body):
+    """Drive one shard body alone: every collective it yields is the
+    identity, except the agreed predicate (one host read) and the float
+    mean (XLA CPU's single-device order, :func:`_xla_mean_f32`)."""
+    reply = None
+    while True:
+        try:
+            op, x = body.send(reply)
+        except StopIteration as stop:
+            return stop.value
+        if op == "pred":
+            reply = host_read(x)
+        elif op == "mean":
+            reply = _xla_mean_f32(x)
+        else:  # gather, all_to_all, sum, any, all, min, max of one shard
+            reply = x
 
 
 # ---------------------------------------------------------------------------
 # counter-based randomness
 
 
-def _rand_u32(key: torch.Tensor, shape, salt: int) -> torch.Tensor:
+def _rand_u32(key: torch.Tensor, shape, salt: int, offset: int = 0) -> torch.Tensor:
     """``shape`` uint32 draws from the [2] key (``[..., 2]`` keys give
-    ``[..., *shape]``: one row of draws per key)."""
+    ``[..., *shape]``: one row of draws per key).  The draws are counters
+    of the flat index; ``offset`` starts them there (a shard's first
+    global row), so a shard draws its rows of the whole vector."""
     size = math.prod(shape)
-    i = torch.arange(size, dtype=torch.int32, device=key.device)
+    i = torch.arange(offset, offset + size, dtype=torch.int32, device=key.device)
     x = key[..., 0, None] + i * u32.s32(0x01000193) + u32.s32(salt)
     x = x ^ u32.srl(key[..., 1, None], 7)
     x = x ^ u32.srl(x, 15)
@@ -236,8 +280,8 @@ def _rand_u32(key: torch.Tensor, shape, salt: int) -> torch.Tensor:
     return x.reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
-def _uniform(key, shape, salt) -> torch.Tensor:
-    return u32.to_f32(_rand_u32(key, shape, salt)) / float(2**32)
+def _uniform(key, shape, salt, offset: int = 0) -> torch.Tensor:
+    return u32.to_f32(_rand_u32(key, shape, salt, offset)) / float(2**32)
 
 
 def _fold(key: torch.Tensor, salt: int) -> torch.Tensor:
@@ -254,11 +298,10 @@ def _seq_sum_rows(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _xla_mean_f32(x: torch.Tensor) -> torch.Tensor:
-    """The float32 mean of a [N] vector, rounded as the JAX engine's
-    ``jnp.mean(jnp.where(proc_alive, frac, 1.0))`` is in its jitted tick on
-    the XLA CPU backend (ROADMAP.md C1; found by matching that expression
-    inside a scanned ``lax.cond`` at N = 5-32, 48, 64, 100, 1000, 4096):
+def _xla_sum_f32(x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    """The float32 sum of a [N] vector in XLA CPU's order (ROADMAP.md C1;
+    found by matching ``jnp.mean`` inside a scanned ``lax.cond`` at N =
+    5-32, 48, 64, 100, 1000, 4096):
 
     - N > 32: XLA rewrites the reduction into windows of 32 (the vector
       zero-padded to a multiple of 32, the padding split evenly, the odd
@@ -267,13 +310,18 @@ def _xla_mean_f32(x: torch.Tensor) -> torch.Tensor:
     - N <= 32: the reduction stays fused with its producer and LLVM
       vectorizes it from N = 16: 8 lanes when N % 8 < 4, else 4, the
       lanes folded in halves, the remainder added after; below 16, left
-      to right;
-    - the division by N is a multiply by ``float32(1 / N)``.
+      to right.
+
+    ``sharded``: the local sum of one shard under JAX's partitioned mean,
+    which differs only at N = 4 and 8 (4 lanes there; found by matching
+    JAX's ``ShardedStorm`` at local lengths 2-128 over 2, 4 and 8 shards).
     """
     n = x.shape[0]
-    scale = float(np.float32(1) / np.float32(n))
     if n <= 32:
-        vf = 1 if n < 16 else (8 if n % 8 < 4 else 4)
+        if sharded and n in (4, 8):
+            vf = 4
+        else:
+            vf = 1 if n < 16 else (8 if n % 8 < 4 else 4)
         m = n // vf * vf
         acc = _seq_sum_rows(x[:m].reshape(-1, vf).t())  # [vf] lane sums
         while acc.shape[0] > 1:
@@ -282,13 +330,39 @@ def _xla_mean_f32(x: torch.Tensor) -> torch.Tensor:
         total = acc[0]
         for j in range(m, n):
             total = total + x[j]
-        return total * scale
+        return total
     while x.shape[0] > 1:
         m = x.shape[0]
         padded = -(-m // 32) * 32
         lo = (padded - m) // 2
         x = _seq_sum_rows(torch.nn.functional.pad(x, (lo, padded - m - lo)).reshape(-1, 32))
-    return x[0] * scale
+    return x[0]
+
+
+def _xla_mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 mean of a [N] vector, rounded as the JAX engine's
+    ``jnp.mean(jnp.where(proc_alive, frac, 1.0))`` is in its jitted tick on
+    the XLA CPU backend: :func:`_xla_sum_f32`, then a multiply by
+    ``float32(1 / N)``."""
+    return _xla_sum_f32(x) * float(np.float32(1) / np.float32(x.shape[0]))
+
+
+def sharded_mean_f32(parts) -> torch.Tensor:
+    """The same mean over S shards' [N/S] pieces, rounded as JAX's
+    node-sharded tick rounds it: each shard's local sum
+    (:func:`_xla_sum_f32` with ``sharded``), the S partial sums added left
+    to right in shard order, then the multiply by ``float32(1 / N)``.  One
+    piece is the single-device mean.  Returns a [] float32 on the first
+    piece's device."""
+    if len(parts) == 1:
+        return _xla_mean_f32(parts[0])
+    dev = parts[0].device
+    total = None
+    for p in parts:
+        s = _xla_sum_f32(p, sharded=True).to(dev)
+        total = s if total is None else total + s
+    n = sum(p.shape[0] for p in parts)
+    return total * float(np.float32(1) / np.float32(n))
 
 
 # ---------------------------------------------------------------------------
@@ -326,18 +400,27 @@ def _prp_apply(v: torch.Tensor, keys: torch.Tensor, hb: int, inverse: bool = Fal
     return (left << hb) | right
 
 
+def _prp_walk_rows(key: torch.Tensor, ids: torch.Tensor, n: int, salt: int, inverse: bool):
+    """The keyed bijection over [0, n) at ``ids`` (a shard body's
+    generator), cycle-walked back into range: each step of the walk reads
+    whether any value, of any row and any shard, is still out of range —
+    one agreed host read a step."""
+    hb = _prp_half_bits(n)
+    keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
+    x = _prp_apply(ids, keys, hb, inverse)
+    while True:
+        out = u32.uge(x, n)
+        if not (yield ("pred", out.any())):
+            return x
+        x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
+
+
 def _prp_walk(key: torch.Tensor, n: int, salt: int, inverse: bool) -> torch.Tensor:
     """The keyed bijection over [0, n) for a [2] key ([N]) or for B keys
     ``[B, 2]`` ([B, N]), cycle-walked back into range: each step of the
     walk is one host read, of every row at once."""
-    hb = _prp_half_bits(n)
-    keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
-    x = _prp_apply(torch.arange(n, dtype=torch.int32, device=key.device), keys, hb, inverse)
-    while True:
-        out = u32.uge(x, n)
-        if not host_read(out.any()):
-            return x
-        x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
+    ids = torch.arange(n, dtype=torch.int32, device=key.device)
+    return run_solo(_prp_walk_rows(key, ids, n, salt, inverse))
 
 
 def _prp_perm(key: torch.Tensor, n: int, salt: int, inverse: bool = False) -> torch.Tensor:
@@ -386,6 +469,28 @@ def resolve_fused_exchange(params: ScalableParams, device_type: str) -> str:
     )
 
 
+def resolve_sharded_exchange(params: ScalableParams, device_type: str, shards: int) -> tuple:
+    """``fused_exchange`` on an S-shard mesh: ``(mode, impl)``, the JAX
+    engine's table in the port's words.  "shard_map" is the exchange plane
+    (``parallel.mesh.make_exchange_plane``) with ``impl`` run on each
+    shard's tile; "gspmd" is the per-shard tick with the direct round's
+    partner rows by the uncapped all-gather and ``impl`` as the engine's
+    ``fused_exchange``:
+
+    - "auto": ("shard_map", "kernel") on the card, ("shard_map", "plain")
+      elsewhere;
+    - "kernel": ("shard_map", "kernel");
+    - "plain": ("gspmd", "plain"), the gate twin the plane is held to;
+    - "off": ("gspmd", "off"), the classic inline phases.
+    """
+    if shards < 1:
+        raise ValueError("shards must be >= 1, got %d" % (shards,))
+    resolved = resolve_fused_exchange(params, device_type)
+    if params.fused_exchange in ("auto", "kernel"):
+        return ("shard_map", resolved)
+    return ("gspmd", resolved)
+
+
 def resolve_scalable_params(params: ScalableParams, device_type: str) -> ScalableParams:
     """Pin the "auto" knobs to concrete values for ``device_type``."""
     return params._replace(
@@ -402,6 +507,21 @@ def _base_perm_pair(key: torch.Tensor, n: int, impl: str, salt: int):
         inv = torch.argsort(fwd).to(torch.int32)
     else:
         inv = _prp_perm(key, n, salt, inverse=True)
+    return fwd, inv
+
+
+def _shard_perm_pair(sh, key: torch.Tensor, ids: torch.Tensor, n: int, impl: str, salt: int):
+    """:func:`_base_perm_pair` at a shard's rows (a generator): the forward
+    and inverse values of its own global ids; "argsort" sorts the gathered
+    forward permutation."""
+    if sh.shards == 1:
+        return _base_perm_pair(key, n, impl, salt)
+    fwd = yield from _prp_walk_rows(key, ids, n, salt, False)
+    if impl == "argsort":
+        full = yield ("gather", fwd)
+        inv = torch.argsort(full)[sh.lo:sh.lo + sh.rows].to(torch.int32)
+    else:
+        inv = yield from _prp_walk_rows(key, ids, n, salt, True)
     return fwd, inv
 
 
@@ -472,16 +592,21 @@ def init_state(params: ScalableParams, seed: int = 0, device=None) -> ScalableSt
 # batch rumors
 
 
-def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mask, tick):
-    """One batch rumor: scalar delta vs current truth, truth advance, and
-    the publishers' heard bits (and first-heard ticks, with the wavefront
-    on); the hearers' checksums gain the delta."""
-    n = state.proc_alive.shape[0]
-    ids = torch.arange(n, dtype=torch.int32, device=csum.device)
+def _publish_delta(ids, state, subj_mask, new_status, new_inc) -> torch.Tensor:
+    """[] int32 (uint32): the checksum delta of moving the subjects (rows
+    ``ids``) from their current truth to the new records."""
     prev_h = record_mix(ids, state.truth_status, state.truth_inc)
     new_h = record_mix(ids, new_status, new_inc)
-    delta = u32.row_sum(torch.where(subj_mask, new_h - prev_h, 0), dim=0)
-    any_ev = subj_mask.any()
+    return u32.row_sum(torch.where(subj_mask, new_h - prev_h, 0), dim=0)
+
+
+def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mask, tick,
+                   delta, any_ev):
+    """One batch rumor: truth advance, the slot's ``delta`` (vs the
+    subjects' current truth, summed across the shards) and birth, and the
+    publishers' heard bits (and first-heard ticks, with the wavefront on);
+    the hearers' checksums gain the delta.  ``any_ev``: whether any shard
+    has a subject."""
     hears = hearer_mask & any_ev
     at = slot.reshape(1).long()
     # the slot's bit as a one-word row mask: OR-ing it into the hearers'
@@ -510,38 +635,51 @@ def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mas
     ), torch.where(hears, csum + delta, csum)
 
 
-def _representative_accuser(accuser, subj_idx, partition, n: int) -> torch.Tensor:
-    """[N] int32: per subject, one representative accuser, same-side
-    accusers preferred (keys [0, n) same side, [n, 2n) cross side,
-    scatter-min; ``subj_idx == n`` means none and lands in the dropped
-    slot n).  Entries of non-subjects are garbage the caller masks."""
-    ids = torch.arange(n, dtype=torch.int32, device=partition.device)
-    same = accuser & (partition == partition.index_select(0, subj_idx.clamp(0, n - 1)))
+def _publish(sh, ids, state, csum, slot, subj_mask, new_status, new_inc, hearer_mask, tick,
+             gate: bool):
+    """:func:`_publish_batch` at a shard (a generator), skipped when no
+    shard has a subject; the delta and the any-event flag are summed
+    across the shards."""
+    if not (yield from _agreed(gate, subj_mask.any())):
+        return state, csum
+    delta = yield ("sum", _publish_delta(ids, state, subj_mask, new_status, new_inc))
+    any_ev = yield ("any", subj_mask.any())
+    return _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mask, tick,
+                          delta, any_ev)
+
+
+def _accuser_keys(ids, accuser, subj_idx, partition, partition_all, n: int) -> torch.Tensor:
+    """[n + 1] int32: per subject, the least key of its accusers among rows
+    ``ids`` (keys [0, n) same side, [n, 2n) cross side; ``subj_idx == n``
+    lands in the dropped slot n; 2n where none)."""
+    same = accuser & (partition == partition_all.index_select(0, subj_idx.clamp(0, n - 1)))
     key = torch.where(same, ids, ids + n)
     rep_key = torch.full((n + 1,), 2 * n, dtype=torch.int32, device=partition.device)
-    rep_key = rep_key.scatter_reduce(0, subj_idx.long(), key, "amin", include_self=True)[:n]
+    return rep_key.scatter_reduce(0, subj_idx.long(), key, "amin", include_self=True)
+
+
+def _accuser_of_key(rep_key: torch.Tensor, n: int) -> torch.Tensor:
     rep_id = rep_key - (rep_key >= n).to(torch.int32) * n  # key in [0, 2n]
     return rep_id - (rep_id >= n).to(torch.int32) * n
 
 
-def _publish_batch_gated(state, csum, slot, subj_mask, new_status, new_inc, hearer_mask,
-                         tick, gate: bool = True):
-    """Skip the whole publish when the subject set is empty."""
-    return _phase(
-        gate,
-        subj_mask.any(),
-        lambda st, c: _publish_batch(st, c, slot, subj_mask, new_status, new_inc,
-                                     hearer_mask, tick),
-        lambda st, c: (st, c),
-        state,
-        csum,
-    )
+def _shard_accuser(sh, ids, accuser, subj_idx, partition, partition_all, n: int):
+    """[rows] int32 (a generator): per subject among this shard's rows, one
+    representative accuser, same-side accusers preferred — each shard's
+    partial scatter-min of :func:`_accuser_keys`, the least key across
+    shards, this shard's rows of it.  Entries of non-subjects are garbage
+    the caller masks."""
+    keys = yield ("min", _accuser_keys(ids, accuser, subj_idx, partition, partition_all, n))
+    return _accuser_of_key(keys[sh.lo:sh.lo + sh.rows], n)
 
 
-def _subject_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """[N] bool with True at each ``idx`` < n (``idx == n``: dropped)."""
-    z = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
-    return z.index_fill(0, idx.long(), True)[:n]
+def _shard_subject_mask(sh, idx: torch.Tensor, n: int):
+    """[rows] bool (a generator): True at this shard's rows named by any
+    shard's ``idx`` < n (``idx == n``: dropped) — every shard's marks,
+    OR-ed across shards, this shard's rows of them."""
+    z = torch.zeros(n + 1, dtype=torch.bool, device=idx.device).index_fill(0, idx.long(), True)
+    marks = yield ("any", z)
+    return marks[sh.lo:sh.lo + sh.rows]
 
 
 # ---------------------------------------------------------------------------
@@ -675,18 +813,40 @@ def _wavefront_update(fh, diff, reset_rows, reset_cols, t):
 def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
          exchange_plane=None):
     """One protocol period (the JAX engine's ``tick``, phase for phase).
-    Returns ``(state, metrics)``; the input state is not modified."""
-    if exchange_plane is not None:
-        raise NotImplementedError(
-            "the mesh exchange_plane seam is not ported yet (ROADMAP.md)"
-        )
+    Returns ``(state, metrics)``; the input state is not modified.
+
+    ``exchange_plane`` is the seam of the direct push-pull round (the JAX
+    engine's): a generator function called as ``plane(shard, heard,
+    r_delta, active_words, direct_ok, partner0, inv_base)`` — plus
+    ``exch, exch_hist`` with the exchange telemetry on — that delivers the
+    partner rows and runs the exchange, returning ``(new_heard, d_direct)``
+    (and the bumped planes); ``parallel.mesh.make_exchange_plane`` makes
+    one.  ``None`` keeps the inline gathers and the
+    ``fused_exchange``-resolved op.  Both give the same trajectory."""
+    return run_solo(shard_tick(Solo(params.n), state, inputs, params, exchange_plane))
+
+
+def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
+               exchange_plane=None):
+    """The tick of one shard (a generator): ``state`` and ``inputs`` hold
+    the shard's rows ``[sh.lo, sh.lo + sh.rows)`` of every node-indexed
+    field (:data:`NODE_SHARDED_FIELDS`) and whole copies of the rest.
+    Every read of another shard's rows is a collective the body yields as
+    ``(op, tensor)`` and the loop running it answers: ``gather`` (the tiled
+    all-gather), ``sum``/``any``/``all``/``min``/``max`` (elementwise
+    across shards), ``pred`` (the agreed predicate, as a bool), ``mean``
+    (the float mean, in JAX's order) and, inside the exchange plane,
+    ``all_to_all``.  :func:`tick` is one shard holding every node; the
+    mesh (``parallel.mesh``) runs S bodies in lockstep.  Returns the
+    shard's ``(state, metrics)``; the metrics are whole-cluster values."""
     n, u = params.n, params.u
+    rows, lo = sh.rows, sh.lo
     dev = state.heard.device
     gate = params.gate_phases
     t = state.tick_index + 1
     now = t + 1  # int32 stamp == epoch + t*200 ms
     rng = state.rng
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids = torch.arange(lo, lo + rows, dtype=torch.int32, device=dev)
 
     def take(x, idx):
         return x.index_select(0, idx)
@@ -719,9 +879,12 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     # the end
     hist = state.hist
     exch, exch_hist = state.exch, state.exch_hist
+    # every node's partition and liveness, read at partner and subject ids
+    partition_all = yield ("gather", partition)
+    alive_all = yield ("gather", proc_alive)
 
     # ---- rumor aging + slot recycling ----------------------------------
-    live_count = proc_alive.sum()
+    live_count = yield ("sum", proc_alive.sum())
     pow10 = torch.tensor([10**k for k in range(10)], dtype=torch.int64, device=dev)
     digits = (live_count >= pow10).sum(dtype=torch.int32)
     max_age = params.piggyback_factor * digits + params.age_slack
@@ -746,13 +909,8 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     base_sum = state.base_sum + u32.row_sum(retired_delta, dim=0)
     # a node that never heard a retiring rumor gains its delta with the base
     missing = _pack_mask(retired)[None, :] & ~state.heard
-    csum = _phase(
-        gate,
-        (missing != 0).any(),
-        lambda c: c + _bit_delta_sum(missing, retired_delta),
-        lambda c: c,
-        csum,
-    )
+    if (yield from _agreed(gate, (missing != 0).any())):
+        csum = csum + _bit_delta_sum(missing, retired_delta)
     # recycled slots' stale heard bits vanish before reuse
     state = state._replace(
         r_active=state.r_active & ~retired,
@@ -764,14 +922,15 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     # the K rounds' pairings are rotations of one fresh base permutation
     k_total = 1 + params.ping_req_size
     perm_impl = resolve_perm_impl(params, dev.type)
-    base_perm, inv_base = _base_perm_pair(rng, n, perm_impl, salt=0xA11CE)
+    base_perm, inv_base = yield from _shard_perm_pair(sh, rng, ids, n, perm_impl, salt=0xA11CE)
+    perm_all = yield ("gather", base_perm)
     offs = [(k * (n // k_total)) % n for k in range(k_total)]
 
     def _partner(k):
         if offs[k] == 0:
             return base_perm
         v = ids + offs[k]  # [0, 2n)
-        return take(base_perm, torch.where(v >= n, v - n, v))
+        return take(perm_all, torch.where(v >= n, v - n, v))
 
     def _inv(k):  # inv_k[v] = (inv_base[v] - c_k) mod n
         if offs[k] == 0:
@@ -782,77 +941,101 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     partner0 = base_perm
     # one loss outcome per (node, partner-round) message, shared by the
     # data plane and the failure-detection evidence
-    losses = [_uniform(rng, (n,), salt=0xB0B0 + k) < params.packet_loss for k in range(k_total)]
+    losses = [_uniform(rng, (rows,), salt=0xB0B0 + k, offset=lo) < params.packet_loss
+              for k in range(k_total)]
     active_words = _pack_mask(state.r_active)
     gossiping = proc_alive & state.gossip_on
-    conn0 = partition == take(partition, partner0)
-    direct_ok = gossiping & take(proc_alive, partner0) & conn0 & ~losses[0]
+    conn0 = partition == take(partition_all, partner0)
+    direct_ok = gossiping & take(alive_all, partner0) & conn0 & ~losses[0]
     heard = state.heard
-    # pull: i ORs its partner's row; push: the partner ORs i's row, a
-    # gather by the inverse permutation
-    pulled = torch.where(direct_ok[:, None], take(heard, partner0), 0) & active_words[None, :]
-    pushed = (
-        torch.where(take(direct_ok, inv_base)[:, None], take(heard, inv_base), 0)
-        & active_words[None, :]
-    )
     fused_ex = resolve_fused_exchange(params, dev.type)
-    if fused_ex == "off":
-        new_heard = heard | pulled | pushed
-        d_direct = None
-    elif fused_ex == "kernel":
-        new_heard, d_direct, _ = _exchange.exchange(
-            heard, pulled, pushed, state.r_delta, want_counts=False
-        )
+    if exchange_plane is not None:
+        # the plane delivers the partner rows (explicit collectives on a
+        # mesh) and runs the exchange on them, masking as the inline path
+        # below does; the telemetry bumps happen inside it
+        if exch is not None:
+            new_heard, d_direct, exch, exch_hist = yield from exchange_plane(
+                sh, heard, state.r_delta, active_words, direct_ok, partner0, inv_base,
+                exch, exch_hist,
+            )
+        else:
+            new_heard, d_direct = yield from exchange_plane(
+                sh, heard, state.r_delta, active_words, direct_ok, partner0, inv_base,
+            )
+        fused_ex = "plane"
     else:
-        new_heard, d_direct, _ = _exchange.exchange_plain(
-            heard, pulled, pushed, state.r_delta, want_counts=False
+        # pull: i ORs its partner's row; push: the partner ORs i's row, a
+        # gather by the inverse permutation (on a mesh, of the gathered
+        # plane: the uncapped route)
+        heard_all = yield ("gather", heard)
+        ok_all = yield ("gather", direct_ok)
+        pulled = (torch.where(direct_ok[:, None], take(heard_all, partner0), 0)
+                  & active_words[None, :])
+        pushed = (
+            torch.where(take(ok_all, inv_base)[:, None], take(heard_all, inv_base), 0)
+            & active_words[None, :]
         )
-    if exch is not None:
-        exch, exch_hist = _exchange_obs_update(exch, exch_hist, direct_ok, partner0, inv_base, n)
+        if fused_ex == "off":
+            new_heard = heard | pulled | pushed
+            d_direct = None
+        elif fused_ex == "kernel":
+            new_heard, d_direct, _ = _exchange.exchange(
+                heard, pulled, pushed, state.r_delta, want_counts=False
+            )
+        else:
+            new_heard, d_direct, _ = _exchange.exchange_plain(
+                heard, pulled, pushed, state.r_delta, want_counts=False
+            )
+        if exch is not None:
+            # the analytic S-shard twin of the plane's bumps, on every node
+            inv_all = yield ("gather", inv_base)
+            if sh.exch_rows:
+                # this shard holds its own counter row only
+                zero = torch.zeros_like(exch).expand(sh.shards, -1)
+                ex, eh = _exchange_obs_update(
+                    zero, torch.zeros_like(exch_hist).expand(sh.shards, -1, -1),
+                    ok_all, perm_all, inv_all, n,
+                )
+                exch = exch + ex[sh.index:sh.index + 1]
+                exch_hist = exch_hist + eh[sh.index:sh.index + 1]
+            else:
+                exch, exch_hist = _exchange_obs_update(exch, exch_hist, ok_all, perm_all,
+                                                       inv_all, n)
     heard_after_direct = new_heard
 
     # indirect rounds (the ping-req fanout) + probe evidence, only for
     # nodes whose direct ping failed
     need_ind = gossiping & ~direct_ok
-
-    def _indirect(nh):
-        any_responder = torch.zeros(n, dtype=torch.bool, device=dev)
-        any_reached = torch.zeros(n, dtype=torch.bool, device=dev)
+    any_responder = torch.zeros(rows, dtype=torch.bool, device=dev)
+    any_reached = torch.zeros(rows, dtype=torch.bool, device=dev)
+    if (yield from _agreed(gate, need_ind.any())):
         for k in range(1, k_total):
             m = _partner(k)
             loss = losses[k]
-            part_m = take(partition, m)
+            part_m = take(partition_all, m)
             conn = partition == part_m
-            alive_m = take(proc_alive, m)
+            alive_m = take(alive_all, m)
             use = need_ind & alive_m & conn & ~loss
-            pulled_k = torch.where(use[:, None], take(nh, m), 0)
             inv = _inv(k)
-            pushed_k = torch.where(take(use, inv)[:, None], take(nh, inv), 0)
-            nh = nh | (pulled_k & active_words[None, :]) | (pushed_k & active_words[None, :])
+            # row m[i] to row i, and row inv[i] to row i (routed on a mesh)
+            rows_m = yield from sh.route_rows(new_heard, inv, m)
+            use_all = yield ("gather", use)
+            rows_inv = yield from sh.route_rows(new_heard, m, inv)
+            pulled_k = torch.where(use[:, None], rows_m, 0)
+            pushed_k = torch.where(take(use_all, inv)[:, None], rows_inv, 0)
+            new_heard = (new_heard | (pulled_k & active_words[None, :])
+                         | (pushed_k & active_words[None, :]))
             responder = alive_m & conn & ~loss
             # intermediary -> target probe leg: its own loss draw
-            loss_probe = _uniform(rng, (n,), salt=0xD0DE + k) < params.packet_loss
+            loss_probe = _uniform(rng, (rows,), salt=0xD0DE + k, offset=lo) < params.packet_loss
             reached = (
                 responder
-                & take(proc_alive, partner0)
-                & (part_m == take(partition, partner0))
+                & take(alive_all, partner0)
+                & (part_m == take(partition_all, partner0))
                 & ~loss_probe
             )
             any_responder = any_responder | responder
             any_reached = any_reached | reached
-        return nh, any_responder, any_reached
-
-    new_heard, any_responder, any_reached = _phase(
-        gate,
-        need_ind.any(),
-        _indirect,
-        lambda nh: (
-            nh,
-            torch.zeros(n, dtype=torch.bool, device=dev),
-            torch.zeros(n, dtype=torch.bool, device=dev),
-        ),
-        new_heard,
-    )
 
     # incremental checksum: every newly-set heard bit adds its delta (the
     # fused modes got the direct round's sum from the exchange)
@@ -861,13 +1044,8 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     else:
         csum = csum + d_direct
         diff = new_heard ^ heard_after_direct
-    csum = _phase(
-        gate,
-        (diff != 0).any(),
-        lambda c: c + _bit_delta_sum(diff, state.r_delta),
-        lambda c: c,
-        csum,
-    )
+    if (yield from _agreed(gate, (diff != 0).any())):
+        csum = csum + _bit_delta_sum(diff, state.r_delta)
     if state.first_heard is not None or hist is not None:
         diff_all = new_heard ^ heard  # every bit that turned on this tick
         if state.first_heard is not None:
@@ -882,8 +1060,9 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
 
     # ---- failure detection: suspect batch ------------------------------
     # cancel clocks whose subject is no longer suspect in truth
+    truth_all = yield ("gather", state.truth_status)
     cancel = (state.susp_subject >= 0) & (
-        take(state.truth_status, state.susp_subject.clamp(0, n - 1)) != SUSPECT
+        take(truth_all, state.susp_subject.clamp(0, n - 1)) != SUSPECT
     )
     if hist is not None:
         # suspicion duration at refute-cancel (the clock read before reset)
@@ -901,17 +1080,17 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         susp_subject=torch.where(start_susp, partner0, state.susp_subject),
         susp_since=torch.where(start_susp, t, state.susp_since),
     )
-    already_down = take(state.truth_status, partner0.clamp(0, n - 1)) >= SUSPECT
+    already_down = take(truth_all, partner0.clamp(0, n - 1)) >= SUSPECT
     detector = start_susp & ~already_down
     subj_idx = torch.where(detector, partner0, n)
-    suspect_subjects = _subject_mask(subj_idx, n)
-    n_susp = suspect_subjects.sum(dtype=torch.int32)
-    rep_id = _representative_accuser(detector, subj_idx, partition, n)
-    state, csum = _publish_batch_gated(
-        state, csum, slots[0], suspect_subjects,
-        torch.full((n,), SUSPECT, dtype=torch.int32, device=dev),
+    suspect_subjects = yield from _shard_subject_mask(sh, subj_idx, n)
+    n_susp = yield ("sum", suspect_subjects.sum(dtype=torch.int32))
+    rep_id = yield from _shard_accuser(sh, ids, detector, subj_idx, partition, partition_all, n)
+    state, csum = yield from _publish(
+        sh, ids, state, csum, slots[0], suspect_subjects,
+        torch.full((rows,), SUSPECT, dtype=torch.int32, device=dev),
         state.truth_inc,  # suspect keeps the member's incarnation
-        detector, t, gate=gate,
+        detector, t, gate,
     )
     state = state._replace(
         defame_slot=torch.where(suspect_subjects, slots[0], state.defame_slot),
@@ -928,21 +1107,22 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         # suspicion duration at expiry (a cancelled clock was reset above)
         hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
                          t - state.susp_since, expire)
-    still_suspect = take(state.truth_status, state.susp_subject.clamp(0, n - 1)) == SUSPECT
+    truth_all = yield ("gather", state.truth_status)
+    still_suspect = take(truth_all, state.susp_subject.clamp(0, n - 1)) == SUSPECT
     expirer = expire & still_suspect & (state.susp_subject >= 0)
     fs_idx = torch.where(expirer, state.susp_subject, n)
-    faulty_subjects = _subject_mask(fs_idx, n)
-    n_faulty = faulty_subjects.sum(dtype=torch.int32)
-    frep_id = _representative_accuser(expirer, fs_idx, partition, n)
+    faulty_subjects = yield from _shard_subject_mask(sh, fs_idx, n)
+    n_faulty = yield ("sum", faulty_subjects.sum(dtype=torch.int32))
+    frep_id = yield from _shard_accuser(sh, ids, expirer, fs_idx, partition, partition_all, n)
     state = state._replace(
         susp_subject=state.susp_subject.masked_fill(expire, -1),
         susp_since=state.susp_since.masked_fill(expire, -1),
     )
-    state, csum = _publish_batch_gated(
-        state, csum, slots[1], faulty_subjects,
-        torch.full((n,), FAULTY, dtype=torch.int32, device=dev),
+    state, csum = yield from _publish(
+        sh, ids, state, csum, slots[1], faulty_subjects,
+        torch.full((rows,), FAULTY, dtype=torch.int32, device=dev),
         state.truth_inc,  # faulty with current incarnation (suspicion.js:67-70)
-        expirer, t, gate=gate,
+        expirer, t, gate,
     )
     state = state._replace(
         defame_slot=torch.where(faulty_subjects, slots[1], state.defame_slot),
@@ -958,16 +1138,16 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     heard_bit = (word >> (ds_c % WORD)) & 1
     aware = (ds == -2) | ((ds >= 0) & ((heard_bit != 0) | ~take(state.r_active, ds_c)))
     db = state.defame_by
-    reachable = (db >= 0) & (take(partition, db.clamp(0, n - 1)) == partition)
+    reachable = (db >= 0) & (take(partition_all, db.clamp(0, n - 1)) == partition)
     defamed = (state.truth_status == SUSPECT) | (state.truth_status == FAULTY)
     refuter = proc_alive & ~revived & aware & reachable & defamed
-    n_refute = refuter.sum(dtype=torch.int32)
+    n_refute = yield ("sum", refuter.sum(dtype=torch.int32))
     alive_subjects = revived | rejoined | refuter
-    state, csum = _publish_batch_gated(
-        state, csum, slots[2], alive_subjects,
-        torch.full((n,), ALIVE, dtype=torch.int32, device=dev),
-        now.expand(n),  # fresh incarnation (member.js:78-81)
-        alive_subjects, t, gate=gate,
+    state, csum = yield from _publish(
+        sh, ids, state, csum, slots[2], alive_subjects,
+        torch.full((rows,), ALIVE, dtype=torch.int32, device=dev),
+        now.expand(rows),  # fresh incarnation (member.js:78-81)
+        alive_subjects, t, gate,
     )
     state = state._replace(
         defame_slot=state.defame_slot.masked_fill(alive_subjects, -1),
@@ -984,11 +1164,11 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         leaver = (
             inputs.leave & proc_alive & state.gossip_on & (state.truth_status != LEAVE)
         )
-        n_leave = leaver.sum(dtype=torch.int32)
-        state, csum = _publish_batch_gated(
-            state, csum, slots[3], leaver,
-            torch.full((n,), LEAVE, dtype=torch.int32, device=dev),
-            state.truth_inc, leaver, t, gate=gate,
+        n_leave = yield ("sum", leaver.sum(dtype=torch.int32))
+        state, csum = yield from _publish(
+            sh, ids, state, csum, slots[3], leaver,
+            torch.full((rows,), LEAVE, dtype=torch.int32, device=dev),
+            state.truth_inc, leaver, t, gate,
         )
         # a departed node stops gossip and suspicion wholesale
         state = state._replace(
@@ -1018,48 +1198,38 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
     active_words2 = _pack_mask(state.r_active)
     n_active = state.r_active.sum(dtype=torch.int32)
     hw_all = state.heard & active_words2[None, :]
-    full_cov = ((hw_all == active_words2[None, :]) | ~proc_alive[:, None]).all()
+    full_cov = yield ("all", ((hw_all == active_words2[None, :]) | ~proc_alive[:, None]).all())
 
-    def _mean_frac(_):
+    if (yield from _agreed(gate, ~full_cov)):
         heard_counts = _exchange.popcount_u32(hw_all).sum(dim=1, dtype=torch.int32)
         frac = torch.where(
             n_active > 0,
             heard_counts.to(torch.float32) / n_active.clamp(min=1).to(torch.float32),
             1.0,
         )
-        return _xla_mean_f32(torch.where(proc_alive, frac, 1.0))
-
-    mean_frac = _phase(
-        gate, ~full_cov, _mean_frac,
-        lambda _: torch.ones((), dtype=torch.float32, device=dev), None,
-    )
+        mean_frac = yield ("mean", torch.where(proc_alive, frac, 1.0))
+    else:
+        mean_frac = torch.ones((), dtype=torch.float32, device=dev)
 
     # distinct view count: the sort runs only when live fingerprints
     # differ.  lo/hi are unsigned (through the sign flip); the sort may be
     # signed, since the count needs only equal values adjacent.
     cs = torch.where(proc_alive, view_sig, _U32_ALL)
-    any_live = proc_alive.any()
+    any_live = yield ("any", proc_alive.any())
     flipped = view_sig ^ _I32_MIN
-    lo = torch.where(proc_alive, flipped, _I32_MAX).min()
-    hi = torch.where(proc_alive, flipped, _I32_MIN).max()
-
-    def _distinct_sorted(c):
-        s = torch.sort(c).values
-        return (
-            ((s[1:] != s[:-1]) & (s[1:] != _U32_ALL)).sum(dtype=torch.int32)
-            + (s[0] != _U32_ALL).to(torch.int32)
+    lo_sig = yield ("min", torch.where(proc_alive, flipped, _I32_MAX).min())
+    hi_sig = yield ("max", torch.where(proc_alive, flipped, _I32_MIN).max())
+    if (yield from _agreed(gate, (lo_sig != hi_sig) & any_live)):
+        srt = torch.sort((yield ("gather", cs))).values
+        distinct = (
+            ((srt[1:] != srt[:-1]) & (srt[1:] != _U32_ALL)).sum(dtype=torch.int32)
+            + (srt[0] != _U32_ALL).to(torch.int32)
         )
-
-    distinct = _phase(
-        gate,
-        (lo != hi) & any_live,
-        _distinct_sorted,
-        lambda c: (any_live & (hi != _I32_MAX)).to(torch.int32),
-        cs,
-    )
+    else:
+        distinct = (any_live & (hi_sig != _I32_MAX)).to(torch.int32)
 
     metrics = ScalableMetrics(
-        live_nodes=proc_alive.sum(dtype=torch.int32),
+        live_nodes=(yield ("sum", proc_alive.sum(dtype=torch.int32))),
         active_rumors=n_active,
         mean_heard_frac=mean_frac,
         full_coverage=full_cov,
@@ -1068,9 +1238,9 @@ def tick(state: ScalableState, inputs: ChurnInputs, params: ScalableParams,
         faulties_published=n_faulty,
         refutes_published=n_refute,
         leaves_published=n_leave,
-        pings_sent=gossiping.sum(dtype=torch.int32),
-        pings_delivered=direct_ok.sum(dtype=torch.int32),
-        ping_req_inconclusive=(direct_fail & ~any_responder).sum(dtype=torch.int32),
+        pings_sent=(yield ("sum", gossiping.sum(dtype=torch.int32))),
+        pings_delivered=(yield ("sum", direct_ok.sum(dtype=torch.int32))),
+        ping_req_inconclusive=(yield ("sum", (direct_fail & ~any_responder).sum(dtype=torch.int32))),
         rumors_retired=retired.sum(dtype=torch.int32),
     )
     return state, metrics

@@ -1,0 +1,133 @@
+"""Collectives of the in-process shard mesh, and its lockstep loop.
+
+A shard body (``engine_scalable.shard_tick``, the exchange plane) is a
+generator that yields each collective as ``(op, tensor)``: the
+counterpart of the ``jax.lax`` collectives the JAX package's shard_map
+body calls (``all_gather(tiled=True)``, ``all_to_all``, ``psum``,
+``pmax``, ...), and of the global predicate a ``lax.cond`` takes.
+:func:`lockstep` advances S bodies to their next collective, checks that
+they all ask for the same one, and answers each with its share of the
+combined value (:class:`MeshComm`).  One controller drives every shard, as
+one Python process drives every device of a JAX mesh; a failure in any
+body raises in the caller at once, and no shard is ever left waiting.
+
+Combines run in shard order on each receiving device.  Integer combines
+are exact in any order; the one float combine (``mean``) follows JAX's
+partitioned mean (``engine_scalable.sharded_mean_f32``).  A tensor bound
+for another device is a peer copy (``.to(dev, non_blocking=True)``);
+shards that share a device share one combined tensor, which no body
+writes in place.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import List, Sequence
+
+import torch
+
+from ringpop_tpu_torch.models.sim.engine_scalable import host_read, sharded_mean_f32
+
+
+def lockstep(bodies: Sequence, comm: "MeshComm") -> List:
+    """Run S shard bodies to their ends in lockstep; returns each body's
+    return value, in shard order.  Raises if the bodies ask for different
+    collectives or do not all end together."""
+    replies = [None] * len(bodies)
+    while True:
+        reqs, ended = [], 0
+        for body, reply in zip(bodies, replies):
+            try:
+                reqs.append(body.send(reply))
+            except StopIteration as stop:
+                reqs.append(("end", stop.value))
+                ended += 1
+        ops = [r[0] for r in reqs]
+        if ended:
+            if ended != len(bodies):
+                raise RuntimeError("shards left the lockstep apart: %s" % (ops,))
+            return [r[1] for r in reqs]
+        if any(op != ops[0] for op in ops):
+            raise RuntimeError("shards out of lockstep: %s" % (ops,))
+        replies = comm.combine(ops[0], [r[1] for r in reqs])
+
+
+class MeshComm:
+    """The collectives over an ordered list of shard devices.  ``calls``
+    counts each op answered; ``a2a_bytes`` and ``gather_bytes`` the bytes
+    that the all-to-alls and the all-gathers moved between shards (a
+    shard's own block excluded)."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = [torch.device(d) for d in devices]
+        self.calls: Counter = Counter()
+        self.a2a_bytes = 0
+        self.gather_bytes = 0
+
+    def combine(self, op: str, parts: List[torch.Tensor]) -> List:
+        self.calls[op] += 1
+        return getattr(self, "_" + op)(parts)
+
+    # -- helpers ---------------------------------------------------------
+
+    def _per_device(self, make) -> List:
+        """``make(dev)`` once per distinct device, one result per shard."""
+        made = {}
+        return [made[d] if d in made else made.setdefault(d, make(d)) for d in self.devices]
+
+    def _reduce(self, parts, fn) -> List:
+        if len(parts) == 1:
+            return list(parts)
+
+        def make(dev):
+            acc = parts[0].to(dev, non_blocking=True)
+            for p in parts[1:]:
+                acc = fn(acc, p.to(dev, non_blocking=True))
+            return acc
+
+        return self._per_device(make)
+
+    # -- the collectives -------------------------------------------------
+
+    def _gather(self, parts):
+        """All-gather, tiled along dim 0."""
+        if len(parts) == 1:
+            return list(parts)
+        self.gather_bytes += sum(p.numel() * p.element_size() for p in parts) * (len(parts) - 1)
+        return self._per_device(lambda dev: torch.cat([p.to(dev, non_blocking=True) for p in parts]))
+
+    def _all_to_all(self, parts):
+        """``[S, ...]`` buffers: shard d receives block ``[s][d]`` of every
+        shard s, stacked in shard order."""
+        s = len(parts)
+        if s == 1:
+            return list(parts)
+        self.a2a_bytes += sum(parts[i][j].numel() * parts[i][j].element_size()
+                              for i in range(s) for j in range(s) if i != j)
+        return [torch.stack([parts[i][d].to(dev, non_blocking=True) for i in range(s)])
+                for d, dev in enumerate(self.devices)]
+
+    def _sum(self, parts):
+        return self._reduce(parts, torch.add)
+
+    def _any(self, parts):
+        return self._reduce(parts, torch.logical_or)
+
+    def _all(self, parts):
+        return self._reduce(parts, torch.logical_and)
+
+    def _min(self, parts):
+        return self._reduce(parts, torch.minimum)
+
+    def _max(self, parts):
+        return self._reduce(parts, torch.maximum)
+
+    def _pred(self, parts):
+        """The agreed predicate: any shard's, read on the host once."""
+        value = host_read(self._any(parts)[0])
+        return [value] * len(parts)
+
+    def _mean(self, parts):
+        """The float32 mean of the shards' pieces, in JAX's order."""
+        m = sharded_mean_f32(parts)
+        return self._per_device(lambda dev: m.to(dev, non_blocking=True))

@@ -1,0 +1,42 @@
+"""Keeps a test process under the kernel's limit on memory mappings.
+
+An XLA CPU executable keeps its compiled code in memory mappings until it
+is dropped, and a test worker keeps every executable it has compiled.
+Past the kernel's limit (``vm.max_map_count``, 65,530 by default) the
+next compile fails to allocate and the worker dies ("Segmentation fault"
+or "Aborted"), taking the test it was running with it.  A full run of the
+suite brings a worker within a few thousand mappings of the limit.  The
+port's test modules import :func:`bounded_mappings`: a process already
+past ``MAPPINGS_HIGH`` drops every executable it holds before such a
+module starts, and JAX compiles again (from its persistent cache, where
+it has one) what later tests need.
+"""
+
+from __future__ import annotations
+
+import gc
+
+import jax
+import pytest
+
+MAPPINGS_HIGH = 40_000
+
+
+def mappings() -> int:
+    """The memory mappings of this process (0 where there is no /proc)."""
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return 0
+
+
+def drop_executables() -> None:
+    jax.clear_caches()
+    gc.collect()  # jitted closures of dropped objects sit in cycles
+
+
+@pytest.fixture(scope="module", autouse=True)
+def bounded_mappings():
+    if mappings() > MAPPINGS_HIGH:
+        drop_executables()

@@ -30,6 +30,7 @@ from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.models.sim.batched import BatchedSimClusters
 from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
 from ringpop_tpu_torch.obs import events as pev
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 B, N, T, SEED = 3, 48, 28, 11
 

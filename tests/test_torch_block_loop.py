@@ -24,6 +24,7 @@ from ringpop_tpu.ops import pallas_farmhash as jpf
 from ringpop_tpu_torch.ops import block_loop as pbl
 from ringpop_tpu_torch.ops import farmhash as pfh
 from ringpop_tpu_torch.ops import farmhash32, u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _loop_inputs(B, I, seed):

@@ -49,6 +49,7 @@ from ringpop_tpu_torch.models.sim import engine as pe
 from ringpop_tpu_torch.models.sim import engine_scalable as es
 from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 REPO_ROOT = os.path.join(os.path.dirname(__file__), "..")
 SAMPLE = os.path.join(REPO_ROOT, "runlogs", "sample_ckpt_scalable_n8")

@@ -33,6 +33,7 @@ from ringpop_tpu_torch.models.sim import engine as pe
 from ringpop_tpu_torch.models.sim.cluster import SimCluster
 from ringpop_tpu_torch.ops import checksum_encode as pce
 from tests.test_torch_engine import _assert_state_equal, _events, _port_schedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N = 64
 TICKS = 32

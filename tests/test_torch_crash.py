@@ -26,6 +26,7 @@ from ringpop_tpu.fuzz import scenarios as jscenarios
 from ringpop_tpu_torch.fuzz import crash
 from ringpop_tpu_torch.fuzz import scenarios
 from ringpop_tpu_torch.fuzz.scenarios import FULL, SCALABLE, CrashPlan, ScenarioConfig, crash_plan_of
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 CFG64 = ScenarioConfig(n=64, ticks=12)
 

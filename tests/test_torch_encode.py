@@ -14,6 +14,7 @@ import torch
 
 from ringpop_tpu.ops import checksum_encode as jce
 from ringpop_tpu_torch.ops import checksum_encode as pce
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 ADDRS = ["127.0.0.1:%d" % (3000 + i) for i in range(13)] + ["a", "bb:1", "10.0.0.9:99"]
 

@@ -28,6 +28,7 @@ from ringpop_tpu_torch.models.sim import engine as pe
 from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster, _tick_at
 from ringpop_tpu_torch.ops import checksum_encode as pce
 from tests.models.test_fused_tick import _schedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N = 64
 TICKS = 32

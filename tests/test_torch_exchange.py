@@ -25,6 +25,7 @@ from ringpop_tpu.ops import exchange as jex
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.ops import exchange as pex
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 SHAPES = [(1, 1), (64, 4), (1025, 4), (100, 3)]
 

@@ -38,6 +38,7 @@ from ringpop_tpu_torch.obs import events as pev
 from ringpop_tpu_torch.ops import checksum_encode as pce
 from tests.models.test_fused_tick import _schedule
 from tests.test_torch_engine import _events
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N = 32
 TICKS = 32

@@ -21,6 +21,7 @@ from ringpop_tpu_torch.ops import fused_apply as pfa
 from ringpop_tpu_torch.ops import fused_piggyback as pfp
 from ringpop_tpu_torch.ops import toolkit as ptk
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 SIZES = (37, 64, 200)
 

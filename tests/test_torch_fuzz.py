@@ -41,6 +41,7 @@ from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.models.sim.cluster import SimCluster
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster
 from ringpop_tpu_torch.ops import fused_apply as pfa
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 FULL_CFG = sc.ScenarioConfig(engine="full", n=8, ticks=12, loss_levels=(0.0,))
 SCAL_CFG = sc.ScenarioConfig(engine="scalable", n=16, ticks=12, loss_levels=(0.0,))
@@ -269,8 +270,8 @@ def test_scalable_dropped_publish_delta_caught_and_shrunk(monkeypatch):
     the full recompute: scalable-checksum-exact, shrunk to <= 2 faults."""
     orig = pes._publish_batch
 
-    def no_delta(state, csum, slot, subj, new_status, new_inc, hearer, tick):
-        st, _ = orig(state, csum, slot, subj, new_status, new_inc, hearer, tick)
+    def no_delta(state, csum, *args):
+        st, _ = orig(state, csum, *args)
         return st, csum
 
     monkeypatch.setattr(pes, "_publish_batch", no_delta)

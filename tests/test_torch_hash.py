@@ -24,6 +24,7 @@ from ringpop_tpu_torch.ops import fused_checksum as pfc
 from ringpop_tpu_torch.ops import stream_hash as psh
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _goldens():

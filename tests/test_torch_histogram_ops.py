@@ -18,6 +18,7 @@ import torch
 from ringpop_tpu.ops import histogram as jhg
 from ringpop_tpu_torch.ops import histogram as phg
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _edges() -> np.ndarray:

@@ -37,6 +37,7 @@ from ringpop_tpu_torch.obs import recorder as prec
 from ringpop_tpu_torch.ops import toolkit as ptk
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.utils import stats as pstats
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

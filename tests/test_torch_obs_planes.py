@@ -43,6 +43,7 @@ from ringpop_tpu_torch.ops import u32
 from tests.test_torch_route_plane import _pair as _route_pair
 from tests.test_torch_route_plane import _storm_kw, run_lockstep
 from tests.test_torch_scalable import _assert_metrics, _assert_state, _events, _state_np
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 PLANES = dict(wavefront=True, histograms=True, exchange_metrics=4)
 

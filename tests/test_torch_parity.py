@@ -13,6 +13,7 @@ from ringpop_tpu.models.sim import engine as je
 from ringpop_tpu.parity import OracleCluster
 from ringpop_tpu_torch.models.sim import engine as pe
 from ringpop_tpu_torch.models.sim.cluster import SimCluster, default_addresses
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N = 16
 

@@ -37,6 +37,7 @@ from ringpop_tpu_torch.models.sim.recovery import (
     host_copy_states,
 )
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N, U = 24, 160
 

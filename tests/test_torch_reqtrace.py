@@ -30,6 +30,7 @@ from ringpop_tpu_torch.models.sim.cluster import _tick_at
 from ringpop_tpu_torch.models.sim.storm import StormSchedule
 from ringpop_tpu_torch.obs import requests as poreq
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N, Q, TICKS = 64, 256, 16
 TRACE_FIELDS = ("req_buf", "req_head", "req_drops", "req_counts", "req_tick")

@@ -21,6 +21,7 @@ from ringpop_tpu.ops.record_mix import record_mix as j_record_mix
 from ringpop_tpu_torch.models.ring import device as pring
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.ops.record_mix import record_mix as p_record_mix
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _hashes(n, r, seed):

@@ -32,6 +32,7 @@ from ringpop_tpu_torch.models.route import plane as pplane
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.models.sim.cluster import _tick_at
 from ringpop_tpu_torch.models.sim.storm import StormSchedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 N = 64
 TICKS = 30

@@ -28,6 +28,7 @@ from ringpop_tpu_torch.models.ring import device as prd
 from ringpop_tpu_torch.models.route import ring_kernel as prk
 from ringpop_tpu_torch.models.route import traffic as ptr
 from ringpop_tpu_torch.ops import threefry, u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 # the JAX functions under jit: one compile per shape and caps, not one

@@ -33,6 +33,7 @@ import torch
 from ringpop_tpu.models.sim import engine_scalable as jes
 from ringpop_tpu_torch import convert
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 TICKS = 40
 
@@ -96,11 +97,15 @@ def test_drop_mode_scatters_equal_jax():
     subj = np.where(accuser, rng.integers(0, n, n), n).astype(np.int32)
     part = rng.integers(0, 2, n).astype(np.int32)
     want_mask = np.asarray(jnp.zeros(n, bool).at[jnp.asarray(subj)].set(True, mode="drop"))
-    assert np.array_equal(pes._subject_mask(torch.as_tensor(subj), n).numpy(), want_mask)
+    solo = pes.Solo(n)
+    got_mask = pes.run_solo(pes._shard_subject_mask(solo, torch.as_tensor(subj), n))
+    assert np.array_equal(got_mask.numpy(), want_mask)
     want = np.asarray(jes._representative_accuser(
         jnp.asarray(accuser), jnp.asarray(subj), jnp.asarray(part), n))
-    got = pes._representative_accuser(
-        torch.as_tensor(accuser), torch.as_tensor(subj), torch.as_tensor(part), n)
+    ids = torch.arange(n, dtype=torch.int32)
+    part_t = torch.as_tensor(part)
+    got = pes.run_solo(pes._shard_accuser(
+        solo, ids, torch.as_tensor(accuser), torch.as_tensor(subj), part_t, part_t, n))
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy()[want_mask], want[want_mask])
     assert np.array_equal(got.numpy(), want)
@@ -148,9 +153,15 @@ def test_resolvers_and_unported_planes():
     with pytest.raises(ValueError, match="divisor"):
         pes.init_state(pes.ScalableParams(n=64, u=160, exchange_metrics=3), device="cpu")
     st = pes.init_state(pes.ScalableParams(n=64, u=160), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pes.tick(st, pes.ChurnInputs.quiet(64), pes.ScalableParams(n=64, u=160),
-                 exchange_plane=object())
+    # the exchange_plane seam is ported: a one-shard plane gives the inline tick
+    from ringpop_tpu_torch.parallel import mesh as pmesh
+
+    p64 = pes.ScalableParams(n=64, u=160, packet_loss=0.3)
+    plane = pmesh.make_exchange_plane(pmesh.make_mesh(1, device="cpu"), "plain", n=64)
+    want = pes.tick(st, pes.ChurnInputs.quiet(64), p64)
+    got = pes.tick(st, pes.ChurnInputs.quiet(64), p64, exchange_plane=plane)
+    for a, b in zip(want[0] + want[1], got[0] + got[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
     with pytest.raises(ValueError, match="enable_leave"):
         pes.tick(st, pes.ChurnInputs.quiet(64)._replace(leave=torch.zeros(64, dtype=torch.bool)),
                  pes.ScalableParams(n=64, u=160))

@@ -39,6 +39,7 @@ from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
 from ringpop_tpu_torch.obs import statsd_bridge as psb
 from ringpop_tpu_torch.ops import toolkit as ptk
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 HOST = "10.0.0.7:3001"
 

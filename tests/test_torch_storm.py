@@ -22,6 +22,7 @@ from ringpop_tpu.models.sim.storm import StormSchedule as JaxSchedule
 from ringpop_tpu_torch import convert
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
 from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _clusters(n, seed=0, **kw):

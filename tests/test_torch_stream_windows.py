@@ -23,6 +23,7 @@ import torch
 from ringpop_tpu.ops import pallas_farmhash as jpf
 from ringpop_tpu_torch.ops import stream_hash as psh
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 M32 = 0xFFFFFFFF
 C1, C2, MAGIC = 0xCC9E2D51, 0x1B873593, 0xE6546B64

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from ringpop_tpu_torch.ops import threefry, u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 SEEDS = list(range(28)) + [0x520337, 12345678, 2**31 - 1, 2**32 - 1]
 SHAPES = [(1,), (7,), (256,), (4096,), (1000, 3)]

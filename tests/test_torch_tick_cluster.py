@@ -30,6 +30,7 @@ from ringpop_tpu_torch import convert
 from ringpop_tpu_torch.api import tick_cluster as ptc
 from ringpop_tpu_torch.models.sim import engine as pe
 from ringpop_tpu_torch.models.sim.cluster import SimCluster
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 SUSPECT = 1
 # the port keeps the fused pipeline's record cache; the JAX cluster on the

@@ -11,6 +11,7 @@ import torch
 from ringpop_tpu.models.sim import engine as jax_engine
 from ringpop_tpu_torch.models.sim import engine as port_engine
 from ringpop_tpu_torch.ops import u32
+from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 
 def _words(seed=0, n=4096):
