@@ -45,8 +45,9 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    card with TF32 matmuls allowed and once with ``wavefront``,
    ``histograms`` and ``exchange_metrics=4`` (drained summaries equal
    too): every state and metric field must be
-   equal on every tick (the scalable ``mean_heard_frac``, a float32 mean,
-   within a relative 1e-6; the ticks where it is not bitwise are counted);
+   equal on every tick, bitwise (the scalable ``mean_heard_frac``, a
+   float32 mean, too: the ticks where it is not bitwise are counted and
+   printed, and must be 0);
    the storm's FarmHash truth checksum on the card must equal the host
    FarmHash32 of the truth checksum string; and an n=4096 routed storm
    (``RoutedStorm``, Q=4096 queries a tick, request traces on at rate 1/2,
@@ -70,7 +71,10 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    on each shard's tile) against the same mesh on the CPU and the card's
    single-device cluster — every state field bitwise, metrics by the
    storm's rule — and again with the all-to-all cap forced to 1 (every
-   route on the all-gather fallback);
+   route on the all-gather fallback); and ``ShardedSim``: the n=64 churn
+   schedule on ``make_mesh(4)`` against the same mesh on the CPU and the
+   card's ``SimCluster``, every field of every tick, in fast, farmhash and
+   classic (``block_loop`` on each shard's rows);
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -134,7 +138,15 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    bitwise; launches and host reads a tick of its fail window, mesh and
    twin; after the counts are read, ``exchange`` on two of the warm run's
    own shard tiles ([250000, 16]) held against its plain version and
-   timed; each path's seconds are printed;
+   timed; ``ShardedSim(1024, make_mesh(4))`` fast and farmhash beside its
+   twin (converged in 7 ticks, a timed 256-tick window, 0 replays, the
+   state bitwise the twin's; launches and host reads a tick of a churn
+   window; round-robin over the cards too where two or more are visible),
+   the classic n=1024 mesh and ``ShardedSim(8192, make_mesh(4))`` fast
+   beside its twin; after the counts are read, each of the four kernels
+   on one shard's own [256, 1024] tile kept from that path
+   (``apply_updates`` at ``lo`` = 256) held against its plain version and
+   timed with the L2 flushed; each path's seconds are printed;
 6. the batch axis (``torch.func.vmap``): each kernel's batching rule at
    B in {1, 4} over phase 3's shapes (``apply_updates`` / ``pb_budget``
    at n=1024 and 1001 with per-cluster stamps, ``fused_stream`` at 256 x
@@ -187,7 +199,6 @@ TICKS = 256
 N_STORM = 1_000_000
 STORM_TICKS = 60
 N_MID = 4096
-MEAN_FRAC_RTOL = 1e-6  # the scalable mean_heard_frac: a float32 mean
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (the fp32 peak)
 # cycles on the carry path of one farmhashmk mixing round, read off the
@@ -958,25 +969,20 @@ def check_storm_e2e(n=N_MID, ticks=40):
             torch.backends.cudnn.allow_tf32 = tf32
             card = ScalableCluster(n=n, params=params, seed=2, device="cuda")
             assert card.params.fused_exchange == "kernel"
-            inexact = 0  # ticks whose mean_heard_frac is within the tolerance, not bitwise
+            inexact = 0  # ticks whose mean_heard_frac is not bitwise (must be 0)
             cins = sched.as_inputs(card.device)
             for t in range(ticks):
                 m = card.step(_tick_at(cins, t))
                 ws, wm = want[t]
                 label = "n=%d storm tf32=%s tick %d" % (n, tf32, t)
-                for f in es.ScalableMetrics._fields:
-                    a, b = getattr(m, f), getattr(wm, f)
-                    ok = (abs(float(a) - float(b)) <= MEAN_FRAC_RTOL * abs(float(b))
-                          if f == "mean_heard_frac" else a == b)
-                    if not ok:
-                        raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
-                inexact += int(m.mean_heard_frac != wm.mean_heard_frac)
+                inexact += _scalable_metrics_same(m, wm, label)
                 got = convert.scalable_state_to_numpy(card.state)
                 for f in es.ScalableState._fields:
                     if (got[f] is None) != (ws[f] is None) or (
                         got[f] is not None and not np.array_equal(got[f], ws[f])
                     ):
                         raise AssertionError("%s: state %s differs" % (label, f))
+            _no_inexact(inexact, "n=%d storm tf32=%s" % (n, tf32))
             full = es.compute_checksums(card.state, card.params)
             if not torch.equal(full, card.state.checksum):
                 raise AssertionError("n=%d tf32=%s: incremental checksums != recompute" % (n, tf32))
@@ -1010,22 +1016,17 @@ def check_storm_planes_e2e(n=N_MID, ticks=40):
     sched = _mid_storm_schedule(n, ticks)
     pair = [ScalableCluster(n=n, params=params, seed=2, device=d) for d in ("cpu", "cuda")]
     ins = [sched.as_inputs(c.device) for c in pair]
-    inexact = 0
+    inexact = 0  # ticks whose mean_heard_frac is not bitwise (must be 0)
     for t in range(ticks):
         wm, gm = (c.step(_tick_at(i, t)) for c, i in zip(pair, ins))
         label = "n=%d storm planes tick %d" % (n, t)
-        for f in es.ScalableMetrics._fields:
-            a, b = getattr(gm, f), getattr(wm, f)
-            ok = (abs(float(a) - float(b)) <= MEAN_FRAC_RTOL * abs(float(b))
-                  if f == "mean_heard_frac" else a == b)
-            if not ok:
-                raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
-        inexact += int(gm.mean_heard_frac != wm.mean_heard_frac)
+        inexact += _scalable_metrics_same(gm, wm, label)
         want, got = (convert.scalable_state_to_numpy(c.state) for c in pair)
         for f in es.ScalableState._fields:
             if (got[f] is None) != (want[f] is None) or (
                     got[f] is not None and not np.array_equal(got[f], want[f])):
                 raise AssertionError("%s: state %s differs" % (label, f))
+    _no_inexact(inexact, "n=%d storm planes" % n)
     drains = [(c.wavefront_summary(), c.drain_histograms(), c.drain_exchange_metrics())
               for c in pair]
     if drains[0] != drains[1]:
@@ -1062,7 +1063,7 @@ def check_route_e2e(n=N_MID, ticks=30):
     under the routing plane with request traces on, in both ring
     implementations, with the route histograms on: every RouteState (hist
     included), RouteMetrics and ScalableMetrics field on the card equals
-    the CPU's on every tick (``mean_heard_frac`` within a relative 1e-6),
+    the CPU's on every tick (``mean_heard_frac`` too, bitwise),
     and so do the drained request records and histograms."""
     from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.route.plane import RoutedStorm, RouteParams
@@ -1079,16 +1080,11 @@ def check_route_e2e(n=N_MID, ticks=30):
                   for d in ("cpu", "cuda")]
         ins = [sched.as_inputs(s.device) for s in storms]
         totals = {}
-        inexact = 0  # ticks whose mean_heard_frac is within the tolerance, not bitwise
+        inexact = 0  # ticks whose mean_heard_frac is not bitwise (must be 0)
         for t in range(ticks):
             (wem, wrm), (gem, grm) = (s.step(_tick_at(i, t)) for s, i in zip(storms, ins))
             label = "n=%d routed %s tick %d" % (n, impl, t)
-            for f in es.ScalableMetrics._fields:
-                a, b = float(getattr(gem, f)), float(getattr(wem, f))
-                ok = (abs(a - b) <= MEAN_FRAC_RTOL * abs(b) if f == "mean_heard_frac" else a == b)
-                if not ok:
-                    raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
-            inexact += int(gem.mean_heard_frac != wem.mean_heard_frac)
+            inexact += _scalable_metrics_same(gem, wem, label)
             for f in grm._fields:
                 if getattr(grm, f) != getattr(wrm, f):
                     raise AssertionError("%s: route metric %s %r vs %r"
@@ -1101,6 +1097,7 @@ def check_route_e2e(n=N_MID, ticks=30):
             for f, w in want.items():
                 if (got[f] is None) != (w is None) or (w is not None and not (got[f] == w).all()):
                     raise AssertionError("%s: state %s differs" % (label, f))
+        _no_inexact(inexact, "n=%d routed %s" % (n, impl))
         if storms[0].ring_checksum() != storms[1].ring_checksum():
             raise AssertionError("n=%d routed %s: ring checksums differ" % (n, impl))
         drained = [s.drain_requests() for s in storms]
@@ -1964,10 +1961,10 @@ def _plain_clusters(kernel, args):
     from ringpop_tpu_torch.ops import stream_hash as sh
 
     if kernel == "apply_updates":
-        planes, now, deadline, union, want_masks, want_count, want_refute = args
+        planes, now, deadline, union, want_masks, want_count, want_refute, lo = args
         o = fa.apply_updates_plain(fa.ApplyState(*planes[:10]), *planes[10:], now, deadline,
                                    union, want_masks=want_masks, want_count=want_count,
-                                   want_refute=want_refute)
+                                   want_refute=want_refute, lo=lo)
         return (*o.state, o.union, o.applied, o.applied_rows, o.applied_count, o.refute_diag)
     if kernel == "pb_budget":
         return tuple(fp.pb_budget_plain(*args[:5], want_content=args[5]))
@@ -2393,21 +2390,47 @@ def fuzz_throughput() -> dict:
 # checkpoints and recovery (models/sim/checkpoint.py, recovery.py, fuzz/crash.py)
 
 
-def _metrics_close(got, want, label: str) -> int:
-    """The storm's metric rule: integers bitwise, ``mean_heard_frac``
-    within MEAN_FRAC_RTOL; returns the ticks where it is not bitwise."""
+def _metrics_close(got, want, label: str, mean: bool = True):
+    """The storm's metric rule: every field bitwise, the float32
+    ``mean_heard_frac`` included; returns the ticks where
+    ``mean_heard_frac`` is not bitwise (0, or this raises).  ``mean=False``
+    (a mesh against the single device) leaves ``mean_heard_frac`` out and
+    returns None: the mesh sums it in JAX's node-sharded order, which
+    rounds otherwise by design (tests/test_torch_mesh.py), and it is held
+    bitwise against the mesh on the CPU instead."""
     import numpy as np
 
+    if not mean:
+        want = want._replace(mean_heard_frac=got.mean_heard_frac)
     for f in want._fields:
         a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
         if a.shape != b.shape:
             raise AssertionError("%s: metric %s shape %r vs %r" % (label, f, a.shape, b.shape))
-        if f == "mean_heard_frac":
-            if not (np.abs(a.astype(np.float64) - b) <= MEAN_FRAC_RTOL * np.abs(b)).all():
-                raise AssertionError("%s: metric %s beyond %g" % (label, f, MEAN_FRAC_RTOL))
-        elif not np.array_equal(a, b):
+        if f != "mean_heard_frac" and not np.array_equal(a, b):
             raise AssertionError("%s: metric %s differs" % (label, f))
-    return int((np.asarray(got.mean_heard_frac) != np.asarray(want.mean_heard_frac)).sum())
+    if not mean:
+        return None
+    inexact = int((np.asarray(got.mean_heard_frac) != np.asarray(want.mean_heard_frac)).sum())
+    _no_inexact(inexact, label)
+    return inexact
+
+
+def _scalable_metrics_same(got, want, label: str) -> int:
+    """One tick's ScalableMetrics: integers bitwise (raises), and 1 if
+    ``mean_heard_frac`` is not bitwise (the caller counts those ticks and
+    raises on any with :func:`_no_inexact`), else 0."""
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+
+    for f in es.ScalableMetrics._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f != "mean_heard_frac" and a != b:
+            raise AssertionError("%s: metric %s %r vs %r" % (label, f, a, b))
+    return int(got.mean_heard_frac != want.mean_heard_frac)
+
+
+def _no_inexact(ticks: int, label: str) -> None:
+    if ticks:
+        raise AssertionError("%s: mean_heard_frac not bitwise on %d ticks" % (label, ticks))
 
 
 def _arrays_same(got: dict, want: dict, label: str) -> None:
@@ -2734,9 +2757,8 @@ def check_mesh_e2e(n=N_MID, ticks=40, device="cuda"):
     """Phase 4, the shard mesh: the n=4096 storm of the storm phase on
     ``make_mesh(4)`` on the card equals the same mesh on the CPU and the
     single-device cluster on the card — every state field bitwise, every
-    integer metric equal, ``mean_heard_frac`` within MEAN_FRAC_RTOL (the
-    ticks where it is not bitwise counted; against the single-device run
-    the sharded sum order differs by design) — and so does the card mesh
+    metric equal, ``mean_heard_frac`` bitwise too (the ticks where it is
+    not are counted, and must be 0) — and so does the card mesh
     with the all-to-all cap forced to 1 (every route on the all-gather
     fallback)."""
     from ringpop_tpu_torch import convert
@@ -2757,21 +2779,23 @@ def check_mesh_e2e(n=N_MID, ticks=40, device="cuda"):
                                                           cpu.exchange_resolution()))
     m_card, m_cpu, m_single = card.run(sched), cpu.run(sched), single.run(sched)
     inexact = {"cpu mesh": _metrics_close(m_card, m_cpu, "n=%d mesh card vs cpu" % n),
-               "card single": _metrics_close(m_card, m_single, "n=%d mesh vs single" % n)}
+               "card single": _metrics_close(m_card, m_single, "n=%d mesh vs single" % n,
+                                             mean=False)}
     _arrays_same(convert.scalable_state_to_numpy(card.state),
                  convert.scalable_state_to_numpy(cpu.state), "n=%d mesh card vs cpu" % n)
     _arrays_same(convert.scalable_state_to_numpy(card.state),
                  convert.scalable_state_to_numpy(single.state), "n=%d mesh vs single" % n)
     forced = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device=device),
                                 params=params, seed=2, exchange_cap_override=1)
-    _metrics_close(forced.run(sched), m_card, "n=%d mesh cap=1" % n)
+    inexact["cap=1"] = _metrics_close(forced.run(sched), m_card, "n=%d mesh cap=1" % n)
     _arrays_same(convert.scalable_state_to_numpy(forced.state),
                  convert.scalable_state_to_numpy(card.state), "n=%d mesh cap=1" % n)
     if forced.comm.calls["all_to_all"] or not card.comm.calls["all_to_all"]:
         raise AssertionError("mesh routes: cap=1 ran %d all-to-alls, the default cap %d"
                              % (forced.comm.calls["all_to_all"], card.comm.calls["all_to_all"]))
     print("n=%d storm on make_mesh(%d) %s: %d ticks, every state field == the CPU mesh and the "
-          "card's single-device cluster, metrics equal (mean_heard_frac not bitwise on %s ticks); "
+          "card's single-device cluster, metrics equal (mean_heard_frac, in the sharded order, "
+          "not bitwise on %s ticks; None: not compared with the single device); "
           "cap=1 (all-gather fallback on every route) bitwise too"
           % (n, MESH_SHARDS, card.exchange_resolution()["devices"], ticks, json.dumps(inexact)),
           flush=True)
@@ -2869,7 +2893,7 @@ def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
         if drain["totals"] != twin_drain["totals"]:
             raise AssertionError("mesh 1M: drained totals %r != the twin's %r"
                                  % (drain["totals"], twin_drain["totals"]))
-        _metrics_close(m_cold, m_twin, "mesh 1M cold vs twin")
+        _metrics_close(m_cold, m_twin, "mesh 1M cold vs twin", mean=False)
         _trajectory_same(cold.state, twin.state, "mesh 1M cold vs twin")
         # warm, timed, the exchange operands of two shard calls kept
         capture = _ExchangeCapture(ex.exchange, MESH_CAPTURE_CALLS)
@@ -2887,7 +2911,7 @@ def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
             if digest != ring:
                 raise AssertionError("mesh 1M %s: ring digest %s, not %s" % (label, digest, ring))
             out["ring_checksum"] = digest
-        _metrics_close(m_warm, m_twin, "mesh 1M warm vs twin")
+        _metrics_close(m_warm, m_twin, "mesh 1M warm vs twin", mean=False)
         _trajectory_same(warm.state, twin.state, "mesh 1M warm vs twin")
         st = warm.state
         if not torch.equal(es.compute_checksums(st, warm.params), st.checksum):
@@ -2903,6 +2927,7 @@ def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
             spread = pmesh.make_mesh(shards)
             s_storm, s_m, s_out = _mesh_run(spread, params, sched)
             _trajectory_same(s_storm.state, twin.state, "mesh 1M on %d cards" % shards)
+            _metrics_close(s_m, m_warm, "mesh 1M on %d cards vs one card" % shards)
             runs["%d cards" % shards] = s_out
             print("mesh 1M: also ran on %s" % s_out["devices"], flush=True)
             del s_storm
@@ -2922,7 +2947,7 @@ def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
             m_r = r.run(sched.window(20, ticks))
             _metrics_close(m_r, es.ScalableMetrics(*(np.asarray(getattr(m_twin, f))[20:]
                                                      for f in es.ScalableMetrics._fields)),
-                           "mesh 1M resumed on %d" % k)
+                           "mesh 1M resumed on %d" % k, mean=k == 1)
             _trajectory_same(r.state, twin.state, "mesh 1M resumed on %d shard(s)" % k)
             restored["%d" % k] = dict(load_s=load_s)
             del r
@@ -2988,6 +3013,394 @@ def check_mesh_tile_operands(ex_report: dict) -> None:
     ex_report.setdefault("storm_operands", {}).update(cases)
 
 
+# ---------------------------------------------------------------------------
+# ShardedSim: the full engine on the shard mesh
+
+SIM_MESH_BIG = 8192
+SIM_MESH_BIG_TICKS = 32
+SIM_PROFILE_TICKS = 8
+# one shard-tile call of each kernel of the full tick, kept from the mesh
+# paths: kernel -> (positional operands, keywords)
+SIM_TILES = {}
+SIM_TILE_ROWS = N_HEAD // MESH_SHARDS
+
+
+class _TileCapture:
+    """Stands in for one kernel wrapper (``module.name``) while a mesh path
+    runs and keeps clones of the operands of the first call that ``want``
+    picks (a shard tile).  The wrapper's body counts its launch on the
+    module attribute, which is this object while it is bound: ``launches``
+    reads and writes the wrapper's own count."""
+
+    def __init__(self, module, name: str, want):
+        self.module, self.name, self.want = module, name, want
+        self.fn = getattr(module, name)
+        self.kept = None
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+    def __call__(self, *args, **kw):
+        if self.kept is None and self.want(args, kw):
+            self.kept = (_clone(args), dict(kw))
+        return self.fn(*args, **kw)
+
+
+def _tile_captures():
+    """Captures of the n=1024 mesh's shard-tile calls: ``apply_updates`` at
+    a shard past the first (``lo != 0``), ``pb_budget`` and
+    ``fused_stream`` on a shard's rows."""
+    from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_piggyback as fp
+    from ringpop_tpu_torch.ops import stream_hash as sh
+
+    tile = (SIM_TILE_ROWS, N_HEAD)
+    return {
+        "apply_updates": _TileCapture(fa, "apply_updates", lambda a, k: (
+            k.get("lo", 0) != 0 and tuple(a[1].shape) == tile and k.get("want_masks"))),
+        "pb_budget": _TileCapture(fp, "pb_budget", lambda a, k: tuple(a[1].shape) == tile),
+        "fused_stream": _TileCapture(sh, "fused_stream",
+                                     lambda a, k: a[3].shape[:2] == (SIM_TILE_ROWS, N_HEAD)),
+    }
+
+
+def _sim_fields_same(got, want, label: str) -> None:
+    """Every SimState field (the uint32 ones as uint32) bitwise."""
+    from ringpop_tpu_torch import convert
+
+    _arrays_same(convert.state_to_numpy(got), convert.state_to_numpy(want), label)
+
+
+def _tick_metrics_same(got, want, label: str) -> None:
+    import numpy as np
+
+    for f in got._fields:
+        if not np.array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(want, f))):
+            raise AssertionError("%s: metric %s differs" % (label, f))
+
+
+def check_sharded_sim_e2e(n=64, ticks=32):
+    """Phase 4, ``ShardedSim``: the n=64 churn schedule on ``make_mesh(4)``
+    on the card equals the same mesh on the CPU and the card's
+    ``SimCluster`` on every state and metric field of every tick, in fast,
+    farmhash (the fused checksums) and classic (``fused_tick="off"``,
+    ``fused_checksum="off"``: ``block_loop`` on each shard's rows)."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.cluster import SimCluster, _tick_at
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
+
+    for mode in ("fast", "farmhash", "classic"):
+        p = engine.SimParams(n=n, checksum_mode="fast" if mode == "fast" else "farmhash",
+                             suspicion_ticks=6)
+        if mode == "classic":
+            p = p._replace(fused_tick="off", fused_checksum="off")
+        sims = [ShardedSim(n, make_mesh(MESH_SHARDS), params=p, seed=1),
+                ShardedSim(n, make_mesh(MESH_SHARDS, device="cpu"), params=p, seed=1),
+                SimCluster(n=n, params=p, seed=1, device="cuda")]
+        note = sims[0].fused_tick_resolution()
+        if mode != "classic" and (note["impl"], sims[1].params.fused_tick) != ("kernel", "plain"):
+            raise AssertionError("mesh fused_tick resolution %r" % (note,))
+        sched = _churn_schedule(n, ticks)
+        ins = [sched.as_inputs(s.device) for s in sims]
+        mesh_loops = 0
+
+        def advance(t):
+            nonlocal mesh_loops
+            out = []
+            for k, (s, i) in enumerate(zip(sims, ins)):
+                l0 = bl.block_loop.launches
+                out.append(s.bootstrap() if t < 0 else s.step(_tick_at(i, t)))
+                if k == 0:
+                    mesh_loops += bl.block_loop.launches - l0
+            return out
+
+        ms = advance(-1)
+        for t in range(ticks + 1):
+            label = "n=%d %s mesh tick %d" % (n, mode, t)
+            for k, what in ((1, "the cpu mesh"), (2, "the card's SimCluster")):
+                _tick_metrics_same(ms[0], ms[k], "%s vs %s" % (label, what))
+                _sim_fields_same(sims[0].state, sims[k].state, "%s vs %s" % (label, what))
+            if t < ticks:
+                ms = advance(t)
+        if mode == "classic" and not mesh_loops:
+            raise AssertionError("n=%d classic mesh: block_loop never launched" % n)
+        print("n=%d %s on make_mesh(%d) %s: %d ticks, every state and metric field == the CPU "
+              "mesh and the card's SimCluster (block_loop launches on the mesh: %d)"
+              % (n, mode, MESH_SHARDS, note["devices"], ticks + 1, mesh_loops), flush=True)
+
+
+def _sim_kernel_launches():
+    from ringpop_tpu_torch.ops import block_loop, fused_apply, fused_piggyback, stream_hash
+
+    return {"apply_updates": fused_apply.apply_updates.launches,
+            "pb_budget": fused_piggyback.pb_budget.launches,
+            "fused_stream": stream_hash.fused_stream.launches,
+            "block_loop": block_loop.block_loop.launches}
+
+
+def _sim_drive(sim, label: str) -> dict:
+    """Bootstrap, ``run_until_converged(96, quiet_after=1)`` (7 ticks
+    required) and a timed 256-tick quiet window (0 replays required): the
+    numbers, with each kernel's launches a tick in the window."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule
+
+    dev = sim.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sim.bootstrap()
+    converged_in = sim.run_until_converged(max_ticks=96, quiet_after=1)
+    torch.cuda.synchronize(dev)
+    converge_s = time.perf_counter() - t0
+    if converged_in != 7:
+        raise AssertionError("%s: converged in %d ticks, not 7" % (label, converged_in))
+    replays0 = sim.parity_replays
+    k0 = _sim_kernel_launches()
+    comm = getattr(sim, "comm", None)
+    if comm is not None:
+        c0 = (dict(comm.calls), comm.fetch_bytes, comm.scatter_bytes, comm.gather_bytes)
+    t0 = time.perf_counter()
+    m = sim.run(EventSchedule(ticks=TICKS, n=sim.params.n))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    k1 = _sim_kernel_launches()
+    if sim.parity_replays != replays0 or not bool(np.asarray(m.converged)[-1]):
+        raise AssertionError("%s: %d replays in the window, converged %s"
+                             % (label, sim.parity_replays - replays0, bool(m.converged[-1])))
+    out = dict(converged_in=converged_in, converge_s=converge_s, window_s=wall,
+               ms_per_tick=wall / TICKS * 1e3, node_ticks_per_s=sim.params.n * TICKS / wall,
+               replays=sim.parity_replays - replays0,
+               kernel_launches_per_tick={k: (k1[k] - k0[k]) / TICKS for k in k0},
+               peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if comm is not None:
+        out["collectives_per_tick"] = {k: (v - c0[0].get(k, 0)) / TICKS
+                                       for k, v in sorted(comm.calls.items())}
+        out["bytes_per_tick"] = dict(fetch=(comm.fetch_bytes - c0[1]) / TICKS,
+                                     scatter=(comm.scatter_bytes - c0[2]) / TICKS,
+                                     gather=(comm.gather_bytes - c0[3]) / TICKS)
+    return out
+
+
+def _churn_profile(sim, ticks: int = SIM_PROFILE_TICKS) -> dict:
+    """Launches, host reads, device ms a tick and busy share of a profiled
+    churn window (``EventSchedule.churn_window``) run after the drive."""
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule
+
+    sched = EventSchedule.churn_window(ticks, sim.params.n)
+    return _profile_window(lambda: sim.run(sched), ticks, sim.device)
+
+
+def _kill_tick(sim, victims=(5, 300, 700)):
+    """One tick that kills ``victims``: their pingers' rows turn dirty, so
+    the checksums of converged (full-length) views are recomputed."""
+    mask = torch.zeros(sim.params.n, dtype=torch.bool, device=sim.device)
+    mask[list(victims)] = True
+    return sim.step(sim.quiet_inputs()._replace(kill=mask))
+
+
+def sharded_sim_headline(mode: str) -> dict:
+    """``ShardedSim(1024, make_mesh(4))`` at the headline params (all four
+    shards on ``cuda:0``) beside its ``SimCluster`` twin in the same call:
+    ``_sim_drive`` on both, the final states bitwise equal, then a profiled
+    churn window on both (launches and host reads a tick, busy share).  On
+    a machine with two or more cards the mesh again round-robin over them,
+    bitwise the one-card mesh; with one card a line says so.  In farmhash mode one more
+    tick on the converged mesh keeps each kernel's first shard-tile call."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.cluster import SimCluster
+    from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
+
+    p = engine.SimParams(n=N_HEAD, checksum_mode=mode)
+    card0 = torch.device("cuda", 0)
+    twin = SimCluster(n=N_HEAD, params=p, device=card0)
+    mesh = ShardedSim(N_HEAD, make_mesh(devices=[card0] * MESH_SHARDS), params=p)
+    runs = {"twin": _sim_drive(twin, "n=1024 %s twin" % mode),
+            "mesh": _sim_drive(mesh, "n=1024 %s mesh" % mode)}
+    _sim_fields_same(mesh.state, twin.state, "n=1024 %s mesh vs twin" % mode)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        # round-robin: shard s on cuda:(s % cards)
+        spread = ShardedSim(N_HEAD, make_mesh(MESH_SHARDS), params=p)
+        runs["mesh on %d cards" % cards] = _sim_drive(spread, "n=1024 %s spread" % mode)
+        _sim_fields_same(spread.state, mesh.state, "n=1024 %s mesh on %d cards" % (mode, cards))
+        del spread
+    else:
+        print("n=1024 %s mesh: %d shards on cuda:0 (%d card%s visible: no multi-card run)"
+              % (mode, MESH_SHARDS, cards, "" if cards == 1 else "s"), flush=True)
+    profiled = {"mesh": _churn_profile(mesh), "twin": _churn_profile(twin)}
+    _sim_fields_same(mesh.state, twin.state, "n=1024 %s mesh vs twin after churn" % mode)
+    if mode == "farmhash":
+        captures = _tile_captures()
+        for c in captures.values():
+            c.__enter__()
+        try:
+            _kill_tick(mesh)
+        finally:
+            for c in captures.values():
+                c.__exit__()
+        for name, c in captures.items():
+            if c.kept is None:
+                raise AssertionError("n=1024 mesh: no shard-tile call of %s was kept" % name)
+            SIM_TILES[name] = c.kept
+    out = dict(mode=mode, n=N_HEAD, shards=MESH_SHARDS, ticks=TICKS,
+               resolution=mesh.fused_tick_resolution(), runs=runs, churn_window=profiled,
+               state_equal_twin=True)
+    print("sharded sim %s" % json.dumps(out, default=str), flush=True)
+    return out
+
+
+def sharded_sim_classic_tile() -> dict:
+    """The classic configuration on the n=1024 mesh beside its twin:
+    bootstrap, ``run_until_converged`` and one tick that kills three nodes
+    (the gated recompute hashes the dirty rows' full-length strings in
+    256-row chunks), ``block_loop``'s first shard-tile call of that tick
+    kept, the state bitwise the twin's."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.cluster import SimCluster
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
+
+    p = engine.SimParams(n=N_HEAD, checksum_mode="farmhash", fused_tick="off",
+                         fused_checksum="off")
+    twin = SimCluster(n=N_HEAD, params=p, device="cuda")
+    mesh = ShardedSim(N_HEAD, make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS),
+                      params=p)
+    converged = {}
+    for label, sim in (("twin", twin), ("mesh", mesh)):
+        sim.bootstrap()
+        converged[label] = sim.run_until_converged(max_ticks=96, quiet_after=1)
+        with _TileCapture(bl, "block_loop", lambda a, k: a[3].shape[0] == SIM_TILE_ROWS) as cap:
+            _kill_tick(sim)
+    if cap.kept is None:
+        raise AssertionError("classic n=1024 mesh: no 256-row block_loop call was kept")
+    SIM_TILES["block_loop"] = cap.kept
+    _sim_fields_same(mesh.state, twin.state, "classic n=1024 mesh vs twin")
+    if converged["mesh"] != converged["twin"]:
+        raise AssertionError("classic n=1024: converged in %r" % converged)
+    return dict(converged_in=converged["mesh"], block_loop_rows=SIM_TILE_ROWS,
+                state_equal_twin=True)
+
+
+def sharded_sim_big(n: int = SIM_MESH_BIG, ticks: int = SIM_MESH_BIG_TICKS) -> dict:
+    """``ShardedSim(8192, make_mesh(4))`` in fast mode beside its twin:
+    bootstrap, then a ``ticks``-tick churn window, timed; the final state
+    bitwise the twin's; ms a tick, the shard state's GiB and the card's
+    peak GiB (all four shards share ``cuda:0``)."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
+    from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
+
+    p = engine.SimParams(n=n, checksum_mode="fast")
+    sched = EventSchedule.churn_window(ticks, n)
+    card0 = torch.device("cuda", 0)
+    out = dict(n=n, ticks=ticks, shards=MESH_SHARDS)
+    sims = {}
+    for label, make in (("twin", lambda: SimCluster(n=n, params=p, device=card0)),
+                        ("mesh", lambda: ShardedSim(n, make_mesh(devices=[card0] * MESH_SHARDS),
+                                                    params=p))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sim = sims[label] = make()
+        sim.bootstrap()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[label] = dict(ms_per_tick=wall / ticks * 1e3, node_ticks_per_s=n * ticks / wall,
+                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if label == "mesh":
+            out[label]["shard_state_gib"] = [_nbytes(tuple(x for x in st if x is not None))
+                                             / 2**30 for st in sim.shard_states]
+        else:
+            out[label]["state_gib"] = _nbytes(tuple(x for x in sim.state if x is not None)) / 2**30
+    _sim_fields_same(sims["mesh"].state, sims["twin"].state, "n=%d mesh vs twin" % n)
+    out["state_equal_twin"] = True
+    print("sharded sim big %s" % json.dumps(out), flush=True)
+    return out
+
+
+def sharded_sim_paths() -> dict:
+    return dict(headline=[sharded_sim_headline(m) for m in ("fast", "farmhash")],
+                classic=sharded_sim_classic_tile(), big=sharded_sim_big())
+
+
+def check_sharded_sim_tiles(report: dict) -> None:
+    """(d) Each kernel on one shard's own ``[256, 1024]`` tile, kept from the
+    mesh paths (``apply_updates`` at a shard with ``lo != 0``), after the
+    paths' counts are read: bitwise equal to its plain version, timed with
+    the L2 flushed before each call, with its byte bound."""
+    from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_piggyback as fp
+    from ringpop_tpu_torch.ops import stream_hash as sh
+
+    if sorted(SIM_TILES) != ["apply_updates", "block_loop", "fused_stream", "pb_budget"]:
+        raise AssertionError("kept shard tiles of %s" % sorted(SIM_TILES))
+    args, kw = SIM_TILES["apply_updates"]
+    args = (fa.ApplyState(*args[0]),) + tuple(args[1:])
+    rows, n = args[1].shape
+    kernels = {
+        "apply_updates": (lambda: fa.apply_updates(*args, **kw),
+                          lambda: fa.apply_updates_plain(*args, **kw), "apply_updates_kernel",
+                          40.0 * rows * n),
+    }
+    b_args, b_kw = SIM_TILES["pb_budget"]
+    kernels["pb_budget"] = (lambda: fp.pb_budget(*b_args, **b_kw),
+                            lambda: fp.pb_budget_plain(*b_args, **b_kw), "pb_budget_kernel",
+                            8.0 * b_args[1].numel())
+    s_args, _ = SIM_TILES["fused_stream"]
+    kernels["fused_stream"] = (lambda: sh.fused_stream(*s_args),
+                               lambda: sh.fused_stream_plain(*s_args), "fused_stream_kernel",
+                               10.0 * s_args[3].shape[0] * s_args[3].shape[1]
+                               * (s_args[3].shape[2] + 5) + 40.0 * float(s_args[5].sum()))
+    l_args, _ = SIM_TILES["block_loop"]
+    rounds = int(l_args[4].clamp(0, l_args[3].shape[1]).sum())
+    kernels["block_loop"] = (lambda: bl.block_loop(*l_args), lambda: bl.block_loop_plain(*l_args),
+                             "block_loop_kernel", 31.0 * rounds)
+    for name, (kernel, plain, symbol, ops) in kernels.items():
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        _same(tuple(got), tuple(want), "%s shard tile" % name)
+        if name == "block_loop":
+            moved = 20 * rounds + 7 * 4 * l_args[3].shape[0]
+        elif name == "apply_updates":
+            moved = _nbytes(tuple(args[0]) + tuple(args[1:6]) + (args[8],)) + _nbytes(tuple(got))
+        else:
+            moved = _nbytes(tuple(a for a in (b_args if name == "pb_budget" else s_args)
+                                  if isinstance(a, torch.Tensor))) + _nbytes(tuple(got))
+        r = dict(_times(kernel, 20, symbol, evict=True), bound=_bound(moved, ops))
+        r["plain_ms"] = _time_ms(plain, 1, warm=0)
+        r["shape"] = (list(args[1].shape) if name == "apply_updates" else
+                      list((b_args[1] if name == "pb_budget" else
+                            s_args[3] if name == "fused_stream" else l_args[3]).shape))
+        if name == "apply_updates":
+            r["lo"] = kw["lo"]
+        print("%s shard tile %s: device %.4f ms (L2 flushed), plain %.4f ms, bound %.4f ms (%s)"
+              % (name, r["shape"], r["device_ms"], r["plain_ms"], r["bound"][0], r["bound"][1]),
+              flush=True)
+        report[name]["shard_tile"] = dict(
+            {k: r[k] for k in ("shape", "device_ms", "call_ms", "plain_ms")},
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            share_of_bound=r["bound"][0] / r["device_ms"], **({"lo": r["lo"]} if "lo" in r else {}))
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
 
@@ -3021,8 +3434,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
-    for phase in (check_e2e, check_batched_e2e, check_fuzz_e2e, check_storm_e2e,
-                  check_storm_planes_e2e, check_mesh_e2e, check_route_e2e, check_ckpt_e2e):
+    for phase in (check_e2e, check_sharded_sim_e2e, check_batched_e2e, check_fuzz_e2e,
+                  check_storm_e2e, check_storm_planes_e2e, check_mesh_e2e, check_route_e2e,
+                  check_ckpt_e2e):
         t0 = time.perf_counter()
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
@@ -3038,6 +3452,10 @@ def main(argv) -> int:
     paths = (
         ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
          ("apply_updates", "pb_budget", "fused_stream")),
+        # the full engine on a 4-shard mesh: each shard launches the kernels
+        # on its own rows (and the classic bootstrap's block_loop, n=8192)
+        ("SimCluster n=1024 on the shard mesh", sharded_sim_paths,
+         ("apply_updates", "pb_budget", "fused_stream", "block_loop")),
         ("1M storm", storm_headline, ("exchange",)),
         # killed mid-save and resumed: held to the 1M storm's warm run
         ("checkpointed storms", ckpt_paths, ("exchange",)),
@@ -3072,11 +3490,12 @@ def main(argv) -> int:
                     raise AssertionError("kernel %s was never launched on the %s path" % (k, name))
         check_exchange_storm_operands(report["exchange"])
         check_mesh_tile_operands(report["exchange"])
+        check_sharded_sim_tiles(report)
     kernels = []
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]
-        extra = {k: r[k] for k in ("chain_bound_ms", "new_bits_per_word", "share_of_bound", "plan")
-                 if k in r}
+        extra = {k: r[k] for k in ("chain_bound_ms", "new_bits_per_word", "share_of_bound", "plan",
+                                   "shard_tile") if k in r}
         # exchange's other timed operand sets: no new bit, the storm's own,
         # the small and ragged shapes
         for k in ("no_new_bits", "storm_operands", "ragged"):

@@ -16,7 +16,9 @@ constants, the obs-plane knobs and the kernel knobs of a JAX
 ``route_*`` functions for the routing plane (``hist`` uint32).
 ``split_scalable_state`` and ``gather_scalable_state`` cut a scalable
 state into the per-shard states of the mesh (``parallel.mesh``) and join
-them back, so a sharded run compares with either package's whole state.
+them back, so a sharded run compares with either package's whole state;
+``split_sim_state`` and ``join_sim_state`` do the same for the full
+engine's ``SimState``.
 
 The checkpoint format is the JAX package's: ``DISK_DTYPES`` names the
 numpy dtype every field of ``SimState``, ``ScalableState`` and
@@ -31,7 +33,7 @@ Nothing here imports JAX: the arrays are plain numpy.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -196,6 +198,41 @@ def gather_scalable_state(states, device, exch_rows: bool = False) -> es.Scalabl
             x = torch.cat([getattr(st, f).to(device) for st in states])
         fields[f] = None if x is None else x.to(device)
     return es.ScalableState(**fields)
+
+
+def split_sim_state(state: engine.SimState, devices) -> List[engine.SimState]:
+    """One SimState per shard: shard s holds rows ``[s*L, (s+1)*L)`` (``L =
+    n / S``) of every non-scalar field — each is node-leading, the ``[N, N,
+    R]`` record cache included, as JAX's ``_spec_for`` shards them — and a
+    copy of the scalar clock, on ``devices[s]``."""
+    shards = len(devices)
+    n = state.proc_alive.shape[0]
+    if n % shards:
+        raise ValueError("n=%d not divisible by %d shards" % (n, shards))
+    rows = n // shards
+    out = []
+    for s, dev in enumerate(devices):
+        fields = {}
+        for f in engine.SimState._fields:
+            x = getattr(state, f)
+            if x is not None and x.dim() >= 1:
+                x = x[s * rows:(s + 1) * rows]
+            fields[f] = None if x is None else x.to(dev, copy=True)
+        out.append(engine.SimState(**fields))
+    return out
+
+
+def join_sim_state(states, device) -> engine.SimState:
+    """The one SimState the shards of :func:`split_sim_state` hold, on
+    ``device``: non-scalar fields concatenated in shard order, the clock
+    from shard 0."""
+    fields = {}
+    for f in engine.SimState._fields:
+        x = getattr(states[0], f)
+        if x is not None and x.dim() >= 1:
+            x = torch.cat([getattr(st, f).to(device) for st in states])
+        fields[f] = None if x is None else x.to(device)
+    return engine.SimState(**fields)
 
 
 # ---------------------------------------------------------------------------

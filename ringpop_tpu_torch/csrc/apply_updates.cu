@@ -17,11 +17,15 @@
 // gives the per-row count and OR without a second pass.  Columns past n
 // (a partial last word) take part in the ballot with gate = 0.
 //
-// The batch axis: B clusters' planes stacked [B, N, N] run in one launch
-// of B x N blocks.  Block x is row x % N of cluster x / N: its planes'
-// row is the x-th of the flattened [B * N, N] view, so only the diagonal
+// The batch axis: B clusters' planes stacked [B, R, N] run in one launch
+// of B x R blocks.  Block x is row x % R of cluster x / R: its planes'
+// row is the x-th of the flattened [B * R, N] view, so only the diagonal
 // test (the local row) and the stamps (cluster b's now and deadline, one
-// each) read the cluster index; the per-row outputs are [B * N].
+// each) read the cluster index; the per-row outputs are [B * R].
+//
+// A shard tile: the planes may hold rows [lo, lo + R) of an [N, N]
+// cluster (R = N, lo = 0 for the whole plane).  The row offset enters
+// only where a row stands for a node id: the diagonal test c == lo + row.
 #include "common.cuh"
 
 namespace {
@@ -59,10 +63,10 @@ struct ApplyArgs {
 };
 
 __global__ void __launch_bounds__(THREADS)
-apply_updates_kernel(ApplyArgs a, int n, int words) {
-  const int flat = blockIdx.x;  // row of the flattened [B * N, N] planes
-  const int cluster = flat / n;
-  const int row = flat - cluster * n;
+apply_updates_kernel(ApplyArgs a, int n, int words, int rows, int lo) {
+  const int flat = blockIdx.x;  // row of the flattened [B * R, N] planes
+  const int cluster = flat / rows;
+  const int node = lo + flat - cluster * rows;  // the row's global node id
   const int now = a.now[cluster];
   const int deadline = a.deadline[cluster];
   const size_t base = static_cast<size_t>(flat) * n;
@@ -72,7 +76,7 @@ apply_updates_kernel(ApplyArgs a, int n, int words) {
     bool gate = false;
     if (c < n) {
       const size_t i = base + c;
-      const bool is_self = c == row;
+      const bool is_self = c == node;
       const bool rv = a.recv[i] != 0;
       const int us = a.u_status[i];
       const int ui = a.u_inc[i];
@@ -120,9 +124,11 @@ apply_updates_kernel(ApplyArgs a, int n, int words) {
 
 }  // namespace
 
-// b: the clusters stacked on the planes' leading axis (1 for one [N, N]
-// cluster), with b stamps each for now and deadline.
-RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, int b, void* stream) {
+// b: the clusters stacked on the planes' leading axis (1 for one
+// cluster), with b stamps each for now and deadline; rows: each cluster's
+// rows (n for the whole plane); lo: the global node id of its first row.
+RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, int b, int rows, int lo,
+                                         void* stream) {
   ApplyArgs a;
   a.known = static_cast<const uint8_t*>(p[IN_KNOWN]);
   a.status = static_cast<const int32_t*>(p[IN_STATUS]);
@@ -157,8 +163,8 @@ RINGPOP_EXPORT int ringpop_apply_updates(void** p, int n, int words, int b, void
   a.rows = static_cast<uint8_t*>(p[OUT_ROWS]);
   a.count = static_cast<int32_t*>(p[OUT_COUNT]);
   a.refute = static_cast<uint8_t*>(p[OUT_REFUTE]);
-  if (n <= 0 || b <= 0) return 0;
-  apply_updates_kernel<<<b * n, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, n, words);
+  if (n <= 0 || b <= 0 || rows <= 0) return 0;
+  apply_updates_kernel<<<b * rows, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, n, words, rows, lo);
   return static_cast<int>(cudaGetLastError());
 }

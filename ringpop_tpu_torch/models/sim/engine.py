@@ -31,6 +31,12 @@ What the port runs, by knob (``SimParams``):
 
 "auto" means the kernels on the card and the plain versions on the CPU.
 
+The tick is one shard's body, :func:`shard_tick`: a generator over the
+shard's observer rows that yields every read of another shard's rows as a
+collective; :func:`tick` runs it as one shard holding every row, and
+``parallel.mesh.ShardedSim`` runs S of them in lockstep.  Every kernel
+works on whole rows, so a shard launches each on its own rows.
+
 The obs planes, off by default and trajectory-neutral (written after every
 protocol phase from the masks that drove it; nothing in the protocol reads
 them, and they add no host read): ``flight_recorder`` appends event
@@ -47,6 +53,7 @@ tensors, so views taken earlier in the tick keep their values.
 from __future__ import annotations
 
 import math
+import types
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -62,7 +69,7 @@ from ringpop_tpu_torch.ops import toolkit
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
 from ringpop_tpu_torch.models.sim import flight
-from ringpop_tpu_torch.models.sim.gating import phase as _phase
+from ringpop_tpu_torch.models.sim.engine_scalable import Solo, _agreed, run_solo
 
 # status codes (== ce.STATUS_*): rank order IS override priority at equal
 # incarnation: alive < suspect < faulty < leave
@@ -232,6 +239,21 @@ def resolve_fused_tick(params: SimParams, device_type: str) -> str:
     if impl == "kernel" and device_type != "cuda":
         raise ValueError("fused_tick='kernel' needs a CUDA device (the kernels run on the card)")
     return impl
+
+
+def resolve_sharded_fused_tick(params: SimParams, device_type: str) -> str:
+    """What JAX's ``ShardedSim`` runs for ``fused_tick``, in the port's
+    terms (JAX's ``resolve_sharded_fused_tick`` through
+    ``convert.FUSED_TICK_MAP``): a ``pallas_call`` does not partition under
+    GSPMD, so JAX drops the kernels ("kernel", its "pallas") to the plain
+    twin ("plain", its "xla") on a mesh; "plain" and "off" are honoured.
+    The port's own pick on a mesh is :func:`resolve_fused_tick`'s: every
+    kernel of the tick works on whole rows, so each shard launches it on
+    its own (``parallel.mesh.ShardedSim``)."""
+    if params.fused_tick == "kernel":
+        return "plain"
+    resolved = resolve_fused_tick(params, device_type)
+    return "plain" if resolved == "kernel" else resolved
 
 
 def resolve_hash_impl(params: SimParams, device_type: str) -> str:
@@ -485,11 +507,12 @@ def init_state(
 
 
 def compute_checksums(state: SimState, universe: ce.Universe, params: SimParams):
-    """Every row's checksum from scratch ([N] int32 uint32 patterns); in
+    """Every row's checksum from scratch ([R] int32 uint32 patterns, one a
+    row of the ``[R, N]`` views: the whole cluster or a shard's rows); in
     farmhash mode the classic composition ``hash32_rows(*membership_rows(...))``,
     the reference's own definition of a membership checksum."""
     if params.checksum_mode == "fast":
-        n = state.known.shape[0]
+        n = state.known.shape[1]
         subject = torch.arange(n, dtype=torch.int32, device=state.known.device)[None, :]
         rec = record_mix(subject, state.status, state.inc)
         return u32.row_sum(torch.where(state.known, rec, 0), dim=1)
@@ -504,34 +527,60 @@ def _hash_rows(known, status, inc, universe, params):
     return fh.hash32_rows(bufs, lens, impl=resolve_hash_impl(params, known.device.type))
 
 
-def _checksums_where(state, universe, params, dirty, cached, changed):
-    """Per-row checksum with dirty-row caching: returns ``(checksum [N],
-    overflow [] int32, state)``.  A row's checksum changes only when its
-    view changed, so clean rows keep ``cached``.  Fast mode rehashes only
-    when a row is dirty (a clean row's recompute reproduces its cached
-    sum); farmhash mode runs the fused record-cache pipeline when
-    ``fused_checksum`` is "on" (and the tick tracked the changed cells),
-    else the classic recompute in the ``parity_recompute`` shape:
+def _rank(sh, count):
+    """Where this shard's rows stand in the whole cluster's row order (a
+    shard body's generator): for a local count (a [] int32), the count of
+    the shards before this one and the whole cluster's.  One shard holding
+    every row gets ``(None, count)`` and no collective."""
+    if sh.shards == 1:
+        return None, count
+    every = yield ("gather", count[None])  # [S]
+    return every[:sh.index].sum(dtype=torch.int32), every.sum(dtype=torch.int32)
+
+
+def _quota(count, before, budget: int):
+    """How many of this shard's first ``count`` rows (or cells) fall in the
+    whole cluster's first ``budget``: all of them when one shard holds
+    every row (``before`` None)."""
+    if before is None:
+        return count
+    return torch.minimum(count, (budget - before).clamp(min=0))
+
+
+def _checksums_where(sh, state, universe, params, dirty, cached, changed):
+    """Per-row checksum with dirty-row caching (a shard body's generator):
+    returns ``(checksum [R], overflow [] int32, state)`` for the shard's
+    rows.  A row's checksum changes only when its view changed, so clean
+    rows keep ``cached``.  Fast mode rehashes only when a row is dirty (a
+    clean row's recompute reproduces its cached sum); farmhash mode runs
+    the fused record-cache pipeline when ``fused_checksum`` is "on" (and
+    the tick tracked the changed cells), else the classic recompute in the
+    ``parity_recompute`` shape:
 
     - "full": every row, straight-line (a clean row reproduces its value);
-    - "bounded": ONE K-row chunk (``dirty_batch``) of the first K dirty
-      rows; more dirty rows overflow (the count is returned) and
-      SimCluster replays under an exact shape;
+    - "bounded": ONE K-row chunk (``dirty_batch``) of the whole cluster's
+      first K dirty rows; more dirty rows overflow (the count is returned)
+      and the cluster replays under an exact shape;
     - "gated" (and "auto"): K-row chunks over every dirty row, a Python
-      loop that costs one host read of the dirty count."""
+      loop that costs one host read of the dirty counts per call.
+
+    The chunks and the overflow count are the whole cluster's: a shard
+    hashes its rows of each chunk, so every shard count gives the same
+    checksums and overflow."""
     if resolve_fused_checksum(params) == "on" and changed is not None:
-        return _fused_checksums_where(state, universe, params, dirty, cached, changed)
+        return (yield from _fused_checksums_where(sh, state, universe, params, dirty, cached,
+                                                  changed))
     no_overflow = torch.zeros((), dtype=torch.int32, device=cached.device)
+    gate = params.gate_phases
     if params.checksum_mode == "fast":
         n_dirty = dirty.sum(dtype=torch.int32)
-
-        def recompute_all(_):
-            return torch.where(dirty, compute_checksums(state, universe, params), cached)
-
-        out = _phase(params.gate_phases, n_dirty > 0, recompute_all, lambda _: cached, None)
+        if (yield from _agreed(gate, n_dirty > 0)):
+            out = torch.where(dirty, compute_checksums(state, universe, params), cached)
+        else:
+            out = cached
         return out, no_overflow, state
 
-    n = params.n
+    n, rows = params.n, sh.rows
     shape = params.parity_recompute
     if shape == "auto":
         shape = resolve_parity_recompute()
@@ -539,48 +588,56 @@ def _checksums_where(state, universe, params, dirty, cached, changed):
         return compute_checksums(state, universe, params), no_overflow, state
     n_dirty = dirty.sum(dtype=torch.int32)
     k = min(params.dirty_batch, n)
-    lanes = torch.arange(k, dtype=torch.int32, device=cached.device)
+    kl = min(k, rows)
+    lanes = torch.arange(kl, dtype=torch.int32, device=cached.device)
     if shape == "bounded":
-
-        def recompute_bounded(_):
-            idx = _nonzero_static(dirty, k, 0)
+        before, total = yield from _rank(sh, n_dirty)
+        if (yield from _agreed(gate, total > 0)):
+            idx = _nonzero_static(dirty, kl, 0)
             fresh = _hash_rows(state.known[idx], state.status[idx], state.inc[idx],
                                universe, params)
-            tgt = torch.where(lanes < n_dirty, idx, n)
-            return _scatter_rows_drop(cached, tgt, fresh)
-
-        out = _phase(params.gate_phases, n_dirty > 0, recompute_bounded, lambda _: cached, None)
-        return out, (n_dirty - k).clamp(min=0), state
+            tgt = torch.where(lanes < _quota(n_dirty, before, k), idx, rows)
+            out = _scatter_rows_drop(cached, tgt, fresh)
+        else:
+            out = cached
+        return out, (total - k).clamp(min=0), state
     if shape != "gated":
         raise ValueError("parity_recompute must be auto|gated|bounded|full, got %r" % (shape,))
 
-    # chunk c covers the dirty rows of rank [cK, cK + K); a chunk's padded
-    # lanes target the dropped slot n
-    nd = int(n_dirty)
+    # chunk c covers the whole cluster's dirty rows of rank [cK, cK + K);
+    # this shard holds ranks [before, before + mine); a chunk's padded lanes
+    # target the dropped slot R
+    counts = yield ("counts", n_dirty)
+    before, nd, mine = sum(counts[:sh.index]), sum(counts), counts[sh.index]
     rank = torch.cumsum(dirty.to(torch.int32), 0) - 1
     out = cached
-    for lo in range(0, nd, k):
-        sel = dirty & (rank >= lo) & (rank < lo + k)
-        idx = _nonzero_static(sel, k, 0)
+    for c0 in range(0, nd, k):
+        a = max(c0, before) - before
+        b = min(c0 + k, before + mine) - before
+        if a >= b:
+            continue
+        sel = dirty & (rank >= a) & (rank < b)
+        idx = _nonzero_static(sel, kl, 0)
         fresh = _hash_rows(state.known[idx], state.status[idx], state.inc[idx], universe, params)
-        tgt = torch.where(lanes < min(nd - lo, k), idx, n)
+        tgt = torch.where(lanes < b - a, idx, rows)
         out = _scatter_rows_drop(out, tgt, fresh)
     return out, no_overflow, state
 
 
-def _fused_checksums_where(state, universe, params, dirty, cached, changed):
-    """Fused-pipeline recompute: bounded changed-cell re-encode into the
-    record cache, then the dirty rows hashed by the stream kernel.
-    Shapes: "bounded" (one cell chunk + one row chunk; more than
-    ``cell_batch`` changed cells or ``dirty_batch`` dirty rows overflow and
-    SimCluster replays) or "full" (dense re-encode of every cell, the exact
-    replay shape; "auto" and "gated" mean "full" here, as in the JAX
-    engine)."""
-    n = params.n
+def _fused_checksums_where(sh, state, universe, params, dirty, cached, changed):
+    """Fused-pipeline recompute (a shard body's generator): bounded
+    changed-cell re-encode into the record cache, then the dirty rows
+    hashed by the stream kernel.  Shapes: "bounded" (one cell chunk + one
+    row chunk of the whole cluster; more than ``cell_batch`` changed cells
+    or ``dirty_batch`` dirty rows overflow and the cluster replays) or
+    "full" (dense re-encode of every cell, the exact replay shape; "auto"
+    and "gated" mean "full" here, as in the JAX engine)."""
+    n, rows = params.n, sh.rows
     dev = cached.device
+    i32 = torch.int32
     r = fc.record_width(universe, params.max_digits)
     impl = resolve_hash_impl(params, dev.type)
-    no_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    no_overflow = torch.zeros((), dtype=i32, device=dev)
     if state.rec_bytes is None:
         raise ValueError(
             "farmhash mode needs the record cache: build the state with "
@@ -599,16 +656,25 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
     if shape != "bounded":
         raise ValueError("parity_recompute must be auto|bounded|full, got %r" % (shape,))
 
-    n_dirty = dirty.sum(dtype=torch.int32)
+    n_dirty = dirty.sum(dtype=i32)
     k = min(params.dirty_batch, n)
+    kl = min(k, rows)
     cbatch = min(params.cell_batch, n * n)
+    cells = rows * n
+    cbl = min(cbatch, cells)
+    before, total = yield from _rank(sh, n_dirty)
 
-    def update_and_hash(_):
-        # 1. re-encode up to cell_batch changed cells into the cache
+    def update_and_hash():
+        # 1. re-encode the shard's share of the whole cluster's first
+        # cell_batch changed cells (row-major, shards in order) into the cache
         flat = changed.reshape(-1)
-        n_changed = flat.sum(dtype=torch.int32)
-        cidx = _nonzero_static(flat, cbatch, n * n)
-        crow = torch.div(cidx, n, rounding_mode="floor").clamp(0, n - 1)
+        n_changed = flat.sum(dtype=i32)
+        cbefore, c_total = yield from _rank(sh, n_changed)
+        cidx = _nonzero_static(flat, cbl, cells)
+        if cbefore is not None:
+            lane = torch.arange(cbl, dtype=i32, device=dev)
+            cidx = torch.where(lane < _quota(n_changed, cbefore, cbatch), cidx, cells)
+        crow = torch.div(cidx, n, rounding_mode="floor").clamp(0, rows - 1)
         ccol = (cidx % n).clamp(0, n - 1)
         cell_b, cell_l = fc.member_records_at(
             universe,
@@ -618,31 +684,31 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
             state.known[crow, ccol],
             params.max_digits,
         )
-        rec_b = _scatter_rows_drop(state.rec_bytes.reshape(n * n, r), cidx, cell_b).reshape(n, n, r)
-        rec_l = _scatter_rows_drop(state.rec_len.reshape(n * n), cidx, cell_l).reshape(n, n)
-        cell_over = (n_changed - cbatch).clamp(min=0)
+        rec_b = _scatter_rows_drop(state.rec_bytes.reshape(cells, r), cidx, cell_b).reshape(
+            rows, n, r)
+        rec_l = _scatter_rows_drop(state.rec_len.reshape(cells), cidx, cell_l).reshape(rows, n)
+        cell_over = (c_total - cbatch).clamp(min=0)
 
         # 2. hash the dirty rows' cached records; k == n hashes every row
         # in natural order (rehashing a clean row is bit-neutral)
         if k == n:
             fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b), rec_l, impl=impl)
             return torch.where(dirty, fresh, cached), cell_over, rec_b, rec_l
-        idx = _nonzero_static(dirty, k, 0)
-        lane_ok = torch.arange(k, dtype=torch.int32, device=dev) < n_dirty
+        idx = _nonzero_static(dirty, kl, 0)
+        lane_ok = torch.arange(kl, dtype=i32, device=dev) < _quota(n_dirty, before, k)
         fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b[idx]), rec_l[idx], impl=impl)
-        tgt = torch.where(lane_ok, idx, n)
+        tgt = torch.where(lane_ok, idx, rows)
         return _scatter_rows_drop(cached, tgt, fresh), cell_over, rec_b, rec_l
 
-    out, cell_over, rec_b, rec_l = _phase(
+    out, cell_over, rec_b, rec_l = yield from _phase(
         params.gate_phases,
-        n_dirty > 0,
+        total > 0,
         update_and_hash,
-        lambda _: (cached, no_overflow, state.rec_bytes, state.rec_len),
-        None,
+        lambda: (cached, no_overflow, state.rec_bytes, state.rec_len),
     )
     return (
         out,
-        (n_dirty - k).clamp(min=0) + cell_over,
+        (total - k).clamp(min=0) + cell_over,
         state._replace(rec_bytes=rec_b, rec_len=rec_l),
     )
 
@@ -651,14 +717,16 @@ def _fused_checksums_where(state, universe, params, dirty, cached, changed):
 # update application
 
 
-def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_inc):
-    """Vectorized Member.evaluateUpdate over (observer, subject) pairs.
-    Returns ``(state', applied, started, stopped, refuted)``, all [N, N]
-    bool: suspicion stops are applied here, starts are returned for the
-    caller to stamp with the deadline; refuted are the self-refute cells."""
-    n = state.known.shape[0]
+def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_inc, lo: int = 0):
+    """Vectorized Member.evaluateUpdate over (observer, subject) pairs, on
+    ``[R, N]`` views of rows ``[lo, lo + R)`` (the whole cluster: ``lo=0``,
+    ``R = N``).  Returns ``(state', applied, started, stopped, refuted)``,
+    all [R, N] bool: suspicion stops are applied here, starts are returned
+    for the caller to stamp with the deadline; refuted are the self-refute
+    cells."""
+    rows, n = state.known.shape
     ids = torch.arange(n, dtype=torch.int32, device=state.known.device)
-    is_self = ids[:, None] == ids[None, :]
+    is_self = ids[lo:lo + rows, None] == ids[None, :]
     refute = recv_mask & is_self & ((u_status == SUSPECT) | (u_status == FAULTY))
     eff_status = torch.where(refute, ALIVE, u_status)
     eff_inc = torch.where(refute, now, u_inc)
@@ -690,10 +758,23 @@ def _apply_updates(state, now, recv_mask, u_status, u_inc, u_source, u_source_in
     )
 
 
+def _classic_apply(lo: int, state, *update):
+    """:func:`_apply_updates` on rows ``[lo, lo + R)``; the whole cluster's
+    call (``lo=0``) keeps the rule's seven-argument form."""
+    return _apply_updates(state, *update, lo=lo) if lo else _apply_updates(state, *update)
+
+
+def _diag(x: torch.Tensor, lo: int) -> torch.Tensor:
+    """The self cells of ``[R, N]`` rows ``[lo, lo + R)``: ``x[r, lo + r]``
+    (a view; the whole cluster's ``x.diagonal()``)."""
+    return x.narrow(1, lo, x.shape[0]).diagonal()
+
+
 def _apply_site(ft, state, union, recv_mask, u_status, u_inc, u_source, u_source_inc,
-                now, deadline, *, want_masks, want_count=False, want_refute=True):
-    """One membership-update application site.  Returns ``(state, union,
-    applied_mask_or_None, applied_rows, refute_diag, applied_count)``.
+                now, deadline, *, want_masks, want_count=False, want_refute=True, lo=0):
+    """One membership-update application site on ``[R, N]`` rows ``[lo, lo +
+    R)``.  Returns ``(state, union, applied_mask_or_None, applied_rows,
+    refute_diag, applied_count)``.
 
     ``ft == "off"`` is the classic shape: ``_apply_updates`` plus the
     caller-side deadline stamp of new suspicion timers (a no-op at the
@@ -702,8 +783,8 @@ def _apply_site(ft, state, union, recv_mask, u_status, u_inc, u_source, u_source
     OR and the count from the mask.  Otherwise the fused op runs (its
     kernel or plain version), which folds the stamp in."""
     if ft == "off":
-        st2, applied, started, _, refuted = _apply_updates(
-            state, now, recv_mask, u_status, u_inc, u_source, u_source_inc
+        st2, applied, started, _, refuted = _classic_apply(
+            lo, state, now, recv_mask, u_status, u_inc, u_source, u_source_inc
         )
         st2 = st2._replace(susp_deadline=torch.where(started, deadline, st2.susp_deadline))
         return (
@@ -711,7 +792,7 @@ def _apply_site(ft, state, union, recv_mask, u_status, u_inc, u_source, u_source
             union,
             applied,
             applied.any(dim=1),
-            refuted.diagonal(),
+            _diag(refuted, lo),
             applied.sum(dtype=torch.int32) if want_count else None,
         )
     ast = fap.ApplyState(*(getattr(state, f) for f in fap.ApplyState._fields))
@@ -729,6 +810,7 @@ def _apply_site(ft, state, union, recv_mask, u_status, u_inc, u_source, u_source
         want_masks=want_masks,
         want_count=want_count,
         want_refute=want_refute,
+        lo=lo,
     )
     return (
         state._replace(**out.state._asdict()),
@@ -753,15 +835,61 @@ def _budget(ft, active, pb, nbump, max_pb, hits=None, want_content=True):
 # the tick
 
 
+def _phase(gate: bool, pred, true_fn, false_fn, *ops):
+    """A gated phase in a shard body (a generator): ``true_fn(*ops)`` if
+    the predicate, agreed across the shards, holds, else
+    ``false_fn(*ops)``; ungated, ``true_fn`` always runs (its TRUE branch
+    is a masked no-op on empty inputs, so both programs agree bit for
+    bit).  ``true_fn`` may itself be a shard body generator."""
+    if (yield from _agreed(gate, pred)):
+        out = true_fn(*ops)
+        if isinstance(out, types.GeneratorType):
+            out = yield from out
+        return out
+    return false_fn(*ops)
+
+
+def _fetch(idx, *planes):
+    """Rows ``idx`` (global node ids) of node-leading planes, from the
+    shards that hold them (a shard body's generator)."""
+    return (yield ("fetch", (idx, planes)))
+
+
 def tick(
     state: SimState,
     inputs: TickInputs,
     params: SimParams,
     universe: ce.Universe,
 ) -> tuple:
-    """One protocol period for every node: ``(state', TickMetrics)``."""
+    """One protocol period for every node: ``(state', TickMetrics)`` — the
+    shard body :func:`shard_tick` run as one shard holding every row."""
+    return run_solo(shard_tick(Solo(params.n), state, inputs, params, universe))
+
+
+def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
+               universe: ce.Universe):
+    """The tick of one shard (a generator), in the form of
+    ``engine_scalable.shard_tick``: ``state`` and ``inputs`` hold the
+    shard's rows ``[sh.lo, sh.lo + sh.rows)`` of every node-leading field
+    (observer rows of the ``[N, N]`` planes) and the scalar clock.  Every
+    read of another shard's rows is a collective the body yields as ``(op,
+    payload)``: ``gather`` (an ``[N]`` vector all-gathered), ``fetch``
+    (rows of sharded planes by global node id, from their owners),
+    ``rs_max``/``rs_min``/``rs_any``/``rs_sum`` (a reduce-scatter: the
+    shards' ``[N, ...]`` partials combined, each shard receiving its own
+    rows — the segment reductions onto receivers and the writes into other
+    nodes' rows), ``sum`` (elementwise across shards, of a tensor or a
+    tuple of them), ``pred`` (the agreed predicate of a gated phase) and
+    ``counts`` (every shard's count, read on the host once).  Every kernel
+    of the tick works on whole rows, so each shard launches it on its own.
+    :func:`tick` is one shard holding every node; ``parallel.mesh.
+    ShardedSim`` runs S bodies in lockstep.  Returns the shard's ``(state,
+    TickMetrics)``; the metrics are whole-cluster values."""
     check_ported(params)
     n = params.n
+    rows, lo = sh.rows, sh.lo
+    if sh.shards > 1 and (params.flight_recorder or params.histograms):
+        raise ValueError("the flight recorder and the histograms are not sharded yet")
     dev = state.known.device
     gate = params.gate_phases
     ft = resolve_fused_tick(params, dev.type)
@@ -775,10 +903,10 @@ def tick(
     dense = want_masks or not ft_on
     i32, b8 = torch.int32, torch.bool
     zero_i = torch.zeros((), dtype=i32, device=dev)
-    zeros_n = _zeros(n, b8, dev)
+    zeros_n = _zeros(rows, b8, dev)
     now = state.tick_index + 2  # this tick's incarnation stamp
     ids = torch.arange(n, dtype=i32, device=dev)
-    node = ids[:, None]
+    node = ids[lo:lo + rows, None]  # the shard's rows' node ids
     subject = ids[None, :]
     is_self = node == subject
     tick_next = state.tick_index + 1
@@ -799,6 +927,10 @@ def tick(
         gossip_on=state.gossip_on | rv,
         tick_index=tick_next,
     )
+    # every node's liveness and partition, read at subject, target and
+    # ping-req member ids (neither changes after phase 0)
+    alive_all = yield ("gather", proc_alive)
+    partition_all = yield ("gather", partition)
 
     def _revive_reset(state):
         r = rv[:, None]
@@ -810,15 +942,15 @@ def tick(
             susp_deadline=torch.where(r, -1, state.susp_deadline),
         )
 
-    state = _phase(gate, rv.any(), _revive_reset, lambda s: s, state)
+    state = yield from _phase(gate, rv.any(), _revive_reset, lambda s: s, state)
 
     # ---- phase 0.5: graceful leave ------------------------------------
     lv = zeros_n
     if inputs.leave is not None:
-        self_status = state.status.diagonal()
+        self_status = _diag(state.status, lo)
         lv = inputs.leave & state.proc_alive & state.ready & (self_status != LEAVE)
         lv_mask = lv[:, None] & is_self
-        own_inc = state.inc.diagonal()[:, None]
+        own_inc = _diag(state.inc, lo)[:, None]
         state = state._replace(
             status=torch.where(lv_mask, LEAVE, state.status),
             gossip_on=state.gossip_on & ~lv,
@@ -832,7 +964,7 @@ def tick(
 
     # rejoin of a left node: alive with a fresh incarnation, gossip back on
     rejoin = (
-        inputs.join & state.proc_alive & state.ready & (state.status.diagonal() == LEAVE)
+        inputs.join & state.proc_alive & state.ready & (_diag(state.status, lo) == LEAVE)
     )
 
     def _rejoin_write(state):
@@ -849,21 +981,21 @@ def tick(
             ch_pb=torch.where(rj, 0, state.ch_pb),
         )
 
-    state = _phase(gate, rejoin.any(), _rejoin_write, lambda s: s, state)
+    state = yield from _phase(gate, rejoin.any(), _rejoin_write, lambda s: s, state)
 
     # ---- phase 1: join/bootstrap --------------------------------------
     joiner = (inputs.join | rv) & state.proc_alive & ~state.ready
-    # packed [N, ceil(N/32)] applied-cells accumulator (toolkit layout)
-    union0 = _zeros((n, toolkit.packed_width(n)), i32, dev) if ft_on else None
+    # packed [R, ceil(N/32)] applied-cells accumulator (toolkit layout)
+    union0 = _zeros((rows, toolkit.packed_width(n)), i32, dev) if ft_on else None
 
     def _join_phase(state):
         can_join = (
             joiner[:, None]
-            & state.proc_alive[None, :]
+            & alive_all[None, :]
             & ~is_self
-            & (partition[:, None] == partition[None, :])
+            & (partition[:, None] == partition_all[None, :])
         )
-        jrand = _uniform(state.rng, (n, n), salt=101)
+        jrand = _uniform(state.rng, (rows, n), salt=101)
         jscore = torch.where(can_join, jrand, 2.0)
         jorder = _smallest_k(jscore, params.join_size)
         jvalid = torch.gather(jscore, 1, jorder) < 1.5
@@ -871,9 +1003,8 @@ def tick(
         for k in range(params.join_size):
             tgt = jorder[:, k]
             ok = jvalid[:, k] & joiner
-            t_known = state.known[tgt]
-            t_status = state.status[tgt]
-            t_inc = state.inc[tgt]
+            t_known, t_status, t_inc = yield from _fetch(tgt, state.known, state.status,
+                                                          state.inc)
             take = ok[:, None] & t_known
             better = take & (
                 ~known_j | (_pack_key(t_inc, t_status) > _pack_key(inc_j, status_j))
@@ -898,26 +1029,30 @@ def tick(
             ch_inc=torch.where(learned, merged_inc, state.ch_inc),
             ch_source=torch.where(learned, node, state.ch_source),
             ch_source_inc=torch.where(
-                learned, merged_inc.diagonal()[:, None], state.ch_source_inc
+                learned, _diag(merged_inc, lo)[:, None], state.ch_source_inc
             ),
             ch_pb=torch.where(learned, 0, state.ch_pb),
         )
-        # contacted nodes makeAlive(joiner)
+        # contacted nodes makeAlive(joiner): a write into the contacted
+        # nodes' rows at the joiners' columns, reduce-scattered to the rows'
+        # shards
         ja_mask = _zeros((n, n), b8, dev)
-        cols = torch.arange(n, device=dev)
+        cols = torch.arange(lo, lo + rows, device=dev)
         for k in range(params.join_size):
             upd = _zeros((n, n), b8, dev).index_put(
                 (jorder[:, k], cols), jvalid[:, k] & joined
             )
             ja_mask = ja_mask | upd
-        self_inc = state.inc.diagonal()[None, :].expand(n, n)
-        state, ja_applied, _, _, _ = _apply_updates(
+        ja_mask = yield ("rs_any", ja_mask)
+        self_inc = (yield ("gather", _diag(state.inc, lo)))[None, :].expand(rows, n)
+        state, ja_applied, _, _, _ = _classic_apply(
+            lo,
             state,
             now,
             ja_mask,
-            torch.full((n, n), ALIVE, dtype=i32, device=dev),
+            torch.full((rows, n), ALIVE, dtype=i32, device=dev),
             self_inc,
-            subject.expand(n, n),
+            subject.expand(rows, n),
             self_inc,
         )
         return (
@@ -930,14 +1065,14 @@ def tick(
             union0 | toolkit.pack_bool_rows(ja_applied) if ft_on else union0,
         )
 
-    state, joined, ja_applied, ja_rows, union = _phase(
+    state, joined, ja_applied, ja_rows, union = yield from _phase(
         gate,
         joiner.any(),
         _join_phase,
         lambda s: (
             s,
             zeros_n,
-            _zeros((n, n), b8, dev) if dense else None,
+            _zeros((rows, n), b8, dev) if dense else None,
             zeros_n,
             union0,
         ),
@@ -969,7 +1104,7 @@ def tick(
     # what each sender advertises in its ping body: last tick's checksum
     # and its self-incarnation at message-build time
     advertised_checksum = state.checksum
-    sent_self_inc = state.inc.diagonal()
+    sent_self_inc = _diag(state.inc, lo)
 
     # ---- phase 2: target selection (round-robin iterator) -------------
     participating = state.proc_alive & state.ready & state.gossip_on
@@ -988,14 +1123,16 @@ def tick(
         participating & has_target, (state.iter_pos + first_k + 1) % n, state.iter_pos
     )
     # reshuffle on wrap: rows re-drawn as affine re-indexings of one shared
-    # hashed base permutation (see the JAX engine for the derivation)
+    # hashed base permutation (see the JAX engine for the derivation); the
+    # base is drawn from every node's key, so its draws are all-gathered
     resh = wrapped & participating
     coprimes, coprime_invs = _coprimes_of(n)
 
     def _reshuffled(_):
-        base = torch.argsort(_uniform(state.rng, (n,), salt=77), stable=True)
+        draws = yield ("gather", _uniform(state.rng, (rows,), salt=77))
+        base = torch.argsort(draws, stable=True)
         base_inv = _zeros(n, i32, dev).index_put((base,), ids)
-        r = _uniform(state.rng, (n, 2), salt=7)
+        r = _uniform(state.rng, (rows, 2), salt=7)
         k_cop = len(coprimes)
         a_idx = (r[:, 0] * k_cop).to(i32).clamp(0, k_cop - 1)
         a_inv = torch.as_tensor(coprime_invs, device=dev)[a_idx.long()]
@@ -1012,7 +1149,7 @@ def tick(
             idx = x % n
         return torch.where(resh[:, None], idx, state.perm_inv)
 
-    perm_inv = _phase(gate, resh.any(), _reshuffled, lambda _: state.perm_inv, None)
+    perm_inv = yield from _phase(gate, resh.any(), _reshuffled, lambda _: state.perm_inv, None)
     state = state._replace(perm_inv=perm_inv, iter_pos=iter_pos)
     valid_send = target >= 0
 
@@ -1032,19 +1169,19 @@ def tick(
         state = state._replace(ch_pb=ch_pb, ch_active=state.ch_active & ~over)
         return state, bump & ~over, over.sum(dtype=i32)
 
-    state, sendable, pb_drops_send = _phase(
+    state, sendable, pb_drops_send = yield from _phase(
         gate,
         state.ch_active.any(),
         _sender_piggyback,
-        lambda s: (s, _zeros((n, n), b8, dev), zero_i),
+        lambda s: (s, _zeros((rows, n), b8, dev), zero_i),
         state,
     )
 
     # ---- phase 4: delivery mask ---------------------------------------
     tclip = target.clamp(0, n - 1).to(torch.int64)
-    loss = _uniform(state.rng, (n,), salt=13) < params.packet_loss
-    tgt_ok = valid_send & state.proc_alive[tclip]
-    conn = valid_send & (partition == partition[tclip])
+    loss = _uniform(state.rng, (rows,), salt=13) < params.packet_loss
+    tgt_ok = valid_send & alive_all[tclip]
+    conn = valid_send & (partition == partition_all[tclip])
     delivered = valid_send & tgt_ok & conn & ~loss
 
     # ---- phase 5: receivers apply ping changes ------------------------
@@ -1053,33 +1190,37 @@ def tick(
     deadline = tick_next + params.suspicion_ticks
 
     def _receive_phase(state, union):
+        # each sender's row folds onto its target's row: a segment
+        # reduction over the senders, reduce-scattered to the receivers
         keys = torch.where(msg_content, _pack_key(state.ch_inc, state.ch_status), -1)
-        recv_key = _segment_reduce(keys, seg, n, "amax", INT32_MIN)
+        recv_key = yield ("rs_max", _segment_reduce(keys, seg, n, "amax", INT32_MIN))
         recv_mask = recv_key >= 0
         # winning sender (lowest index among ties) recovers source fields
-        is_winner = (keys == recv_key[tclip]) & msg_content
-        sender_ids = node.expand(n, n)
-        winner_sender = _segment_reduce(
+        (recv_at_target,) = yield from _fetch(tclip, recv_key)
+        is_winner = (keys == recv_at_target) & msg_content
+        sender_ids = node.expand(rows, n)
+        winner_sender = yield ("rs_min", _segment_reduce(
             torch.where(is_winner, sender_ids, n), seg, n, "amin", INT32_MAX
-        )
-        final_w = is_winner & (sender_ids == winner_sender[tclip])
-        u_source = _segment_reduce(
+        ))
+        (winner_at_target,) = yield from _fetch(tclip, winner_sender)
+        final_w = is_winner & (sender_ids == winner_at_target)
+        u_source = yield ("rs_max", _segment_reduce(
             torch.where(final_w, state.ch_source, INT32_MIN), seg, n, "amax", INT32_MIN
-        )
-        u_source_inc = _segment_reduce(
+        ))
+        u_source_inc = yield ("rs_max", _segment_reduce(
             torch.where(final_w, state.ch_source_inc, INT32_MIN), seg, n, "amax", INT32_MIN
-        )
-        state, union, applied, rows, refute_diag, _ = _apply_site(
+        ))
+        state, union, applied, applied_rows, refute_diag, _ = _apply_site(
             ft, state, union, recv_mask, recv_key % 4, torch.div(recv_key, 4, rounding_mode="floor"),
-            u_source, u_source_inc, now, deadline, want_masks=want_masks,
+            u_source, u_source_inc, now, deadline, want_masks=want_masks, lo=lo,
         )
-        return state, union, applied, rows, refute_diag
+        return state, union, applied, applied_rows, refute_diag
 
-    state, union, applied_ping, rows_ping, refute_recv = _phase(
+    state, union, applied_ping, rows_ping, refute_recv = yield from _phase(
         gate,
         msg_content.any(),
         _receive_phase,
-        lambda s, u: (s, u, _zeros((n, n), b8, dev) if dense else None, zeros_n, zeros_n),
+        lambda s, u: (s, u, _zeros((rows, n), b8, dev) if dense else None, zeros_n, zeros_n),
         state,
         union,
     )
@@ -1089,16 +1230,19 @@ def tick(
 
     # receiver-side piggyback bump: one issueAsReceiver per delivered ping,
     # origin-filtered before the bump (dissemination.js:147-160)
-    nrecv = _segment_sum(delivered.to(i32), seg, n)
+    nrecv = yield ("rs_sum", _segment_sum(delivered.to(i32), seg, n))
 
     def _receiver_bump(state):
+        delivered_all = yield ("gather", delivered)
+        target_all = yield ("gather", target)
+        sent_inc_all = yield ("gather", sent_self_inc)
         src_c = state.ch_source.clamp(0, n - 1).to(torch.int64)
         origin_hit = (
             state.ch_active
             & (state.ch_source >= 0)
-            & delivered[src_c]
-            & (target[src_c] == node)
-            & (state.ch_source_inc == sent_self_inc[src_c])
+            & delivered_all[src_c]
+            & (target_all[src_c] == node)
+            & (state.ch_source_inc == sent_inc_all[src_c])
         )
         if ft_on:
             out = _budget(ft, state.ch_active, state.ch_pb, nrecv, max_pb, origin_hit.to(i32))
@@ -1110,53 +1254,57 @@ def tick(
         state = state._replace(ch_pb=ch_pb, ch_active=state.ch_active & ~over_r)
         return state, bump_r & ~over_r, over_r.sum(dtype=i32)
 
-    state, respondable, pb_drops_recv = _phase(
+    state, respondable, pb_drops_recv = yield from _phase(
         gate,
         state.ch_active.any(),
         _receiver_bump,
-        lambda s: (s, _zeros((n, n), b8, dev), zero_i),
+        lambda s: (s, _zeros((rows, n), b8, dev), zero_i),
         state,
     )
 
     # mid-tick checksums (receivers respond with post-update checksums)
-    mid_checksum, mid_overflow, state = _checksums_where(
-        state, universe, params, dirty, state.checksum, changed_mid
+    mid_checksum, mid_overflow, state = yield from _checksums_where(
+        sh, state, universe, params, dirty, state.checksum, changed_mid
     )
+    mid_all = yield ("gather", mid_checksum)
 
     # ---- phase 6: responses (issueAsReceiver + full-sync) -------------
-    cur_self_inc = state.inc.diagonal()
+    cur_self_inc = _diag(state.inc, lo)
+    respondable_any = yield ("gather", respondable.any(dim=1))
     resp_possible = delivered & (
-        respondable.any(dim=1)[tclip] | (mid_checksum[tclip] != advertised_checksum)
+        respondable_any[tclip] | (mid_all[tclip] != advertised_checksum)
     )
 
     def _response_phase(state, union):
-        resp_filter = (state.ch_source[tclip] == node) & (
-            state.ch_source_inc[tclip] == sent_self_inc[:, None]
-        )
-        resp_mask = delivered[:, None] & respondable[tclip] & ~resp_filter
+        # the target's row of every plane the response reads
+        (t_source, t_source_inc, t_respondable, t_known, t_status, t_inc, t_ch_status,
+         t_ch_inc) = yield from _fetch(
+            tclip, state.ch_source, state.ch_source_inc, respondable, state.known,
+            state.status, state.inc, state.ch_status, state.ch_inc)
+        self_inc_all = yield ("gather", _diag(state.inc, lo))
+        resp_filter = (t_source == node) & (t_source_inc == sent_self_inc[:, None])
+        resp_mask = delivered[:, None] & t_respondable & ~resp_filter
         any_resp_change = resp_mask.any(dim=1)
-        full_sync = delivered & ~any_resp_change & (mid_checksum[tclip] != advertised_checksum)
-        fs_mask = full_sync[:, None] & state.known[tclip]
-        r_status = torch.where(fs_mask, state.status[tclip], state.ch_status[tclip])
-        r_inc = torch.where(fs_mask, state.inc[tclip], state.ch_inc[tclip])
-        r_source = torch.where(fs_mask, target[:, None], state.ch_source[tclip])
-        r_source_inc = torch.where(
-            fs_mask, state.inc[tclip, tclip][:, None], state.ch_source_inc[tclip]
-        )
-        state, union, applied, rows, refute_diag, _ = _apply_site(
+        full_sync = delivered & ~any_resp_change & (mid_all[tclip] != advertised_checksum)
+        fs_mask = full_sync[:, None] & t_known
+        r_status = torch.where(fs_mask, t_status, t_ch_status)
+        r_inc = torch.where(fs_mask, t_inc, t_ch_inc)
+        r_source = torch.where(fs_mask, target[:, None], t_source)
+        r_source_inc = torch.where(fs_mask, self_inc_all[tclip][:, None], t_source_inc)
+        state, union, applied, applied_rows, refute_diag, _ = _apply_site(
             ft, state, union, resp_mask | fs_mask, r_status, r_inc, r_source,
-            r_source_inc, now, deadline, want_masks=want_masks,
+            r_source_inc, now, deadline, want_masks=want_masks, lo=lo,
         )
         fs_rec = fs_mask.sum(dim=1, dtype=i32)
-        return state, union, applied, rows, full_sync, refute_diag, fs_rec
+        return state, union, applied, applied_rows, full_sync, refute_diag, fs_rec
 
-    state, union, applied_resp, rows_resp, full_sync, refute_resp, fs_rec_rows = _phase(
+    state, union, applied_resp, rows_resp, full_sync, refute_resp, fs_rec_rows = yield from _phase(
         gate,
         resp_possible.any(),
         _response_phase,
         lambda s, u: (
-            s, u, _zeros((n, n), b8, dev) if dense else None,
-            zeros_n, zeros_n, zeros_n, _zeros(n, i32, dev),
+            s, u, _zeros((rows, n), b8, dev) if dense else None,
+            zeros_n, zeros_n, zeros_n, _zeros(rows, i32, dev),
         ),
         state,
         union,
@@ -1168,19 +1316,19 @@ def tick(
     K = params.ping_req_size
 
     def _ping_req_phase(state, union):
-        pr_rand = _uniform(state.rng, (n, n), salt=29)
+        pr_rand = _uniform(state.rng, (rows, n), salt=29)
         pr_ok = pingable & (subject != target[:, None]) & need_pr[:, None]
         pr_score = torch.where(pr_ok, pr_rand, 2.0)
         pr_sel = _smallest_k(pr_score, K)
         pr_valid = torch.gather(pr_score, 1, pr_sel) < 1.5
 
-        m_alive = state.proc_alive[pr_sel]
-        m_conn = partition[pr_sel] == partition[:, None]
-        loss1 = _uniform(state.rng, (n, K), salt=31) < params.packet_loss
+        m_alive = alive_all[pr_sel]
+        m_conn = partition_all[pr_sel] == partition[:, None]
+        loss1 = _uniform(state.rng, (rows, K), salt=31) < params.packet_loss
         responder = pr_valid & m_alive & m_conn & ~loss1
-        t_alive = need_pr & state.proc_alive[tclip]
-        t_conn = partition[pr_sel] == partition[tclip][:, None]
-        loss2 = _uniform(state.rng, (n, K), salt=37) < params.packet_loss
+        t_alive = need_pr & alive_all[tclip]
+        t_conn = partition_all[pr_sel] == partition_all[tclip][:, None]
+        loss2 = _uniform(state.rng, (rows, K), salt=37) < params.packet_loss
         reached = responder & t_alive[:, None] & t_conn & ~loss2
 
         any_responded = responder.any(dim=1)
@@ -1188,7 +1336,7 @@ def tick(
         mark_suspect = need_pr & any_responded & ~target_reached
         pr_inconclusive = (need_pr & ~any_responded).sum(dtype=i32)
         ping_req_count = (need_pr[:, None] & pr_valid).sum(dtype=i32)
-        pr_self_inc = state.inc.diagonal()
+        pr_self_inc = _diag(state.inc, lo)
 
         # -- leg 1: sender piggyback (issueAsSender per selected slot) --
         pb0, active0 = state.ch_pb, state.ch_active
@@ -1213,46 +1361,54 @@ def tick(
         arrive = send_k & responder[:, :, None]
 
         # -- leg 2: intermediaries apply (winner-combine per subject) --
-        nk = n * K
-        segf = torch.where(responder, pr_sel.to(i32), n).reshape(nk)
+        # slot (i, k) is global slot i*K + k; its row folds onto the
+        # intermediary's row, reduce-scattered to the intermediaries
+        nk, nkl = n * K, rows * K
+        segf = torch.where(responder, pr_sel.to(i32), n).reshape(nkl)
         sclip = segf.clamp(0, n - 1).to(torch.int64)
         keysf = torch.where(
             arrive, _pack_key(state.ch_inc, state.ch_status)[:, None, :], -1
-        ).reshape(nk, n)
-        recv_key_pr = _segment_reduce(keysf, segf, n, "amax", INT32_MIN)
-        is_w = (keysf == recv_key_pr[sclip]) & (keysf >= 0)
-        flat_ids = torch.arange(nk, dtype=i32, device=dev)[:, None].expand(nk, n)
-        winner_flat = _segment_reduce(
+        ).reshape(nkl, n)
+        recv_key_pr = yield ("rs_max", _segment_reduce(keysf, segf, n, "amax", INT32_MIN))
+        (recv_at_m,) = yield from _fetch(sclip, recv_key_pr)
+        is_w = (keysf == recv_at_m) & (keysf >= 0)
+        flat_ids = torch.arange(lo * K, lo * K + nkl, dtype=i32, device=dev)[:, None].expand(nkl, n)
+        winner_flat = yield ("rs_min", _segment_reduce(
             torch.where(is_w, flat_ids, nk), segf, n, "amin", INT32_MAX
-        )
-        final_w = is_w & (flat_ids == winner_flat[sclip])
-        src3 = state.ch_source[:, None, :].expand(n, K, n).reshape(nk, n)
-        srcinc3 = state.ch_source_inc[:, None, :].expand(n, K, n).reshape(nk, n)
-        u_source_pr = _segment_reduce(
+        ))
+        (winner_at_m,) = yield from _fetch(sclip, winner_flat)
+        final_w = is_w & (flat_ids == winner_at_m)
+        src3 = state.ch_source[:, None, :].expand(rows, K, n).reshape(nkl, n)
+        srcinc3 = state.ch_source_inc[:, None, :].expand(rows, K, n).reshape(nkl, n)
+        u_source_pr = yield ("rs_max", _segment_reduce(
             torch.where(final_w, src3, INT32_MIN), segf, n, "amax", INT32_MIN
-        )
-        u_srcinc_pr = _segment_reduce(
+        ))
+        u_srcinc_pr = yield ("rs_max", _segment_reduce(
             torch.where(final_w, srcinc3, INT32_MIN), segf, n, "amax", INT32_MIN
-        )
+        ))
         state, union, applied_prm, rows_prm, refute_m, _ = _apply_site(
             ft, state, union, recv_key_pr >= 0, recv_key_pr % 4,
             torch.div(recv_key_pr, 4, rounding_mode="floor"), u_source_pr, u_srcinc_pr,
-            now, deadline, want_masks=want_masks,
+            now, deadline, want_masks=want_masks, lo=lo,
         )
 
         # -- leg 3: responses (issueAsReceiver per arriving ping-req) --
-        cnt_sm = _zeros((n, n), i32, dev)  # [M, sender] arrivals
-        cols = torch.arange(n, device=dev)
+        # [M, sender] arrivals: written into the intermediaries' rows at
+        # the senders' columns, reduce-scattered to the intermediaries
+        cnt_sm = _zeros((n, n), i32, dev)
+        cols = torch.arange(lo, lo + rows, device=dev)
         for k in range(K):
             cnt_sm = cnt_sm.index_put(
                 (pr_sel[:, k], cols), responder[:, k].to(i32), accumulate=True
             )
+        cnt_sm = yield ("rs_sum", cnt_sm)
         prrecv = cnt_sm.sum(dim=1, dtype=i32)
+        pr_self_inc_all = yield ("gather", pr_self_inc)
         src_c = state.ch_source.clamp(0, n - 1).to(torch.int64)
         hits = torch.where(
             state.ch_active
             & (state.ch_source >= 0)
-            & (state.ch_source_inc == pr_self_inc[src_c]),
+            & (state.ch_source_inc == pr_self_inc_all[src_c]),
             torch.gather(cnt_sm, 1, src_c),
             0,
         )
@@ -1272,34 +1428,34 @@ def tick(
 
         # response content per slot, winner-combined at the sender (max
         # key; ties keep the lowest slot)
-        best_key = torch.full((n, n), -1, dtype=i32, device=dev)
-        best_src = torch.full((n, n), -1, dtype=i32, device=dev)
-        best_srcinc = _zeros((n, n), i32, dev)
-        # per-slot full syncs and their record counts, stacked [N, K]: the
+        best_key = torch.full((rows, n), -1, dtype=i32, device=dev)
+        best_src = torch.full((rows, n), -1, dtype=i32, device=dev)
+        best_srcinc = _zeros((rows, n), i32, dev)
+        self_inc_all = yield ("gather", _diag(state.inc, lo))
+        # per-slot full syncs and their record counts, stacked [R, K]: the
         # metrics are their sums, the flight recorder emits them per event
         fs_list, fs_rec_list = [], []
         for k in range(K):
             mk = pr_sel[:, k]
             ex_k = responder[:, k]
+            (m_respondable, m_source, m_source_inc, m_known, m_status, m_inc, m_ch_status,
+             m_ch_inc) = yield from _fetch(
+                mk, respondable_pr, state.ch_source, state.ch_source_inc, state.known,
+                state.status, state.inc, state.ch_status, state.ch_inc)
             resp_k = (
                 ex_k[:, None]
-                & respondable_pr[mk]
-                & ~(
-                    (state.ch_source[mk] == node)
-                    & (state.ch_source_inc[mk] == pr_self_inc[:, None])
-                )
+                & m_respondable
+                & ~((m_source == node) & (m_source_inc == pr_self_inc[:, None]))
             )
-            fs_k = ex_k & ~resp_k.any(dim=1) & (mid_checksum[mk] != mid_checksum)
-            fs_mask_k = fs_k[:, None] & state.known[mk]
+            fs_k = ex_k & ~resp_k.any(dim=1) & (mid_all[mk] != mid_checksum)
+            fs_mask_k = fs_k[:, None] & m_known
             fs_list.append(fs_k)
             fs_rec_list.append(fs_mask_k.sum(dim=1, dtype=i32))
             mask_k = resp_k | fs_mask_k
-            st_k = torch.where(fs_mask_k, state.status[mk], state.ch_status[mk])
-            inc_k = torch.where(fs_mask_k, state.inc[mk], state.ch_inc[mk])
-            src_k = torch.where(fs_mask_k, mk.to(i32)[:, None], state.ch_source[mk])
-            srcinc_k = torch.where(
-                fs_mask_k, state.inc[mk, mk][:, None], state.ch_source_inc[mk]
-            )
+            st_k = torch.where(fs_mask_k, m_status, m_ch_status)
+            inc_k = torch.where(fs_mask_k, m_inc, m_ch_inc)
+            src_k = torch.where(fs_mask_k, mk.to(i32)[:, None], m_source)
+            srcinc_k = torch.where(fs_mask_k, self_inc_all[mk][:, None], m_source_inc)
             key_k = torch.where(mask_k, _pack_key(inc_k, st_k), -1)
             better = key_k > best_key
             best_key = torch.where(better, key_k, best_key)
@@ -1308,21 +1464,21 @@ def tick(
         state, union, applied_prr, rows_prr, refute_rr, _ = _apply_site(
             ft, state, union, best_key >= 0, best_key % 4,
             torch.div(best_key, 4, rounding_mode="floor"), best_src, best_srcinc,
-            now, deadline, want_masks=want_masks,
+            now, deadline, want_masks=want_masks, lo=lo,
         )
 
-        # -- suspect verdict, on post-response state --
-        rows_all = torch.arange(n, device=dev)
-        sus_mask = _zeros((n, n), b8, dev).index_put((rows_all, tclip), mark_suspect)
-        sus_inc = state.inc[rows_all, tclip]  # the member's current inc
-        cur_self = state.inc.diagonal()
+        # -- suspect verdict, on post-response state (the sender's own row) --
+        local_rows = torch.arange(rows, device=dev)
+        sus_mask = _zeros((rows, n), b8, dev).index_put((local_rows, tclip), mark_suspect)
+        sus_inc = state.inc[local_rows, tclip]  # the member's current inc
+        cur_self = _diag(state.inc, lo)
         state, union, applied_sus, rows_sus, _, sus_cnt = _apply_site(
             ft, state, union, sus_mask,
-            torch.full((n, n), SUSPECT, dtype=i32, device=dev),
-            sus_inc[:, None].expand(n, n),
-            node.expand(n, n),
-            cur_self[:, None].expand(n, n),
-            now, deadline, want_masks=want_masks, want_count=True, want_refute=False,
+            torch.full((rows, n), SUSPECT, dtype=i32, device=dev),
+            sus_inc[:, None].expand(rows, n),
+            node.expand(rows, n),
+            cur_self[:, None].expand(rows, n),
+            now, deadline, want_masks=want_masks, want_count=True, want_refute=False, lo=lo,
         )
         applied_pr = (applied_prm | applied_prr | applied_sus) if dense else None
         return (
@@ -1334,15 +1490,16 @@ def tick(
     (
         state, union, applied_sus, applied_pr, rows_pr, sus_count, ping_req_count,
         pr_inconclusive, pb_drops_pr, refute_prm, refute_prr, pr_fs_mask, pr_fs_recs, pr_sel,
-    ) = _phase(
+    ) = yield from _phase(
         gate,
         need_pr.any(),
         _ping_req_phase,
         lambda s, u: (
-            s, u, _zeros((n, n), b8, dev) if dense else None,
-            _zeros((n, n), b8, dev) if dense else None, zeros_n,
+            s, u, _zeros((rows, n), b8, dev) if dense else None,
+            _zeros((rows, n), b8, dev) if dense else None, zeros_n,
             zero_i, zero_i, zero_i, zero_i, zeros_n, zeros_n,
-            _zeros((n, K), b8, dev), _zeros((n, K), i32, dev), _zeros((n, K), torch.int64, dev),
+            _zeros((rows, K), b8, dev), _zeros((rows, K), i32, dev),
+            _zeros((rows, K), torch.int64, dev),
         ),
         state,
         union,
@@ -1362,36 +1519,37 @@ def tick(
         expired = _expired(state)
         state = state._replace(susp_deadline=torch.where(expired, -1, state.susp_deadline))
         # faulty marks are excluded from the changes_applied union
-        state, _u, applied, rows, _rd, cnt = _apply_site(
+        state, _u, applied, applied_rows, _rd, cnt = _apply_site(
             ft, state, None, expired,
-            torch.full((n, n), FAULTY, dtype=i32, device=dev),
+            torch.full((rows, n), FAULTY, dtype=i32, device=dev),
             state.inc,  # member's current incarnation (suspicion.js:67-70)
-            node.expand(n, n),
-            cur_self_inc[:, None].expand(n, n),
-            now, deadline, want_masks=want_masks, want_count=True, want_refute=False,
+            node.expand(rows, n),
+            cur_self_inc[:, None].expand(rows, n),
+            now, deadline, want_masks=want_masks, want_count=True, want_refute=False, lo=lo,
         )
-        return state, applied, rows, cnt
+        return state, applied, applied_rows, cnt
 
-    state, applied_faulty, rows_faulty, faulty_count = _phase(
+    state, applied_faulty, rows_faulty, faulty_count = yield from _phase(
         gate,
         _expired(state).any(),
         _expiry_phase,
-        lambda s: (s, _zeros((n, n), b8, dev) if dense else None, zeros_n, zero_i),
+        lambda s: (s, _zeros((rows, n), b8, dev) if dense else None, zeros_n, zero_i),
         state,
     )
 
     # ---- phase 9: checksums + metrics ---------------------------------
     dirty_late = rows_resp | rows_pr | rows_faulty
     changed_late = (applied_resp | applied_pr | applied_faulty) if fused else None
-    checksum, late_overflow, state = _checksums_where(
-        state, universe, params, dirty_late, mid_checksum, changed_late
+    checksum, late_overflow, state = yield from _checksums_where(
+        sh, state, universe, params, dirty_late, mid_checksum, changed_late
     )
     state = state._replace(checksum=checksum)
 
     # distinct checksums among participants: sort, count boundaries
     part = state.proc_alive & state.ready
     sentinel = 0xFFFFFFFF
-    cs_sorted = torch.sort(torch.where(part, u32.to_u64(checksum), sentinel)).values
+    cs_all = yield ("gather", torch.where(part, u32.to_u64(checksum), sentinel))
+    cs_sorted = torch.sort(cs_all).values
     distinct = (
         ((cs_sorted[1:] != cs_sorted[:-1]) & (cs_sorted[1:] != sentinel)).sum(dtype=i32)
         + (cs_sorted[0] != sentinel).to(i32)
@@ -1403,7 +1561,9 @@ def tick(
     else:
         # faulty marks are excluded, exactly like the fused union
         changes_applied = (applied_ping | applied_resp | applied_pr | ja_applied).sum(dtype=i32)
-    metrics = TickMetrics(
+    # the shard's shares of the whole-cluster counts, summed across shards
+    # (every other metric is whole-cluster already)
+    shares = dict(
         pings_sent=valid_send.sum(dtype=i32),
         pings_delivered=delivered.sum(dtype=i32),
         ping_reqs=ping_req_count,
@@ -1411,9 +1571,6 @@ def tick(
         changes_applied=changes_applied,
         suspects_marked=sus_count,
         faulties_marked=faulty_count,
-        distinct_checksums=distinct,
-        converged=distinct <= 1,
-        parity_overflow=mid_overflow + late_overflow,
         refutes=refute_recv.sum(dtype=i32)
         + refute_resp.sum(dtype=i32)
         + refute_prm.sum(dtype=i32)
@@ -1423,6 +1580,13 @@ def tick(
         ping_req_inconclusive=pr_inconclusive,
         join_merges=joined.sum(dtype=i32),
         dirty_rows=dirty.sum(dtype=i32) + dirty_late.sum(dtype=i32),
+    )
+    totals = dict(zip(shares, (yield ("sum", tuple(shares.values())))))
+    metrics = TickMetrics(
+        distinct_checksums=distinct,
+        converged=distinct <= 1,
+        parity_overflow=mid_overflow + late_overflow,
+        **totals,
     )
 
     # ---- flight recorder and latency histograms (obs planes) ----------

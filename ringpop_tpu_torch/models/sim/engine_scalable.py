@@ -243,8 +243,9 @@ class Solo:
 
 def run_solo(body):
     """Drive one shard body alone: every collective it yields is the
-    identity, except the agreed predicate (one host read) and the float
-    mean (XLA CPU's single-device order, :func:`_xla_mean_f32`)."""
+    identity, except the agreed predicate (one host read), the host-read
+    counts (one), the float mean (XLA CPU's single-device order,
+    :func:`_xla_mean_f32`) and the row fetch (the rows themselves)."""
     reply = None
     while True:
         try:
@@ -253,9 +254,15 @@ def run_solo(body):
             return stop.value
         if op == "pred":
             reply = host_read(x)
+        elif op == "counts":
+            host_read.count += 1
+            reply = [int(x)]
         elif op == "mean":
             reply = _xla_mean_f32(x)
-        else:  # gather, all_to_all, sum, any, all, min, max of one shard
+        elif op == "fetch":
+            idx, planes = x
+            reply = [p[idx] for p in planes]
+        else:  # gather, all_to_all, the reductions and reduce-scatters of one shard
             reply = x
 
 

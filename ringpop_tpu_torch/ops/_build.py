@@ -11,6 +11,8 @@ falls back to its plain version on a CUDA tensor.
 
 Each C entry point takes a pointer table, the sizes and the CUDA stream,
 launches one kernel on that stream and returns ``cudaGetLastError()``.
+:meth:`KernelLibrary.call` is the one place that picks the card: the
+operands' own, and its current stream.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # each C entry point: its pointer-table length and its int arguments
 ENTRY_POINTS = {
-    "ringpop_apply_updates": (33, 3),
+    "ringpop_apply_updates": (33, 5),
     "ringpop_pb_budget": (9, 2),
     "ringpop_fused_stream": (9, 3),
     "ringpop_exchange": (7, 8),
@@ -60,22 +62,25 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
             self._entry[name] = (fn, ctypes.c_void_p * n_ptrs)
 
-    def call(self, name: str, ptrs: Sequence[int], *ints: int) -> None:
-        """Launch ``name`` on the current stream and raise on a launch
-        error.  ``ptrs`` are device pointers (0 for an absent optional)."""
+    def call(self, name: str, device: torch.device, ptrs: Sequence[int], *ints: int) -> None:
+        """Launch ``name`` on ``device`` (the card the operands are on) and
+        its current stream, and raise on a launch error.  ``ptrs`` are
+        device pointers on that card (0 for an absent optional).  A mesh
+        shard or a cluster may sit on another card than the current one."""
         fn, table_type = self._entry[name]
-        err = fn(table_type(*ptrs), *ints, _current_stream())
+        with torch.cuda.device(device):
+            err = fn(table_type(*ptrs), *ints, _current_stream(device.index))
         if err != 0:
             raise RuntimeError(
                 "%s: CUDA launch failed with cudaError %d" % (name, err)
             )
 
 
-def _current_stream() -> int:
-    """The raw handle of the current CUDA stream (what
-    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
-    Stream object)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def _current_stream(index: int) -> int:
+    """The raw handle of card ``index``'s current CUDA stream (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _nvcc() -> str:

@@ -115,7 +115,7 @@ def _launch(h0, g0, f0, blocks, iters):
     g = torch.empty_like(g0)
     f = torch.empty_like(f0)
     ptrs = [_build.ptr(t) for t in (h0, g0, f0, blocks, iters, h, g, f)]
-    _build.library().call("ringpop_block_loop", ptrs, B, n_iter, row_stride)
+    _build.library().call("ringpop_block_loop", dev, ptrs, B, n_iter, row_stride)
     block_loop.launches += 1
     return h, g, f
 

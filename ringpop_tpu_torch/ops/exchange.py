@@ -209,11 +209,8 @@ def _launch(heard, pulled, pushed, r_delta, want_counts, clusters):
     b = 1 if clusters is None else clusters
     plan = exchange_plan(n, w, _aligned(heard, pulled, pushed), _sm_count(dev.index), b)
     ptrs = [_build.ptr(t) for t in (heard, pulled, pushed, r_delta, new, acc, cnt)]
-    # on the operands' card and its current stream (a mesh shard may sit
-    # on another card than the current one)
-    with torch.cuda.device(dev):
-        _build.library().call("ringpop_exchange", ptrs, n, w, plan.vec, plan.seg, plan.blocks,
-                              int(plan.smem_table), b, 0 if shared_table else w * WORD)
+    _build.library().call("ringpop_exchange", dev, ptrs, n, w, plan.vec, plan.seg, plan.blocks,
+                          int(plan.smem_table), b, 0 if shared_table else w * WORD)
     exchange.launches += 1
     return new, acc, cnt
 

@@ -12,6 +12,11 @@ opt-in refute diagonal, an opt-in packed ``[N, ceil(N/32)]`` applied-union
 OR-accumulated in-pass, and the dense applied mask only under
 ``want_masks``.
 
+A shard tile: every plane may hold rows ``[lo, lo + R)`` of the ``[N, N]``
+cluster (``lo=0``, ``R = N`` is the whole plane).  ``lo`` enters only the
+diagonal test (the row's node id), so a tile gives those rows of the
+whole-plane call.
+
 :func:`apply_updates` launches ``csrc/apply_updates.cu`` on CUDA tensors
 and runs :func:`apply_updates_plain` on CPU tensors.
 """
@@ -79,13 +84,14 @@ class ApplyOut(NamedTuple):
     refute_diag: Optional[torch.Tensor]  # [N] bool — opt-in
 
 
-def _formula(st: ApplyState, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline):
-    """One application site's exact cell arithmetic over full planes
-    (``[N, N]``, or ``[B, N, N]`` with ``now``/``deadline`` of shape
-    ``[B, 1, 1]``)."""
-    n = st.status.shape[-1]
+def _formula(st: ApplyState, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline,
+             lo: int = 0):
+    """One application site's exact cell arithmetic over ``[R, N]`` tiles
+    of rows ``[lo, lo + R)`` (or ``[B, R, N]`` with ``now``/``deadline`` of
+    shape ``[B, 1, 1]``)."""
+    rows, n = st.status.shape[-2:]
     ids = torch.arange(n, dtype=torch.int32, device=st.status.device)
-    is_self = ids[None, :] == ids[:, None]
+    is_self = ids[None, :] == ids[lo:lo + rows, None]
 
     refute = recv_mask & is_self & ((u_status == SUSPECT) | (u_status == FAULTY))
     eff_status = torch.where(refute, ALIVE, u_status)
@@ -136,15 +142,16 @@ def apply_updates_plain(
     want_masks: bool = False,
     want_count: bool = False,
     want_refute: bool = True,
+    lo: int = 0,
 ) -> ApplyOut:
     """Plain PyTorch version of :func:`apply_updates`: full-plane ops.
-    Also takes B stacked clusters: ``[B, N, N]`` planes with ``[B]``
+    Also takes B stacked clusters: ``[B, R, N]`` planes with ``[B]``
     stamps, ``applied_count`` then per cluster."""
     dev = st.status.device
     now, deadline = (_as_i32(x, dev) for x in (now, deadline))
     new_st, gate, refute = _formula(
         st, recv_mask, u_status, u_inc, u_source, u_source_inc,
-        now.reshape(now.shape + (1, 1)), deadline.reshape(deadline.shape + (1, 1)),
+        now.reshape(now.shape + (1, 1)), deadline.reshape(deadline.shape + (1, 1)), lo,
     )
     return ApplyOut(
         state=new_st,
@@ -156,19 +163,22 @@ def apply_updates_plain(
     )
 
 
-def _validate(st: ApplyState, union) -> int:
+def _validate(st: ApplyState, union, lo: int) -> None:
     if len({tuple(p.shape) for p in st}) != 1:
-        raise ValueError("ApplyState planes must share one [N, N] shape")
-    if st.status.ndim != 2 or st.status.shape[0] != st.status.shape[1]:
+        raise ValueError("ApplyState planes must share one [R, N] shape")
+    if st.status.ndim != 2:
         raise ValueError(
-            "apply_updates wants square [N, N] planes, got %r" % (tuple(st.status.shape),)
+            "apply_updates wants [R, N] planes, got %r" % (tuple(st.status.shape),)
         )
-    n = st.status.shape[0]
-    if union is not None and tuple(union.shape) != (n, toolkit.packed_width(n)):
+    rows, n = st.status.shape
+    if not 0 <= lo <= n - rows:
         raise ValueError(
-            "union must be a packed [N, ceil(N/32)] bitmask, got %r" % (tuple(union.shape),)
+            "rows [%d, %d) of the tile lie outside the %d-node cluster" % (lo, lo + rows, n)
         )
-    return n
+    if union is not None and tuple(union.shape) != (rows, toolkit.packed_width(n)):
+        raise ValueError(
+            "union must be a packed [R, ceil(N/32)] bitmask, got %r" % (tuple(union.shape),)
+        )
 
 
 def apply_updates(
@@ -185,6 +195,7 @@ def apply_updates(
     want_masks: bool = False,
     want_count: bool = False,
     want_refute: bool = True,
+    lo: int = 0,
 ) -> ApplyOut:
     """Fused membership-update application at one site.
 
@@ -195,7 +206,8 @@ def apply_updates(
     deadline; ``union``: optional [N, ceil(N/32)] int32 packed running
     union (None skips the accumulate and returns None).  ``want_masks``
     adds the dense applied mask; ``want_count`` / ``want_refute`` opt into
-    the applied-cell count and refute diagonal.
+    the applied-cell count and refute diagonal.  Every ``[N, ...]`` operand
+    may be a shard tile of rows ``[lo, lo + R)`` (``[R, ...]``).
 
     CUDA tensors launch ``csrc/apply_updates.cu``; CPU tensors run
     :func:`apply_updates_plain`.  Inside ``torch.func.vmap`` the call goes
@@ -206,17 +218,18 @@ def apply_updates(
     if toolkit.is_batched(*st, *upd, now, deadline, union):
         dev = st.status.device
         outs = _apply_op(*st, *upd, _as_i32(now, dev), _as_i32(deadline, dev), union,
-                         want_masks, want_count, want_refute)
+                         want_masks, want_count, want_refute, lo)
         return _apply_out(outs, union, want_masks, want_count, want_refute)
     dev = st.status.device
     if dev.type == "cpu":
-        _validate(st, union)
+        _validate(st, union, lo)
         return apply_updates_plain(
             st, recv_mask, u_status, u_inc, u_source, u_source_inc, now, deadline,
             union, want_masks=want_masks, want_count=want_count, want_refute=want_refute,
+            lo=lo,
         )
     outs = _launch(tuple(st) + upd, _stamp(now, dev), _stamp(deadline, dev), union,
-                   want_masks, want_count, want_refute, clusters=None)
+                   want_masks, want_count, want_refute, clusters=None, lo=lo)
     return _apply_out(outs, union, want_masks, want_count, want_refute)
 
 
@@ -235,19 +248,25 @@ def _apply_out(outs, union, want_masks, want_count, want_refute) -> ApplyOut:
     )
 
 
-def _launch(planes, now_t, deadline_t, union, want_masks, want_count, want_refute, clusters):
-    """One launch of ``csrc/apply_updates.cu`` over one cluster's ``[N, N]``
-    planes (``clusters`` None) or ``clusters`` stacked ``[B, N, N]`` ones
-    (``now_t``/``deadline_t`` then ``[B]``).  Returns the fifteen outputs
-    in the op's order; an output that was not asked for is None."""
+def _launch(planes, now_t, deadline_t, union, want_masks, want_count, want_refute, clusters,
+            lo: int = 0):
+    """One launch of ``csrc/apply_updates.cu`` over one cluster's ``[R, N]``
+    tiles of rows ``[lo, lo + R)`` (``clusters`` None) or ``clusters``
+    stacked ``[B, R, N]`` ones (``now_t``/``deadline_t`` then ``[B]``).
+    Returns the fifteen outputs in the op's order; an output that was not
+    asked for is None."""
     dev = planes[1].device
     lead = () if clusters is None else (clusters,)
-    n = planes[1].shape[-1]
+    rows, n = planes[1].shape[-2:]
+    if not 0 <= lo <= n - rows:
+        raise ValueError(
+            "rows [%d, %d) of the tile lie outside the %d-node cluster" % (lo, lo + rows, n)
+        )
     words = toolkit.packed_width(n)
-    nn = lead + (n, n)
+    nn = lead + (rows, n)
     _build.check("apply_updates", dev, zip(_OPERANDS, planes, _OPERAND_DTYPES, (nn,) * 15))
     if union is not None:
-        _build.check("apply_updates", dev, (("union", union, torch.int32, lead + (n, words)),))
+        _build.check("apply_updates", dev, (("union", union, torch.int32, lead + (rows, words)),))
     if clusters is not None:
         _build.check("apply_updates", dev, (
             ("now", now_t, torch.int32, lead), ("deadline", deadline_t, torch.int32, lead),
@@ -258,22 +277,23 @@ def _launch(planes, now_t, deadline_t, union, want_masks, want_count, want_refut
     p8 = torch.empty((3 if want_masks else 2,) + nn, dtype=torch.bool, device=dev).unbind(0)
     outs = (p8[0], p32[0], p32[1], p8[1], *p32[2:])
     applied = p8[2] if want_masks else None
-    new_union = torch.empty(lead + (n, words), dtype=torch.int32, device=dev) if union is not None else None
-    rows = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
-    count = torch.empty(lead + (n,), dtype=torch.int32, device=dev) if want_count else None
-    refute = torch.empty(lead + (n,), dtype=torch.bool, device=dev) if want_refute else None
+    new_union = (torch.empty(lead + (rows, words), dtype=torch.int32, device=dev)
+                 if union is not None else None)
+    applied_rows = torch.empty(lead + (rows,), dtype=torch.bool, device=dev)
+    count = torch.empty(lead + (rows,), dtype=torch.int32, device=dev) if want_count else None
+    refute = torch.empty(lead + (rows,), dtype=torch.bool, device=dev) if want_refute else None
     # the stamps stay on the device: the kernel reads them (cluster b's
     # at index b), so no host sync is needed to launch
     ptr = _build.ptr
     _build.library().call(
-        "ringpop_apply_updates",
+        "ringpop_apply_updates", dev,
         (*(t.data_ptr() for t in planes), ptr(union), now_t.data_ptr(), deadline_t.data_ptr(),
-         *(t.data_ptr() for t in outs), ptr(new_union), ptr(applied), rows.data_ptr(),
+         *(t.data_ptr() for t in outs), ptr(new_union), ptr(applied), applied_rows.data_ptr(),
          ptr(count), ptr(refute)),
-        n, words, 1 if clusters is None else clusters,
+        n, words, 1 if clusters is None else clusters, rows, lo,
     )
     apply_updates.launches += 1
-    return (*outs, new_union, applied, rows, count, refute)
+    return (*outs, new_union, applied, applied_rows, count, refute)
 
 
 def _stamp(x, dev) -> torch.Tensor:
@@ -290,18 +310,18 @@ apply_updates.launches = 0
 # the batch axis: B clusters in one launch
 
 
-def _clusters(planes, now, deadline, union, want_masks, want_count, want_refute):
-    """B stacked clusters (``[B, N, N]`` planes, ``[B]`` stamps): one
+def _clusters(planes, now, deadline, union, want_masks, want_count, want_refute, lo=0):
+    """B stacked clusters (``[B, R, N]`` planes, ``[B]`` stamps): one
     kernel launch on the card, :func:`apply_updates_plain` on the CPU.
     Returns the fifteen outputs in the op's order; absent ones are None."""
     if now.device.type == "cpu":
         o = apply_updates_plain(ApplyState(*planes[:10]), *planes[10:], now, deadline, union,
                                 want_masks=want_masks, want_count=want_count,
-                                want_refute=want_refute)
+                                want_refute=want_refute, lo=lo)
         return (*o.state, o.union, o.applied, o.applied_rows, o.applied_count, o.refute_diag)
     return _launch(tuple(t.contiguous() for t in planes), now.contiguous(),
                    deadline.contiguous(), None if union is None else union.contiguous(),
-                   want_masks, want_count, want_refute, clusters=now.shape[0])
+                   want_masks, want_count, want_refute, clusters=now.shape[0], lo=lo)
 
 
 def _filled(outs, ref: torch.Tensor):
@@ -317,7 +337,7 @@ def _apply_op(
     recv_mask: torch.Tensor, u_status: torch.Tensor, u_inc: torch.Tensor,
     u_source: torch.Tensor, u_source_inc: torch.Tensor, now: torch.Tensor,
     deadline: torch.Tensor, union: Optional[torch.Tensor], want_masks: bool,
-    want_count: bool, want_refute: bool,
+    want_count: bool, want_refute: bool, lo: int,
 ) -> List[torch.Tensor]:
     """One cluster through the op: the kernel on the card, the plain
     version on the CPU (the wrapper calls the op only inside vmap, where
@@ -326,7 +346,7 @@ def _apply_op(
               ch_pb, susp_deadline, recv_mask, u_status, u_inc, u_source, u_source_inc)
     outs = _clusters(tuple(t[None] for t in planes), now.reshape(1), deadline.reshape(1),
                      None if union is None else union[None], want_masks, want_count,
-                     want_refute)
+                     want_refute, lo)
     return _filled([None if o is None else o[0] for o in outs], status)
 
 

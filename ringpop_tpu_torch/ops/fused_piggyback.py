@@ -118,7 +118,7 @@ def _launch(ch_active, ch_pb, nbump, max_pb, hits, want_content):
         _build.ptr(t)
         for t in (ch_active, ch_pb, nbump, max_pb, hits, pb2, active2, content, drops)
     ]
-    _build.library().call("ringpop_pb_budget", ptrs, n, drops.numel())
+    _build.library().call("ringpop_pb_budget", dev, ptrs, n, drops.numel())
     pb_budget.launches += 1
     return pb2, active2, content, drops
 

@@ -38,44 +38,37 @@ def stream_member_step(carry, rec, rec_len):
     """Append ONE member record to each row's residual and consume every
     completed 20-byte block (bit-exact farmhashmk mixing order).
 
-    ``carry``: (h, g, f, res tuple[RES_W], res_len, done, total_blocks),
-    all int32 tensors of one row shape; ``rec``: tuple[RW] of record words
-    (zero-padded past ``rec_len``); ``rec_len``: record byte length (0 for
-    an absent member)."""
+    ``carry``: (h, g, f, res [..., RES_W], res_len, done, total_blocks),
+    int32 tensors over the rows' shape ``[...]``; ``rec``: [..., RW]
+    record words (zero-padded past ``rec_len``); ``rec_len``: record byte
+    length (0 for an absent member)."""
     h, g, f, res, res_len, done, total_blocks = carry
-    res_w = len(res)
-    rw = len(rec)
+    res_w = res.shape[-1]
+    rw = rec.shape[-1]
     rounds = stream_geometry(rw)[1]
-    zero = torch.zeros_like(rec[0])
 
     # -- append: shift the record up by res_len bytes and OR it in --------
     appending = done < total_blocks
     q = res_len
-    wq = q >> 2  # word shift, in [0, 4] (res_len <= 19 while appending)
-    bq = (q & 3) << 3  # bit shift within the word
+    wq = (q >> 2)[..., None]  # word shift, in [0, 4] (res_len <= 19 while appending)
+    bq = ((q & 3) << 3)[..., None]  # bit shift within the word
     back = (32 - bq) & 31  # keeps the shift defined at bq == 0
-
-    def rec_ext(k):
-        return rec[k] if 0 <= k < rw else zero
-
-    new_res = []
-    for w in range(res_w):
-        cand = zero
-        prev = zero
-        for k in range(min(w, 4) + 1):
-            sel = wq == k
-            cand = torch.where(sel, rec_ext(w - k), cand)
-            prev = torch.where(sel, rec_ext(w - k - 1), prev)
-        spill = srl_var(prev, back)
-        shifted = torch.where(bq == 0, cand, (cand << bq) | spill)
-        new_res.append(res[w] | torch.where(appending, shifted, zero))
-    res = new_res
+    # residual word w takes record word w - wq, with the top bits of word
+    # w - wq - 1 spilled in: both gathered from the record padded with
+    # _LEAD zero words in front (the word shift) and res_w behind
+    ext = torch.nn.functional.pad(rec, (_LEAD, res_w))
+    top = ext.shape[-1] - 1
+    at = (torch.arange(_LEAD, _LEAD + res_w, device=rec.device) - wq).clamp(0, top)
+    cand = torch.gather(ext, -1, at)
+    spill = srl_var(torch.gather(ext, -1, (at - 1).clamp(0, top)), back)
+    shifted = torch.where(bq == 0, cand, (cand << bq) | spill)
+    res = res | torch.where(appending[..., None], shifted, 0)
     res_len = res_len + torch.where(appending, rec_len, 0)
 
     # -- consume completed blocks (at most ``rounds`` per append) ---------
     for _ in range(rounds):
         can = (res_len >= 20) & (done < total_blocks)
-        a, b, c, d, e = res[0], res[1], res[2], res[3], res[4]
+        a, b, c, d, e = res[..., :5].unbind(-1)
         nh = h + a
         ng = g + b
         nf = f + c
@@ -87,13 +80,16 @@ def stream_member_step(carry, rec, rec_len):
         h = torch.where(can, nh, h)
         g = torch.where(can, ng, g)
         f = torch.where(can, nf, f)
-        res = [
-            torch.where(can, res[w + 5] if w + 5 < res_w else zero, res[w])
-            for w in range(res_w)
-        ]
+        # shift the residual down one block
+        res = torch.where(can[..., None], torch.nn.functional.pad(res[..., 5:], (0, 5)), res)
         res_len = res_len - can.to(torch.int32) * 20
         done = done + can.to(torch.int32)
-    return (h, g, f, tuple(res), res_len, done, total_blocks)
+    return (h, g, f, res, res_len, done, total_blocks)
+
+
+# zero words in front of a record being appended: the word shift is at
+# most 4 while appending (the residual holds at most 19 bytes then)
+_LEAD = 5
 
 
 def fused_stream_plain(h0, g0, f0, rec_words, rec_len, total_blocks):
@@ -102,13 +98,11 @@ def fused_stream_plain(h0, g0, f0, rec_words, rec_len, total_blocks):
     B, N, RW = rec_words.shape
     res_w, _ = stream_geometry(RW)
     tb = total_blocks.to(torch.int32)
-    res0 = tuple(torch.zeros(B, dtype=torch.int32, device=h0.device) for _ in range(res_w))
+    res0 = torch.zeros((B, res_w), dtype=torch.int32, device=h0.device)
     izero = torch.zeros(B, dtype=torch.int32, device=h0.device)
     carry = (h0, g0, f0, res0, izero, izero, tb)
     for m in range(N):
-        carry = stream_member_step(
-            carry, tuple(rec_words[:, m, w] for w in range(RW)), rec_len[:, m]
-        )
+        carry = stream_member_step(carry, rec_words[:, m], rec_len[:, m])
     h, g, f = carry[:3]
     return h, g, f
 
@@ -146,7 +140,7 @@ def _launch(h0, g0, f0, rec_words, rec_len, total_blocks):
     g = torch.empty_like(g0)
     f = torch.empty_like(f0)
     ptrs = [_build.ptr(t) for t in (h0, g0, f0, rec_words, rec_len, total_blocks, h, g, f)]
-    _build.library().call("ringpop_fused_stream", ptrs, B, N, RW)
+    _build.library().call("ringpop_fused_stream", dev, ptrs, B, N, RW)
     fused_stream.launches += 1
     return h, g, f
 

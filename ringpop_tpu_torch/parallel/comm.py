@@ -1,10 +1,13 @@
 """Collectives of the in-process shard mesh, and its lockstep loop.
 
-A shard body (``engine_scalable.shard_tick``, the exchange plane) is a
-generator that yields each collective as ``(op, tensor)``: the
-counterpart of the ``jax.lax`` collectives the JAX package's shard_map
-body calls (``all_gather(tiled=True)``, ``all_to_all``, ``psum``,
-``pmax``, ...), and of the global predicate a ``lax.cond`` takes.
+A shard body (``engine_scalable.shard_tick``, ``engine.shard_tick``, the
+exchange plane) is a generator that yields each collective as ``(op,
+payload)``: the counterpart of the ``jax.lax`` collectives the JAX
+package's shard_map body calls (``all_gather(tiled=True)``,
+``all_to_all``, ``psum``, ``pmax``, ...), of the global predicate a
+``lax.cond`` takes, and of the collectives GSPMD infers for the full
+engine's gathers along the node axis and segment reductions onto it: the
+row fetch by global index and the reduce-scatter.
 :func:`lockstep` advances S bodies to their next collective, checks that
 they all ask for the same one, and answers each with its share of the
 combined value (:class:`MeshComm`).  One controller drives every shard, as
@@ -54,15 +57,18 @@ def lockstep(bodies: Sequence, comm: "MeshComm") -> List:
 
 class MeshComm:
     """The collectives over an ordered list of shard devices.  ``calls``
-    counts each op answered; ``a2a_bytes`` and ``gather_bytes`` the bytes
-    that the all-to-alls and the all-gathers moved between shards (a
-    shard's own block excluded)."""
+    counts each op answered; ``a2a_bytes``, ``gather_bytes``,
+    ``fetch_bytes`` and ``scatter_bytes`` the bytes that the all-to-alls,
+    the all-gathers, the row fetches and the reduce-scatters moved between
+    shards (a shard's own block excluded)."""
 
     def __init__(self, devices: Sequence[torch.device]):
         self.devices = [torch.device(d) for d in devices]
         self.calls: Counter = Counter()
         self.a2a_bytes = 0
         self.gather_bytes = 0
+        self.fetch_bytes = 0
+        self.scatter_bytes = 0
 
     def combine(self, op: str, parts: List[torch.Tensor]) -> List:
         self.calls[op] += 1
@@ -78,6 +84,9 @@ class MeshComm:
     def _reduce(self, parts, fn) -> List:
         if len(parts) == 1:
             return list(parts)
+        if isinstance(parts[0], tuple):  # elementwise over a tuple of tensors
+            each = [self._reduce(list(x), fn) for x in zip(*parts)]
+            return [tuple(r[s] for r in each) for s in range(len(parts))]
 
         def make(dev):
             acc = parts[0].to(dev, non_blocking=True)
@@ -126,6 +135,73 @@ class MeshComm:
         """The agreed predicate: any shard's, read on the host once."""
         value = host_read(self._any(parts)[0])
         return [value] * len(parts)
+
+    def _counts(self, parts):
+        """Every shard's [] count, in shard order, read on the host once."""
+        host_read.count += 1
+        dev = self.devices[0]
+        counts = [int(c) for c in torch.stack([p.to(dev) for p in parts]).tolist()]
+        return [counts] * len(parts)
+
+    def _fetch(self, parts):
+        """Rows by global index: shard d asks with ``(idx, planes)`` — its
+        ``[M]`` global row ids and its own ``[L, ...]`` block of each
+        node-leading plane (shard s holds rows ``[s*L, (s+1)*L)``) — and
+        receives ``[M, ...]`` rows of every plane from their owners.  Each
+        owner answers from its own block; no plane is gathered whole."""
+        if len(parts) == 1:
+            idx, planes = parts[0]
+            return [[p[idx] for p in planes]]
+        local = parts[0][1][0].shape[0]
+        out = []
+        for d, (idx, _) in enumerate(parts):
+            dev = self.devices[d]
+            owner = torch.div(idx, local, rounding_mode="floor")
+            got = [None] * len(parts[0][1])
+            for s, (_, planes) in enumerate(parts):
+                at = (idx.to(self.devices[s], non_blocking=True) - s * local).clamp(0, local - 1)
+                mine = owner == s
+                for j, plane in enumerate(planes):
+                    block = plane.index_select(0, at)
+                    if s != d:
+                        self.fetch_bytes += block.numel() * block.element_size()
+                    block = block.to(dev, non_blocking=True)
+                    if got[j] is None:
+                        got[j] = block
+                    else:
+                        keep = mine.reshape(mine.shape + (1,) * (block.dim() - 1))
+                        got[j] = torch.where(keep, block, got[j])
+            out.append(got)
+        return out
+
+    def _scatter(self, parts, fn):
+        """Reduce-scatter: each shard's ``[N, ...]`` partial, combined in
+        shard order; shard d receives rows ``[d*L, (d+1)*L)`` of the result."""
+        if len(parts) == 1:
+            return list(parts)
+        local = parts[0].shape[0] // len(parts)
+        out = []
+        for d, dev in enumerate(self.devices):
+            rows = slice(d * local, (d + 1) * local)
+            acc = parts[0][rows].to(dev, non_blocking=True)
+            for p in parts[1:]:
+                acc = fn(acc, p[rows].to(dev, non_blocking=True))
+            self.scatter_bytes += sum(p[rows].numel() * p.element_size()
+                                      for s, p in enumerate(parts) if s != d)
+            out.append(acc)
+        return out
+
+    def _rs_max(self, parts):
+        return self._scatter(parts, torch.maximum)
+
+    def _rs_min(self, parts):
+        return self._scatter(parts, torch.minimum)
+
+    def _rs_any(self, parts):
+        return self._scatter(parts, torch.logical_or)
+
+    def _rs_sum(self, parts):
+        return self._scatter(parts, torch.add)
 
     def _mean(self, parts):
         """The float32 mean of the shards' pieces, in JAX's order."""

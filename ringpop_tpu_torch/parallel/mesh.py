@@ -1,14 +1,23 @@
-"""The scalable engine over an in-process shard mesh.
+"""Both simulation engines over an in-process shard mesh.
 
-Counterpart of the scalable half of ``ringpop_tpu/parallel/mesh.py``
-(``make_mesh``, ``make_mesh_2d``, ``_route_rows_stats``,
+Counterpart of ``ringpop_tpu/parallel/mesh.py`` (``make_mesh``,
+``make_mesh_2d``, ``ShardedSim``, ``_route_rows_stats``,
 ``make_exchange_plane``, ``ShardedStorm``).  The N-node axis is split over
 S shards, each a ``torch.device``: shard s holds rows ``[s*N/S,
-(s+1)*N/S)`` of every node-indexed field and a copy of the bounded rumor
-table, the clock and the rng.  One process drives every shard, as one
-Python process drives every device of a JAX mesh: each tick runs S shard
-bodies (``engine_scalable.shard_tick``) in lockstep (``comm.lockstep``),
-and every read of another shard's rows is an explicit collective.
+(s+1)*N/S)`` of every node-indexed field (for the full engine, the
+observer rows of every ``[N, N]`` plane) and a copy of what is not
+node-indexed (the clock; the scalable engine's bounded rumor table and
+rng).  One process drives every shard, as one Python process drives every
+device of a JAX mesh: each tick runs S shard bodies (``engine.shard_tick``
+or ``engine_scalable.shard_tick``) in lockstep (``comm.lockstep``), and
+every read of another shard's rows is an explicit collective.
+
+``ShardedSim`` is the full-fidelity engine on the mesh.  JAX compiles its
+tick as one GSPMD program, where a ``pallas_call`` does not partition, so
+JAX drops the fused tick to its plain twin on a mesh.  Every kernel of the
+tick (``apply_updates``, ``pb_budget``, ``fused_stream``, ``block_loop``)
+works on whole rows, so here each shard launches the kernels on its own
+rows; ``fused_tick_resolution()`` reports this pick beside JAX's.
 
 - On one card the S shards share ``cuda:0``; on a machine with more cards
   they take ``cuda:0..`` round-robin; on the CPU they all sit on ``cpu``.
@@ -26,8 +35,9 @@ and every read of another shard's rows is an explicit collective.
   one float, is summed in the order of JAX's node-sharded mean
   (``engine_scalable.sharded_mean_f32``).
 
-The ``wavefront`` and ``histograms`` planes are not sharded yet and are
-refused by name; the exchange telemetry (``exchange_metrics = S``) is.
+The storm's ``wavefront`` and ``histograms`` planes and the full engine's
+``flight_recorder`` and ``histograms`` are not sharded yet and are refused
+by name; the exchange telemetry (``exchange_metrics = S``) is.
 """
 
 from __future__ import annotations
@@ -41,13 +51,17 @@ import torch
 from ringpop_tpu_torch import convert, resolve_device
 from ringpop_tpu_torch.models.ring.device import build_ring, device_replica_hashes, ring_checksum
 from ringpop_tpu_torch.models.sim import checkpoint as ckpt
+from ringpop_tpu_torch.models.sim import engine
 from ringpop_tpu_torch.models.sim import engine_scalable as es
-from ringpop_tpu_torch.models.sim.cluster import _tick_at, metrics_to_numpy
-from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, CheckpointSpec
+from ringpop_tpu_torch.models.sim.cluster import (
+    _tick_at, default_addresses, fixup_sim_state, metrics_to_numpy,
+)
+from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, CheckpointSpec, states_to
 from ringpop_tpu_torch.models.sim.storm import fixup_scalable_state
 from ringpop_tpu_torch.obs import exchange_stats as oxs
 from ringpop_tpu_torch.ops import exchange as _exch
 from ringpop_tpu_torch.ops import histogram as hg
+from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import toolkit, u32
 from ringpop_tpu_torch.ops.exchange import exchange_cap
 from ringpop_tpu_torch.parallel.comm import MeshComm, lockstep
@@ -131,6 +145,237 @@ class Shard:
 
     def route_rows(self, rows, dest, src):
         return (yield from _route_rows(self, rows, dest, src, self.cap))
+
+
+def _one_device_type(mesh: Mesh) -> str:
+    device_type = mesh.devices[0].type
+    if any(d.type != device_type for d in mesh.devices):
+        raise ValueError("a mesh's shards share one device type, got %r" % (mesh,))
+    return device_type
+
+
+# ---------------------------------------------------------------------------
+# ShardedSim
+
+
+class ShardedSim(CheckpointableMixin):
+    """``SimCluster`` over a shard mesh: the same ``bootstrap``/``step``/
+    ``run`` surface, the observer rows of every ``[N, N]`` plane split over
+    the mesh, and the trajectory bitwise the single-device engine's at any
+    shard count.
+
+    Each shard runs ``engine.shard_tick`` on its own rows, launching the
+    tick's kernels there (``fused_tick_resolution()``); the bounded-parity
+    overflow replay (``parity_replays``) is the single-device cluster's,
+    decided on the whole cluster's counts.  ``SimParams(flight_recorder=
+    True)`` and ``histograms=True`` are refused: those planes are not
+    sharded yet."""
+
+    def __init__(self, n: int, mesh: Optional[Mesh] = None, params=None,
+                 addresses: Optional[Sequence[str]] = None, seed: int = 0):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        shards = self.mesh.size
+        self.device = self.mesh.devices[0]
+        device_type = _one_device_type(self.mesh)
+        if addresses is None:
+            addresses = default_addresses(n)
+        self.universe = ce.Universe.from_addresses(addresses)
+        n = self.universe.n
+        params = params or engine.SimParams(n=n)
+        if params.n != n:
+            params = params._replace(n=n)
+        for plane in ("flight_recorder", "histograms"):
+            if getattr(params, plane):
+                raise ValueError(
+                    "SimParams(%s=True) is not sharded yet: run it on the "
+                    "single-device SimCluster (ROADMAP.md queue A)" % plane
+                )
+        if n % shards:
+            raise ValueError("n=%d not divisible by mesh size %d" % (n, shards))
+        requested = params.fused_tick
+        params = params._replace(hash_impl=engine.resolve_hash_impl(params, device_type))
+        self.params = engine.resolve_auto_parity(params, device_type)
+        # the port's pick on the mesh is the single device's: each shard
+        # launches the kernels on its own rows
+        self._resolution_note = {
+            "requested": requested,
+            "impl": self.params.fused_tick,
+            "jax_impl": engine.resolve_sharded_fused_tick(params, device_type),
+            "single_device_resolution": self.params.fused_tick,
+            "differs_from_single_device": False,
+            "shards": shards,
+            "devices": [str(d) for d in self.mesh.devices],
+        }
+        rows = n // shards
+        self._shards = [Shard(s, shards, rows, 0, False) for s in range(shards)]
+        self.comm = MeshComm(self.mesh.devices)
+        self.state = engine.init_state(self.params, seed=seed, universe=self.universe,
+                                       device=self.device)
+        # bounded-parity overflow replays, like SimCluster's
+        self.parity_replays = 0
+
+    # -- the state ---------------------------------------------------------
+
+    @property
+    def shard_states(self) -> List[engine.SimState]:
+        """The per-shard states (the real ones)."""
+        return list(self._states)
+
+    @property
+    def state(self) -> engine.SimState:
+        """The whole state, joined onto the first shard's device."""
+        return convert.join_sim_state(self._states, self.device)
+
+    @state.setter
+    def state(self, state: engine.SimState) -> None:
+        self._states = convert.split_sim_state(state, self.mesh.devices)
+
+    def fused_tick_resolution(self) -> dict:
+        """The mesh's fused-tick resolution: ``impl`` is the port's pick
+        (the kernels, each shard on its own rows, wherever the single
+        device picks them), ``jax_impl`` what JAX's ``ShardedSim`` runs in
+        the port's terms (its table drops the kernels to the plain twin
+        under GSPMD), with ``requested``, ``single_device_resolution``,
+        ``differs_from_single_device``, ``shards`` and ``devices``."""
+        note = dict(self._resolution_note)
+        note["devices"] = list(note["devices"])
+        return note
+
+    def _shard_inputs(self, by_dev) -> List[engine.TickInputs]:
+        """Each shard's node columns (the last axis) of ``by_dev[device]``,
+        the whole-cluster inputs uploaded once to each of the mesh's devices."""
+        return [engine.TickInputs(*(None if x is None else x[..., sh.lo:sh.lo + sh.rows]
+                                    for x in by_dev[dev]))
+                for sh, dev in zip(self._shards, self.mesh.devices)]
+
+    def _tick(self, states, shard_inputs, params):
+        bodies = [engine.shard_tick(sh, st, inp, params, self.universe)
+                  for sh, st, inp in zip(self._shards, states, shard_inputs)]
+        results = lockstep(bodies, self.comm)
+        return [st for st, _ in results], results[0][1]  # whole-cluster metrics
+
+    def _run_window(self, states, shard_inputs, ticks, params):
+        rows = []
+        for t in range(ticks):
+            states, m = self._tick(states, [_tick_at(inp, t) for inp in shard_inputs], params)
+            rows.append(m)
+        return states, engine.TickMetrics(*(torch.stack(f) for f in zip(*rows)))
+
+    # -- bounded-parity overflow fallback --------------------------------
+
+    @property
+    def _bounded_parity(self) -> bool:
+        return self.params.checksum_mode == "farmhash" and self.params.parity_recompute == "bounded"
+
+    def _exact_params(self) -> engine.SimParams:
+        """The exact-recompute twin for overflow replays ("full" for fused
+        runs, "gated" for unfused ones), as SimCluster's."""
+        return self.params._replace(parity_recompute=engine.resolve_exact_recompute(self.params))
+
+    def _maybe_replay_exact(self, pre, metrics, replay):
+        """The bounded-parity overflow fallback shared by step/run: when the
+        whole cluster overflowed the bounded chunk, discard the result and
+        return ``replay(exact_params)`` from the pre-run states (None when
+        nothing overflowed)."""
+        if not self._bounded_parity or not int(metrics.parity_overflow.sum()):
+            return None
+        self.parity_replays += 1
+        return replay(self._exact_params())
+
+    # -- the surface of SimCluster ----------------------------------------
+
+    def quiet_inputs(self) -> engine.TickInputs:
+        return engine.TickInputs.quiet(self.params.n, self.device)
+
+    def bootstrap(self) -> engine.TickMetrics:
+        """Join every node at once."""
+        return self.step(self.quiet_inputs()._replace(
+            join=torch.ones(self.params.n, dtype=torch.bool, device=self.device)
+        ))
+
+    def step(self, inputs: Optional[engine.TickInputs] = None) -> engine.TickMetrics:
+        """One tick; ``inputs`` are whole-cluster ``[N]`` planes (tensors or
+        arrays).  Returns its metrics as numpy scalars."""
+        if inputs is None:
+            inputs = self.quiet_inputs()
+        dtypes = (torch.bool, torch.bool, torch.bool, torch.int32, torch.bool, torch.bool)
+        shard_inputs = self._shard_inputs(
+            {dev: [None if x is None else torch.as_tensor(x, dtype=dt).to(dev)
+                   for x, dt in zip(inputs, dtypes)]
+             for dev in dict.fromkeys(self.mesh.devices)})
+        pre = self._states
+        states, metrics = self._tick(pre, shard_inputs, self.params)
+        replayed = self._maybe_replay_exact(
+            pre, metrics, lambda params: self._tick(pre, shard_inputs, params))
+        self._states, metrics = (states, metrics) if replayed is None else replayed
+        self._after_ticks(1)
+        return metrics_to_numpy(metrics)
+
+    def run(self, schedule) -> engine.TickMetrics:
+        """Loop the tick over a dense ``EventSchedule``; returns ``[T]``
+        numpy metrics (split at checkpoint-cadence lines when checkpoints
+        are on, bitwise-neutrally)."""
+        return self._run_chunked(schedule, self._run_schedule)
+
+    def _run_schedule(self, schedule) -> engine.TickMetrics:
+        shard_inputs = self._shard_inputs(
+            {dev: schedule.as_inputs(dev) for dev in dict.fromkeys(self.mesh.devices)})
+        pre = self._states
+        states, metrics = self._run_window(pre, shard_inputs, schedule.ticks, self.params)
+        replayed = self._maybe_replay_exact(
+            pre, metrics,
+            lambda params: self._run_window(pre, shard_inputs, schedule.ticks, params))
+        self._states, metrics = (states, metrics) if replayed is None else replayed
+        return metrics_to_numpy(metrics)
+
+    def run_until_converged(self, max_ticks: int = 200, quiet_after: int = 0) -> int:
+        """Tick until every live+ready node shares one checksum; returns the
+        number of ticks taken (or -1 if not converged within max_ticks)."""
+        for t in range(max_ticks):
+            m = self.step()
+            if t >= quiet_after and bool(m.converged):
+                return t + 1
+        return -1
+
+    def checksums(self) -> np.ndarray:
+        """[N] uint32 membership checksums."""
+        return u32.to_numpy(torch.cat([st.checksum.to(self.device) for st in self._states]))
+
+    # -- checkpoint/resume (models/sim/recovery.py) -------------------------
+    # Every non-scalar field is node-leading and split across per-shard
+    # files, one a mesh shard by default; a restore reassembles them and
+    # splits them again under THIS mesh, so a save resumes on any shard
+    # count, on SimCluster and in either package.
+
+    def _default_ckpt_shards(self) -> int:
+        return self.mesh.size
+
+    def _ckpt_sharded_fields(self) -> frozenset:
+        return frozenset(f for f, x in zip(engine.SimState._fields, self._states[0])
+                         if x is not None and x.dim() >= 1)
+
+    def _ckpt_spec(self) -> CheckpointSpec:
+        return CheckpointSpec(engine.SimState, self.params, self._ckpt_sharded_fields())
+
+    def _ckpt_states(self):
+        # joined onto one device: the save reads it to the host in one transfer
+        return self.state
+
+    def _ckpt_install(self, state) -> None:
+        self.state = fixup_sim_state(states_to(state, self.device), self.params, self.universe)
+
+    def save(self, path: str, shards: Optional[int] = None) -> None:
+        """Manifest-format checkpoint directory at ``path``."""
+        ckpt.save_checkpoint(
+            path, self.state, self.params,
+            shards=self._default_ckpt_shards() if shards is None else shards,
+            sharded_fields=self._ckpt_sharded_fields(),
+        )
+
+    def load(self, path: str) -> None:
+        """Resume from ``path`` — a legacy ``.npz`` file or a manifest
+        checkpoint directory of any shard count, from either package."""
+        self._ckpt_install(ckpt.load_any(path, engine.SimState, self.params))
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +542,7 @@ class ShardedStorm(CheckpointableMixin):
             params = params._replace(n=n)
         shards = self.mesh.size
         self.device = self.mesh.devices[0]
-        device_type = self.device.type
-        if any(d.type != device_type for d in self.mesh.devices):
-            raise ValueError("a mesh's shards share one device type, got %r" % (self.mesh,))
+        device_type = _one_device_type(self.mesh)
         for plane in ("wavefront", "histograms"):
             if getattr(params, plane):
                 raise ValueError(
