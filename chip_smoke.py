@@ -71,10 +71,12 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    on each shard's tile) against the same mesh on the CPU and the card's
    single-device cluster — every state field bitwise, metrics by the
    storm's rule — and again with the all-to-all cap forced to 1 (every
-   route on the all-gather fallback); and ``ShardedSim``: the n=64 churn
-   schedule on ``make_mesh(4)`` against the same mesh on the CPU and the
-   card's ``SimCluster``, every field of every tick, in fast, farmhash and
-   classic (``block_loop`` on each shard's rows);
+   route on the all-gather fallback), then all of it again with the
+   wavefront, the histograms and ``exchange_metrics=4`` on; and
+   ``ShardedSim``: the n=64 churn schedule on ``make_mesh(4)`` against the
+   same mesh on the CPU and the card's ``SimCluster``, every field of
+   every tick, in fast, farmhash and classic (``block_loop`` on each
+   shard's rows), with the flight recorder and the histograms off and on;
 5. drives the main paths, each with every kernel's launch count reset
    just before and read just after: ``SimCluster(n=1024)`` (bootstrap,
    ``run_until_converged(96, quiet_after=1)``, one warm and one timed
@@ -146,7 +148,24 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    beside its twin; after the counts are read, each of the four kernels
    on one shard's own [256, 1024] tile kept from that path
    (``apply_updates`` at ``lo`` = 256) held against its plain version and
-   timed with the L2 flushed; each path's seconds are printed;
+   timed with the L2 flushed; the obs planes on both meshes:
+   ``ShardedSim(1024, make_mesh(4))`` with the flight recorder and the
+   histograms (fast and farmhash; bootstrap, converge, a 16-tick churn
+   window) stepped beside the planes-on twin, the planes-off mesh and a
+   planes-off twin — metrics equal every tick, after each window every
+   field of the joined state (the planes' included) bitwise the twin's,
+   the decoded events equal to the twin's drain, nothing dropped, the
+   histogram summaries equal — then launches, device ms, ms and host
+   reads a tick (equal on and off) of a churn window, what the planes add
+   on the mesh beside what they add on the twin, state and window GiB;
+   the planes-on
+   1M storm on 4 shards beside the twin of the 1M obs path (4 ``exchange``
+   launches a tick; ``first_heard``, ``hist`` and the wavefront summary of
+   the joined state bitwise the twin's; ms/tick and peak GiB of both);
+   ``fused_checksum.membership_checksums`` on 1,024 views at n=1024
+   (``fused_stream``) against its plain version and against
+   ``hash32_rows`` of each of the four ``membership_rows`` encoders
+   (``block_loop``), each timed; each path's seconds are printed;
 6. the batch axis (``torch.func.vmap``): each kernel's batching rule at
    B in {1, 4} over phase 3's shapes (``apply_updates`` / ``pb_budget``
    at n=1024 and 1001 with per-cluster stamps, ``fused_stream`` at 256 x
@@ -265,10 +284,16 @@ def _device_ms(fn, reps: int, symbol: str, evict: bool = False):
     fn()
     torch.cuda.synchronize()
     # the profiler does not deliver every kernel record (it has shown 7 of
-    # 20, and once none of 50): the mean is over the launches it saw, their
-    # count is kept, and a window in which it saw none is profiled again
+    # 20, mostly the first of a window missing, once none of 50, and twice
+    # none in three windows of 20): each window opens with a flush of the
+    # L2 that no symbol matches, the mean is over the launches it saw,
+    # their count is kept, a window in which it saw none is profiled again,
+    # and after three such windows the calls are timed with CUDA events
+    # instead (:func:`_events_device_ms`)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _evict_l2()
+            torch.cuda.synchronize()
             for _ in range(reps):
                 if evict:
                     _evict_l2()
@@ -281,7 +306,46 @@ def _device_ms(fn, reps: int, symbol: str, evict: bool = False):
                  for e in rows)
         if count and us > 0:
             return us / count / 1e3, count
-    raise AssertionError("profiler saw no launch of %s in 3 x %d calls" % (symbol, reps))
+    print("%s: profiler saw no launch in 3 x %d calls; timed with CUDA events" % (symbol, reps),
+          flush=True)
+    return _events_device_ms(fn, reps, evict), 0
+
+
+EVENTS_MS_METHOD = ("CUDA events around each wrapper call, all calls queued behind a spin "
+                    "kernel so that the host's cost to issue them falls outside the pairs, the "
+                    "L2 flushed outside the pairs where it is flushed: the mean over the calls "
+                    "(taken where the profiler delivered no kernel record)")
+
+
+def _events_device_ms(fn, reps: int, evict: bool) -> float:
+    """Mean ms of one call of ``fn`` on the card, between two CUDA events
+    recorded on its stream right before and after it.  A spin kernel
+    holds the stream while the host queues every call, so the pairs time
+    the calls' kernels back to back and not the host's issue; the spin is
+    doubled until it outlasts the queueing."""
+    spin_s = 0.05
+    for _ in range(6):
+        torch.cuda.synchronize()
+        # cycles at the H100's highest SM clock (1.98 GHz): at a lower
+        # clock the spin lasts longer
+        torch.cuda._sleep(int(spin_s * 1.98e9))
+        t0 = time.perf_counter()
+        pairs = []
+        for _ in range(reps):
+            if evict:
+                _evict_l2()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued_s < spin_s:
+            return sum(a.elapsed_time(b) for a, b in pairs) / reps
+        spin_s *= 2
+    raise AssertionError("queueing %d calls outlasted a %.2f s spin" % (reps, spin_s / 2))
 
 
 def _times(fn, reps: int, symbol: str, warm: int = 1, evict: bool = False) -> dict:
@@ -293,16 +357,25 @@ def _times(fn, reps: int, symbol: str, warm: int = 1, evict: bool = False) -> di
     device, seen = _device_ms(fn, reps, symbol, evict)
     print("%s: device %.4f ms (%d of %d launches seen), call %.4f ms"
           % (symbol, device, seen, reps, call), flush=True)
-    return dict(ms=call, call_ms=call, device_ms=device, device_launches_seen=seen)
+    return dict(ms=call, call_ms=call, device_ms=device, device_launches_seen=seen,
+                device_ms_method=EVENTS_MS_METHOD if seen == 0 else DEVICE_MS_METHOD)
 
 
 def _brief(r: dict) -> dict:
     """The numbers of one timed operand set, for the kernels line."""
     keep = ("device_ms", "call_ms", "share_of_bound", "new_bits_per_word")
-    out = dict({k: r[k] for k in keep}, bound_ms=r["bound"][0])
+    out = dict({k: r[k] for k in keep}, bound_ms=r["bound"][0], **_events_method(r))
     if "device_ms_warm_l2" in r:
         out["device_ms_warm_l2"] = r["device_ms_warm_l2"]
     return out
+
+
+def _events_method(r: dict) -> dict:
+    """``device_ms_method`` for a nested entry of the kernels line, named
+    only where its ``device_ms`` came from CUDA events and not from the
+    line's own method."""
+    return ({"device_ms_method": EVENTS_MS_METHOD}
+            if r.get("device_ms_method") == EVENTS_MS_METHOD else {})
 
 
 def _leaves(x):
@@ -883,6 +956,10 @@ ROUTE_RUNS = {}
 # the 1M storm's warm run, the uninterrupted twin of the checkpointed path:
 # host copies of its final state, its numbers and its ring digest
 STORM_WARM = {}
+# the planes-on 1M storm of storm_planes_headline, the twin of the mesh's
+# planes path: its metrics, first_heard, hist (before the drain),
+# wavefront summary and numbers
+STORM_PLANES = {}
 
 
 def check_exchange_storm_operands(ex_report: dict) -> None:
@@ -1753,8 +1830,12 @@ def storm_planes_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cu
         profiled[label] = _profile_window(lambda: c.run(window), window.ticks, device,
                                           top=6 if label == "on" else 0)
         del c
+    STORM_PLANES.update(metrics=metrics, first_heard=cluster.state.first_heard,
+                        hist=cluster.state.hist.clone(), ms_per_tick=wall / ticks * 1e3,
+                        peak_mem_gib=peak)
     t1 = time.perf_counter()
     wave = cluster.wavefront_summary()
+    STORM_PLANES["wave"] = wave
     hist = cluster.drain_histograms()
     exch = cluster.drain_exchange_metrics()
     drain_s = time.perf_counter() - t1
@@ -2753,20 +2834,24 @@ def _trajectory_same(got, want, label: str) -> None:
             raise AssertionError("%s: state %s differs" % (label, f))
 
 
-def check_mesh_e2e(n=N_MID, ticks=40, device="cuda"):
+def check_mesh_e2e(n=N_MID, ticks=40, device="cuda", planes=False):
     """Phase 4, the shard mesh: the n=4096 storm of the storm phase on
     ``make_mesh(4)`` on the card equals the same mesh on the CPU and the
     single-device cluster on the card — every state field bitwise, every
     metric equal, ``mean_heard_frac`` bitwise too (the ticks where it is
     not are counted, and must be 0) — and so does the card mesh
     with the all-to-all cap forced to 1 (every route on the all-gather
-    fallback)."""
+    fallback).  ``planes``: with ``wavefront``, ``histograms`` and
+    ``exchange_metrics=4`` on (the forced cap's run is held on every field
+    but the exchange counters, which count its fallbacks)."""
     from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.sim import engine_scalable as es
     from ringpop_tpu_torch.models.sim.storm import ScalableCluster
     from ringpop_tpu_torch.parallel import mesh as pmesh
 
-    params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5)
+    params = es.ScalableParams(n=n, u=512, packet_loss=0.05, suspicion_ticks=5,
+                               wavefront=planes, histograms=planes,
+                               exchange_metrics=MESH_SHARDS if planes else 0)
     sched = _mid_storm_schedule(n, ticks)
     card = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device=device), params=params,
                               seed=2)
@@ -2788,17 +2873,26 @@ def check_mesh_e2e(n=N_MID, ticks=40, device="cuda"):
     forced = pmesh.ShardedStorm(n, mesh=pmesh.make_mesh(MESH_SHARDS, device=device),
                                 params=params, seed=2, exchange_cap_override=1)
     inexact["cap=1"] = _metrics_close(forced.run(sched), m_card, "n=%d mesh cap=1" % n)
-    _arrays_same(convert.scalable_state_to_numpy(forced.state),
-                 convert.scalable_state_to_numpy(card.state), "n=%d mesh cap=1" % n)
+    got, want = (convert.scalable_state_to_numpy(x.state) for x in (forced, card))
+    if planes:
+        for f in ("exch", "exch_hist"):
+            got.pop(f), want.pop(f)
+    _arrays_same(got, want, "n=%d mesh cap=1" % n)
     if forced.comm.calls["all_to_all"] or not card.comm.calls["all_to_all"]:
         raise AssertionError("mesh routes: cap=1 ran %d all-to-alls, the default cap %d"
                              % (forced.comm.calls["all_to_all"], card.comm.calls["all_to_all"]))
-    print("n=%d storm on make_mesh(%d) %s: %d ticks, every state field == the CPU mesh and the "
-          "card's single-device cluster, metrics equal (mean_heard_frac, in the sharded order, "
-          "not bitwise on %s ticks; None: not compared with the single device); "
+    print("n=%d storm on make_mesh(%d) %s%s: %d ticks, every state field == the CPU mesh and "
+          "the card's single-device cluster, metrics equal (mean_heard_frac, in the sharded "
+          "order, not bitwise on %s ticks; None: not compared with the single device); "
           "cap=1 (all-gather fallback on every route) bitwise too"
-          % (n, MESH_SHARDS, card.exchange_resolution()["devices"], ticks, json.dumps(inexact)),
-          flush=True)
+          % (n, MESH_SHARDS, card.exchange_resolution()["devices"],
+             " with wavefront, histograms, exchange_metrics=4" if planes else "", ticks,
+             json.dumps(inexact)), flush=True)
+
+
+def check_mesh_planes_e2e():
+    """:func:`check_mesh_e2e` with the storm's obs planes on."""
+    check_mesh_e2e(planes=True)
 
 
 def _mesh_run(mesh, params, sched, seed: int = 0, ckpt_dir=None, capture=None) -> tuple:
@@ -2991,6 +3085,51 @@ def mesh_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda",
     return out
 
 
+def mesh_planes_headline(n: int = N_STORM, ticks: int = STORM_TICKS, device="cuda") -> dict:
+    """The planes-on 1M storm of ``storm_planes_headline`` (``wavefront``,
+    ``histograms``, ``exchange_metrics=4``) on a 4-shard mesh of ``cuda:0``
+    beside that path's single-device twin: 4 ``exchange`` launches a tick,
+    the metrics the twin's (``mean_heard_frac`` apart: the sharded order),
+    and ``first_heard``, ``hist`` and the ``scalable_wavefront_summary`` of
+    the joined state bitwise the twin's; ms/tick and peak GiB of both."""
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import StormSchedule
+    from ringpop_tpu_torch.obs import events as oe
+    from ringpop_tpu_torch.parallel import mesh as pmesh
+
+    twin = STORM_PLANES
+    if "wave" not in twin:
+        raise AssertionError("mesh planes: the 1M storm obs planes path has not run")
+    params = es.ScalableParams(n=n, u=512, checksum_in_tick=True, wavefront=True,
+                               histograms=True, exchange_metrics=MESH_SHARDS)
+    sched = StormSchedule.churn_storm(ticks, n, fraction=0.10, fail_tick=2, seed=0)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    storm, metrics, run = _mesh_run(pmesh.make_mesh(devices=[dev] * MESH_SHARDS), params, sched)
+    if dev.type == "cuda" and run["exchange_launches"] != MESH_SHARDS * ticks:
+        raise AssertionError("mesh planes: %d exchange launches in %d ticks"
+                             % (run["exchange_launches"], ticks))
+    _metrics_close(metrics, twin["metrics"], "1M mesh planes vs twin", mean=False)
+    st = storm.state
+    for f in ("first_heard", "hist"):
+        if not torch.equal(getattr(st, f), twin[f]):
+            raise AssertionError("1M mesh planes: %s differs from the twin's" % f)
+    t0 = time.perf_counter()
+    host = {f: getattr(st, f).cpu().numpy() for f in ("first_heard", "r_birth", "r_active")}
+    wave = oe.scalable_wavefront_summary(host["first_heard"], host["r_birth"], host["r_active"],
+                                         st.proc_alive.cpu().numpy())
+    summary_s = time.perf_counter() - t0
+    if wave != twin["wave"] or not wave["rumors"]:
+        raise AssertionError("1M mesh planes: the wavefront summary differs from the twin's")
+    out = dict(n=n, ticks=ticks, shards=MESH_SHARDS, mesh=run,
+               twin=dict(ms_per_tick=twin["ms_per_tick"], peak_mem_gib=twin["peak_mem_gib"]),
+               first_heard_equal=True, hist_equal=True, wavefront_summary_equal=True,
+               wavefront_rumors=len(wave["rumors"]), summary_s=summary_s,
+               first_heard_shard_rows=[int(x.first_heard.shape[0]) for x in storm.shard_states])
+    twin.clear()  # the twin's 2 GiB plane goes with it
+    print("mesh storm planes %s" % json.dumps(out), flush=True)
+    return out
+
+
 def check_mesh_tile_operands(ex_report: dict) -> None:
     """(d) The kernel on one shard's own ``[N/S, U/32]`` operands, kept from
     the mesh storm's warm run, after the path's counts are read: equal to
@@ -3092,22 +3231,29 @@ def _tick_metrics_same(got, want, label: str) -> None:
             raise AssertionError("%s: metric %s differs" % (label, f))
 
 
-def check_sharded_sim_e2e(n=64, ticks=32):
+def check_sharded_sim_e2e(n=64, full_ticks=32):
     """Phase 4, ``ShardedSim``: the n=64 churn schedule on ``make_mesh(4)``
     on the card equals the same mesh on the CPU and the card's
     ``SimCluster`` on every state and metric field of every tick, in fast,
     farmhash (the fused checksums) and classic (``fused_tick="off"``,
-    ``fused_checksum="off"``: ``block_loop`` on each shard's rows)."""
+    ``fused_checksum="off"``: ``block_loop`` on each shard's rows), with
+    the obs planes off and on (flight recorder and histograms: the event
+    buffer's capacity blocks, heads, drops, first_heard and hist; half
+    the ticks)."""
+    from ringpop_tpu_torch import convert
     from ringpop_tpu_torch.models.sim import engine
     from ringpop_tpu_torch.models.sim.cluster import SimCluster, _tick_at
     from ringpop_tpu_torch.ops import block_loop as bl
     from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
 
-    for mode in ("fast", "farmhash", "classic"):
+    for mode, planes in ((m, o) for o in (False, True) for m in ("fast", "farmhash", "classic")):
         p = engine.SimParams(n=n, checksum_mode="fast" if mode == "fast" else "farmhash",
-                             suspicion_ticks=6)
+                             suspicion_ticks=6, flight_recorder=planes, histograms=planes)
         if mode == "classic":
             p = p._replace(fused_tick="off", fused_checksum="off")
+        # the planes' pass runs half the schedule (every event of it still
+        # falls inside): the CPU mesh is most of this check's time
+        ticks = full_ticks // 2 if planes else full_ticks
         sims = [ShardedSim(n, make_mesh(MESH_SHARDS), params=p, seed=1),
                 ShardedSim(n, make_mesh(MESH_SHARDS, device="cpu"), params=p, seed=1),
                 SimCluster(n=n, params=p, seed=1, device="cuda")]
@@ -3130,7 +3276,7 @@ def check_sharded_sim_e2e(n=64, ticks=32):
 
         ms = advance(-1)
         for t in range(ticks + 1):
-            label = "n=%d %s mesh tick %d" % (n, mode, t)
+            label = "n=%d %s planes=%s mesh tick %d" % (n, mode, planes, t)
             for k, what in ((1, "the cpu mesh"), (2, "the card's SimCluster")):
                 _tick_metrics_same(ms[0], ms[k], "%s vs %s" % (label, what))
                 _sim_fields_same(sims[0].state, sims[k].state, "%s vs %s" % (label, what))
@@ -3138,9 +3284,15 @@ def check_sharded_sim_e2e(n=64, ticks=32):
                 ms = advance(t)
         if mode == "classic" and not mesh_loops:
             raise AssertionError("n=%d classic mesh: block_loop never launched" % n)
+        obs = ""
+        if planes:
+            st = sims[0].state
+            obs = " (obs planes on: %d events, %d dropped, %d histogram observations)" % (
+                int(st.ev_head), int(st.ev_drops),
+                int(convert.state_to_numpy(st)["hist"].astype("int64").sum()))
         print("n=%d %s on make_mesh(%d) %s: %d ticks, every state and metric field == the CPU "
-              "mesh and the card's SimCluster (block_loop launches on the mesh: %d)"
-              % (n, mode, MESH_SHARDS, note["devices"], ticks + 1, mesh_loops), flush=True)
+              "mesh and the card's SimCluster (block_loop launches on the mesh: %d)%s"
+              % (n, mode, MESH_SHARDS, note["devices"], ticks + 1, mesh_loops, obs), flush=True)
 
 
 def _sim_kernel_launches():
@@ -3340,6 +3492,189 @@ def sharded_sim_paths() -> dict:
                 classic=sharded_sim_classic_tile(), big=sharded_sim_big())
 
 
+def sharded_sim_planes_headline(mode: str, n: int = N_HEAD, churn_ticks: int = 16,
+                                timed_ticks: int = 16, profile_ticks: int = SIM_PROFILE_TICKS,
+                                device="cuda") -> dict:
+    """``ShardedSim(1024, make_mesh(4))`` (all four shards on ``cuda:0``)
+    with ``obs_headline``'s planes (``flight_recorder=True``,
+    ``histograms=True``, ``event_capacity`` 2^22), stepped tick by tick
+    beside the planes-on ``SimCluster`` twin, the planes-off mesh and a
+    planes-off twin: bootstrap, converge (``run_until_converged(96,
+    quiet_after=1)``'s loop), a ``churn_ticks`` churn window (16, cut from
+    ``CHURN_TICKS`` for the script's time limit).  Gates: the
+    four sims' metrics equal on every tick; after each window every field
+    of the mesh's joined state (the planes' included) bitwise the twin's,
+    its decoded events equal to the twin's ``drain_events`` and none
+    dropped (then its head and drop counter reset, as the drain resets the
+    twin's); the histogram summaries equal.  Then a timed ``timed_ticks``
+    and a profiled ``profile_ticks`` churn window on each: ms/tick,
+    launches, device ms and host reads a tick (the mesh's reads with the
+    planes on equal to off), each sim's state GiB and the peak its timed
+    window allocates above what was resident, and what the planes add on
+    the mesh beside what they add on the twin."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim import engine, flight
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster, _tick_at
+    from ringpop_tpu_torch.obs import events as oe
+    from ringpop_tpu_torch.obs import histograms as oh
+    from ringpop_tpu_torch.parallel import ShardedSim, make_mesh
+
+    cap = _pow2_at_least(flight.max_events_per_tick(n))
+    base = engine.SimParams(n=n, checksum_mode=mode)
+    on = base._replace(flight_recorder=True, histograms=True, event_capacity=cap)
+    card0 = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    cuda = card0.type == "cuda"
+    shards = [card0] * MESH_SHARDS
+    sims = {"mesh on": ShardedSim(n, make_mesh(devices=shards), params=on),
+            "mesh off": ShardedSim(n, make_mesh(devices=shards), params=base),
+            "twin on": SimCluster(n=n, params=on, device=card0),
+            "twin off": SimCluster(n=n, params=base, device=card0)}
+    mesh, twin = sims["mesh on"], sims["twin on"]
+    t_phase = time.perf_counter()
+
+    def all_step(call, label):
+        ms = {k: call(sim) for k, sim in sims.items()}
+        for k in ("mesh off", "twin on", "twin off"):
+            _tick_metrics_same(ms[k], ms["mesh on"], "sharded planes %s %s: %s" % (mode, label, k))
+        return ms["mesh on"]
+
+    def drained(label):
+        st = mesh.state
+        _sim_fields_same(st, twin.state, "sharded planes %s %s: mesh vs twin" % (mode, label))
+        head, drops = int(st.ev_head), int(st.ev_drops)
+        events = oe.decode_events(st.ev_buf[:head].cpu().numpy(), head, drops)
+        twin_drops = twin.event_drops()
+        if drops or twin_drops:
+            raise AssertionError("sharded planes %s %s: %d / %d events dropped at capacity %d"
+                                 % (mode, label, drops, twin_drops, cap))
+        if events != twin.drain_events():
+            raise AssertionError("sharded planes %s %s: decoded events differ" % (mode, label))
+        zero = torch.zeros((), dtype=torch.int32, device=card0)
+        mesh.state = st._replace(ev_head=zero, ev_drops=zero)
+        return len(events)
+
+    all_step(lambda c: c.bootstrap(), "bootstrap")
+    counts = dict(bootstrap=drained("bootstrap"))
+    converged_in = -1
+    for t in range(96):
+        m = all_step(lambda c: c.step(), "converge tick %d" % t)
+        if t >= 1 and bool(m.converged):
+            converged_in = t + 1
+            break
+    if converged_in < 0:
+        raise AssertionError("sharded planes %s: did not converge within 96 ticks" % mode)
+    counts["converge"] = drained("converge")
+    sched = EventSchedule.churn_window(churn_ticks, n)
+    ins = {k: sched.as_inputs(sim.device) for k, sim in sims.items()}
+    for t in range(churn_ticks):
+        ms = {k: sim.step(_tick_at(ins[k], t)) for k, sim in sims.items()}
+        for k in ("mesh off", "twin on", "twin off"):
+            _tick_metrics_same(ms[k], ms["mesh on"], "sharded planes %s churn %d: %s" % (mode, t, k))
+    counts["churn"] = drained("churn")
+    summary = oh.summarize(mesh.state.hist, engine.HIST_TRACKS)
+    if summary != twin.drain_histograms():
+        raise AssertionError("sharded planes %s: histogram summaries differ" % mode)
+    for track, v in summary.items():
+        if not v["count"] or None in (v["p50"], v["p95"], v["p99"]):
+            raise AssertionError("sharded planes %s: track %s is empty" % (mode, track))
+    mesh.state = mesh.state._replace(hist=torch.zeros_like(mesh.state.hist))
+    lockstep_s = time.perf_counter() - t_phase
+    # the planes' cost: the same churn window, timed, then profiled, on each
+    cost = {}
+    timed = EventSchedule.churn_window(timed_ticks, n)
+    window = EventSchedule.churn_window(profile_ticks, n)
+    for k, sim in sims.items():
+        _sync(card0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sim.run(timed)
+        _sync(card0)
+        states = sim.shard_states if hasattr(sim, "shard_states") else [sim.state]
+        cost[k] = dict(
+            ms_per_tick=(time.perf_counter() - t0) / timed_ticks * 1e3,
+            state_gib=sum(_nbytes(tuple(x for x in st if x is not None)) for st in states) / 2**30,
+            window_peak_above_resident_gib=((torch.cuda.max_memory_allocated() - resident) / 2**30
+                                            if cuda else None),
+            **_profile_window(lambda: sim.run(window), profile_ticks, card0))
+    if cost["mesh on"]["host_reads_per_tick"] != cost["mesh off"]["host_reads_per_tick"]:
+        raise AssertionError("sharded planes %s: host reads a tick %r on, %r off" % (
+            mode, cost["mesh on"]["host_reads_per_tick"], cost["mesh off"]["host_reads_per_tick"]))
+    counts["timed"] = drained("timed and profiled windows")
+    hist_np = np.asarray(oh.host_counts(mesh.state.hist))
+    out = dict(
+        mode=mode, n=n, shards=MESH_SHARDS, event_capacity=cap, converged_in=converged_in,
+        churn_ticks=churn_ticks, events=counts, drops=0, state_equal_twin=True,
+        events_equal_twin=True, hist_summaries_equal=True,
+        hist={k: {q: v[q] for q in ("count", "p50", "p95", "p99")} for k, v in summary.items()},
+        hist_observations_after=int(hist_np.astype(np.int64).sum()), cost=cost,
+        added_per_tick={
+            where: {f: (None if cost[where + " on"][f] is None
+                        else cost[where + " on"][f] - cost[where + " off"][f])
+                    for f in ("launches_per_tick", "device_ms_per_tick", "ms_per_tick")}
+            for where in ("mesh", "twin")},
+        collectives_per_tick={k: v / (1 + converged_in + churn_ticks + timed_ticks + profile_ticks)
+                              for k, v in sorted(mesh.comm.calls.items())},
+        lockstep_s=lockstep_s,
+    )
+    print("sharded sim planes %s" % json.dumps(out), flush=True)
+    return out
+
+
+def sharded_sim_planes_paths() -> list:
+    return [sharded_sim_planes_headline(m) for m in ("fast", "farmhash")]
+
+
+def membership_checksums_path(n: int = N_HEAD, max_digits: int = 14, device="cuda") -> dict:
+    """``fused_checksum.membership_checksums`` on ``n`` full views of the
+    headline universe on the card (``fused_stream``), held against its
+    plain version on the same inputs and against ``hash32_rows`` of each
+    of the four ``membership_rows`` encoders' rows (``block_loop``); each
+    timed."""
+    import numpy as np
+
+    from ringpop_tpu_torch.models.sim.cluster import default_addresses
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+    from ringpop_tpu_torch.ops import farmhash as fh
+    from ringpop_tpu_torch.ops import fused_checksum as fc
+
+    dev = torch.device(device)
+    uni = ce.Universe.from_addresses(default_addresses(n))
+    rng = np.random.default_rng(12)
+    present = rng.random((n, n)) < 0.9
+    status = rng.integers(0, 4, (n, n)).astype(np.int32)
+    inc = 1414142122274 + rng.integers(0, 10**9, (n, n)).astype(np.int64)
+    args = (uni, torch.as_tensor(present, device=dev), torch.as_tensor(status, device=dev),
+            torch.as_tensor(inc, device=dev))
+
+    def timed(fn):
+        out = fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    got, ms = timed(lambda: fc.membership_checksums(*args, max_digits))
+    plain, plain_ms = timed(lambda: fc.membership_checksums(*args, max_digits, impl="plain"))
+    if not torch.equal(got, plain):
+        raise AssertionError("membership_checksums: the kernel differs from its plain version")
+    encoders = {}
+    for impl in ("scatter_unique", "scatter", "gather", "gather2"):
+        rows, enc_ms = timed(lambda: ce.membership_rows(*args, max_digits=max_digits, impl=impl))
+        hashed, hash_ms = timed(lambda: fh.hash32_rows(*rows))
+        if not torch.equal(hashed, got):
+            raise AssertionError("membership_checksums != hash32_rows(membership_rows(impl=%r))"
+                                 % impl)
+        encoders[impl] = dict(encode_ms=enc_ms, hash_ms=hash_ms)
+    out = dict(n=n, rows=n, max_digits=max_digits, ms=ms, plain_ms=plain_ms,
+               equal_plain=True, equal_every_encoder=True, encoders=encoders)
+    print("membership_checksums %s" % json.dumps(out), flush=True)
+    return out
+
+
 def check_sharded_sim_tiles(report: dict) -> None:
     """(d) Each kernel on one shard's own ``[256, 1024]`` tile, kept from the
     mesh paths (``apply_updates`` at a shard with ``lo != 0``), after the
@@ -3396,7 +3731,7 @@ def check_sharded_sim_tiles(report: dict) -> None:
               % (name, r["shape"], r["device_ms"], r["plain_ms"], r["bound"][0], r["bound"][1]),
               flush=True)
         report[name]["shard_tile"] = dict(
-            {k: r[k] for k in ("shape", "device_ms", "call_ms", "plain_ms")},
+            {k: r[k] for k in ("shape", "device_ms", "device_ms_method", "call_ms", "plain_ms")},
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             share_of_bound=r["bound"][0] / r["device_ms"], **({"lo": r["lo"]} if "lo" in r else {}))
 
@@ -3435,8 +3770,8 @@ def main(argv) -> int:
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
     for phase in (check_e2e, check_sharded_sim_e2e, check_batched_e2e, check_fuzz_e2e,
-                  check_storm_e2e, check_storm_planes_e2e, check_mesh_e2e, check_route_e2e,
-                  check_ckpt_e2e):
+                  check_storm_e2e, check_storm_planes_e2e, check_mesh_e2e, check_mesh_planes_e2e,
+                  check_route_e2e, check_ckpt_e2e):
         t0 = time.perf_counter()
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
@@ -3466,6 +3801,12 @@ def main(argv) -> int:
         # the obs planes at full width, each against its planes-off run
         ("SimCluster n=1024 obs planes", obs_paths, ("apply_updates", "pb_budget", "fused_stream")),
         ("1M storm obs planes", storm_planes_headline, ("exchange",)),
+        # the obs planes on both meshes, each beside its single-device twin
+        ("SimCluster n=1024 obs planes on the shard mesh", sharded_sim_planes_paths,
+         ("apply_updates", "pb_budget", "fused_stream")),
+        ("1M storm obs planes on the shard mesh", mesh_planes_headline, ("exchange",)),
+        ("membership_checksums n=1024", membership_checksums_path,
+         ("fused_stream", "block_loop")),
         ("routed 1M storm histograms", route_planes_headline, ("exchange",)),
         ("tick-cluster", tick_cluster_headline,
          ("apply_updates", "pb_budget", "fused_stream", "exchange")),
@@ -3505,8 +3846,9 @@ def main(argv) -> int:
         if twin.also_replaces:
             extra["also_replaces"] = list(twin.also_replaces)
         # the batching rule: one launch for B clusters, at B in BATCHES
-        extra["batched"] = {k: {f: v[f] for f in ("device_ms", "call_ms", "bound_ms",
-                                                  "launches_per_call", "max_abs_err")}
+        extra["batched"] = {k: dict({f: v[f] for f in ("device_ms", "call_ms", "bound_ms",
+                                                       "launches_per_call", "max_abs_err")},
+                                    **_events_method(v))
                             for k, v in batch_report[twin.kernel_entry].items()}
         kernels.append(dict(
             name=twin.kernel_entry,
@@ -3518,7 +3860,7 @@ def main(argv) -> int:
             ms=r["ms"],
             call_ms=r["call_ms"],
             device_ms=r["device_ms"],
-            device_ms_method=DEVICE_MS_METHOD,
+            device_ms_method=r["device_ms_method"],
             device_launches_seen=r["device_launches_seen"],
             plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0],

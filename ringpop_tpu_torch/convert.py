@@ -18,7 +18,8 @@ constants, the obs-plane knobs and the kernel knobs of a JAX
 state into the per-shard states of the mesh (``parallel.mesh``) and join
 them back, so a sharded run compares with either package's whole state;
 ``split_sim_state`` and ``join_sim_state`` do the same for the full
-engine's ``SimState``.
+engine's ``SimState``, the obs planes included (the event buffer in
+capacity blocks, the counters whole on every shard).
 
 The checkpoint format is the JAX package's: ``DISK_DTYPES`` names the
 numpy dtype every field of ``SimState``, ``ScalableState`` and
@@ -40,6 +41,7 @@ import torch
 
 from ringpop_tpu_torch.models.sim import engine
 from ringpop_tpu_torch.models.sim import engine_scalable as es
+from ringpop_tpu_torch.models.sim import flight
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.utils.host import to_host
 
@@ -164,9 +166,10 @@ def scalable_params_from_jax_fields(fields: dict) -> es.ScalableParams:
 def split_scalable_state(state: es.ScalableState, devices, exch_rows: bool = False):
     """One ScalableState per shard: shard s holds rows ``[s*L, (s+1)*L)``
     (``L = n / S``) of every node-indexed field (``NODE_SHARDED_FIELDS``)
-    and a copy of every other field, on ``devices[s]``.  ``exch_rows``:
-    the exchange telemetry planes ``[S, ...]`` are split by shard row
-    too (one row a shard), else copied whole."""
+    and of the ``first_heard`` plane, and a copy of every other field
+    (``hist`` included), on ``devices[s]``.  ``exch_rows``: the exchange
+    telemetry planes ``[S, ...]`` are split by shard row too (one row a
+    shard), else copied whole."""
     shards = len(devices)
     n = state.proc_alive.shape[0]
     if n % shards:
@@ -177,7 +180,10 @@ def split_scalable_state(state: es.ScalableState, devices, exch_rows: bool = Fal
         fields = {}
         for f in es.ScalableState._fields:
             x = getattr(state, f)
-            if x is not None and f in es.NODE_SHARDED_FIELDS:
+            # first_heard: node rows in memory (each shard stamps its own),
+            # but not in NODE_SHARDED_FIELDS, so a checkpoint keeps it in
+            # the common file, as JAX's does
+            if x is not None and (f in es.NODE_SHARDED_FIELDS or f == "first_heard"):
                 x = x[s * rows:(s + 1) * rows]
             elif x is not None and exch_rows and f in ("exch", "exch_hist"):
                 x = x[s:s + 1]
@@ -188,23 +194,38 @@ def split_scalable_state(state: es.ScalableState, devices, exch_rows: bool = Fal
 
 def gather_scalable_state(states, device, exch_rows: bool = False) -> es.ScalableState:
     """The one ScalableState the shards of :func:`split_scalable_state`
-    hold, on ``device``: node-indexed fields (and, with ``exch_rows``, the
-    telemetry planes) concatenated in shard order, the rest from shard 0."""
+    hold, on ``device``: node-indexed fields and ``first_heard`` (and,
+    with ``exch_rows``, the telemetry planes) concatenated in shard order,
+    the rest from shard 0."""
     fields = {}
     for f in es.ScalableState._fields:
         x = getattr(states[0], f)
-        if x is not None and (f in es.NODE_SHARDED_FIELDS
+        if x is not None and (f in es.NODE_SHARDED_FIELDS or f == "first_heard"
                               or (exch_rows and f in ("exch", "exch_hist"))):
             x = torch.cat([getattr(st, f).to(device) for st in states])
         fields[f] = None if x is None else x.to(device)
     return es.ScalableState(**fields)
 
 
+def _sim_shard_of(f: str, x: torch.Tensor, s: int, shards: int, rows: int) -> torch.Tensor:
+    """Shard s's part of SimState field ``f`` (see :func:`split_sim_state`)."""
+    if x.dim() == 0 or f == "hist":
+        return x
+    if f == "ev_buf":
+        lo, hi = flight.capacity_block(x.shape[0], shards, s)
+        return x[lo:hi]
+    return x[s * rows:(s + 1) * rows]
+
+
 def split_sim_state(state: engine.SimState, devices) -> List[engine.SimState]:
-    """One SimState per shard: shard s holds rows ``[s*L, (s+1)*L)`` (``L =
-    n / S``) of every non-scalar field — each is node-leading, the ``[N, N,
-    R]`` record cache included, as JAX's ``_spec_for`` shards them — and a
-    copy of the scalar clock, on ``devices[s]``."""
+    """One SimState per shard, on ``devices[s]``: shard s holds rows ``[s*L,
+    (s+1)*L)`` (``L = n / S``) of every node-leading field — every
+    non-scalar one but two, the ``[N, N, R]`` record cache and the
+    ``first_heard`` plane included, as JAX's ``_spec_for`` shards them —
+    the event buffer's capacity block ``flight.capacity_block`` (the
+    ``[event_capacity, 8]`` buffer in ``np.array_split``'s blocks), and a
+    copy of the scalars (the clock, ``ev_head``, ``ev_drops``) and of the
+    ``hist`` counters (every shard holds the whole cluster's)."""
     shards = len(devices)
     n = state.proc_alive.shape[0]
     if n % shards:
@@ -215,21 +236,20 @@ def split_sim_state(state: engine.SimState, devices) -> List[engine.SimState]:
         fields = {}
         for f in engine.SimState._fields:
             x = getattr(state, f)
-            if x is not None and x.dim() >= 1:
-                x = x[s * rows:(s + 1) * rows]
-            fields[f] = None if x is None else x.to(dev, copy=True)
+            fields[f] = None if x is None else _sim_shard_of(f, x, s, shards, rows).to(
+                dev, copy=True)
         out.append(engine.SimState(**fields))
     return out
 
 
 def join_sim_state(states, device) -> engine.SimState:
     """The one SimState the shards of :func:`split_sim_state` hold, on
-    ``device``: non-scalar fields concatenated in shard order, the clock
-    from shard 0."""
+    ``device``: node-leading fields and the event buffer's blocks
+    concatenated in shard order, the scalars and ``hist`` from shard 0."""
     fields = {}
     for f in engine.SimState._fields:
         x = getattr(states[0], f)
-        if x is not None and x.dim() >= 1:
+        if x is not None and x.dim() >= 1 and f != "hist":
             x = torch.cat([getattr(st, f).to(device) for st in states])
         fields[f] = None if x is None else x.to(device)
     return engine.SimState(**fields)

@@ -43,7 +43,11 @@ them, and they add no host read): ``flight_recorder`` appends event
 records and stamps the first-heard matrix (:mod:`.flight`), and
 ``histograms`` bumps the log2 counters of :data:`HIST_TRACKS`
 (:mod:`ringpop_tpu_torch.ops.histogram`).  Either one makes every fused
-site return its dense applied mask (``want_masks``).
+site return its dense applied mask (``want_masks``).  On a mesh the
+first-heard matrix is node-leading like the views, the event buffer is
+cut into capacity blocks (:mod:`.flight`), and every shard holds the
+whole counters: its bumps over its own rows are summed across the shards,
+and the whole cluster's ``dirty_rows`` is recorded once.
 
 uint32 values (``rng``, ``checksum``) are int32 bit patterns (ops/u32.py).
 Nothing here updates a state tensor in place: every phase builds new
@@ -888,8 +892,6 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     check_ported(params)
     n = params.n
     rows, lo = sh.rows, sh.lo
-    if sh.shards > 1 and (params.flight_recorder or params.histograms):
-        raise ValueError("the flight recorder and the histograms are not sharded yet")
     dev = state.known.device
     gate = params.gate_phases
     ft = resolve_fused_tick(params, dev.type)
@@ -1593,8 +1595,8 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     # written after every protocol phase from the masks that drove them;
     # nothing below writes protocol state
     if params.flight_recorder:
-        state = flight.record_tick_events(
-            state, tick_next, prev_known, prev_status,
+        state = yield from flight.record_tick_events(
+            sh, state, tick_next, prev_known, prev_status,
             flight.TickEventMasks(
                 valid_send=valid_send, target=target, delivered=delivered,
                 applied_ping=applied_ping, applied_resp=applied_resp, applied_pr=applied_pr,
@@ -1605,22 +1607,27 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
                 refute_prm=refute_prm, refute_prr=refute_prr, revived=rv, left=lv,
                 rejoined=rejoin,
             ),
+            n, params.event_capacity,
         )
     if params.histograms:
-        hist = state.hist
+        # the bumps over the shard's own rows, summed across the shards
+        # (every shard holds the whole counters)
+        part = torch.zeros_like(state.hist)
         # rumor age at first-heard: gossip adoptions landing ALIVE
         adopted = (
             (applied_ping | applied_resp | applied_pr)
             & ~is_self & (state.status == ALIVE) & (state.inc > 0)
         )
-        hist = hg.record(hist, HIST_TRACKS.index("rumor_age"), tick_next + 1 - state.inc, adopted)
+        part = hg.record(part, HIST_TRACKS.index("rumor_age"), tick_next + 1 - state.inc, adopted)
         # rumor age at retirement: the piggyback drop (dissemination.js:41)
-        hist = hg.record(hist, HIST_TRACKS.index("retired_age"), tick_next + 1 - state.ch_inc,
+        part = hg.record(part, HIST_TRACKS.index("retired_age"), tick_next + 1 - state.ch_inc,
                          pre_pb_active & ~state.ch_active)
         # suspicion duration at timer stop; revive resets forget timers
         stopped = (prev_susp >= 0) & (state.susp_deadline == -1) & ~rv[:, None]
-        hist = hg.record(hist, HIST_TRACKS.index("suspicion_duration"),
+        part = hg.record(part, HIST_TRACKS.index("suspicion_duration"),
                          tick_next - prev_susp + params.suspicion_ticks, stopped)
+        hist = state.hist + (yield ("sum", part))
+        # the whole cluster's dirty rows: one observation, recorded once
         hist = hg.record_count(hist, HIST_TRACKS.index("dirty_rows"), metrics.dirty_rows)
         state = state._replace(hist=hist)
 

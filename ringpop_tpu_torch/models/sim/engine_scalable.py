@@ -38,7 +38,11 @@ analytically from the tick's permutation (:func:`_exchange_obs_update`).
 The rumor-age track counts each rumor column's new heard bits (a bitwise
 column sum of the new-bit words) into the bucket of the column's age —
 the same counters as one observation per new bit, without the [N, U]
-expansion, which only the wavefront stamp builds (in row chunks).
+expansion, which only the wavefront stamp builds (in row chunks).  On a
+mesh a shard holds its own rows of ``first_heard`` (every write to it is
+row-local) and the whole ``hist``: its bumps over its own rows are summed
+across the shards, and the retirement ages, read off the replicated
+rumor table, are recorded once.
 """
 
 from __future__ import annotations
@@ -883,8 +887,11 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     csum = torch.where(revived, state.base_sum, state.checksum)
     # obs planes: written straight-line (never inside a gated phase) into
     # these locals from the masks that drive the trajectory, attached at
-    # the end
+    # the end.  ``part`` takes the histogram bumps over the shard's own
+    # rows, summed across the shards at the end; a bump every shard
+    # computes alike (over the replicated rumor table) goes to ``hist``
     hist = state.hist
+    part = None if hist is None else torch.zeros_like(hist)
     exch, exch_hist = state.exch, state.exch_hist
     # every node's partition and liveness, read at partner and subject ids
     partition_all = yield ("gather", partition)
@@ -1061,7 +1068,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
             ))
         if hist is not None:
             # rumor age at first-heard: column r's new bits, at age t - r_birth[r]
-            hist = hg.record_weighted(hist, SCALABLE_HIST_TRACKS.index("rumor_age"),
+            part = hg.record_weighted(part, SCALABLE_HIST_TRACKS.index("rumor_age"),
                                       t - state.r_birth, _column_bit_counts(diff_all))
     state = state._replace(heard=new_heard)
 
@@ -1073,7 +1080,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
     if hist is not None:
         # suspicion duration at refute-cancel (the clock read before reset)
-        hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
+        part = hg.record(part, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
                          t - state.susp_since, cancel)
     state = state._replace(
         susp_subject=state.susp_subject.masked_fill(cancel, -1),
@@ -1112,7 +1119,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
     if hist is not None:
         # suspicion duration at expiry (a cancelled clock was reset above)
-        hist = hg.record(hist, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
+        part = hg.record(part, SCALABLE_HIST_TRACKS.index("suspicion_duration"),
                          t - state.susp_since, expire)
     truth_all = yield ("gather", state.truth_status)
     still_suspect = take(truth_all, state.susp_subject.clamp(0, n - 1)) == SUSPECT
@@ -1199,6 +1206,8 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
         m = hw * u32.s32(0x9E3779B1) + pos * u32.s32(0x85EBCA77)
         m = m ^ u32.srl(m, 15)
         view_sig = u32.row_sum(m * u32.s32(0x2C1B3C6D), dim=1)
+    if hist is not None:
+        hist = hist + (yield ("sum", part))
     state = state._replace(checksum=checksum, rng=_fold(rng, 0x5CA1E), hist=hist, exch=exch,
                            exch_hist=exch_hist)
 

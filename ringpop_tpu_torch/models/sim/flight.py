@@ -15,6 +15,19 @@ to a scratch row ``cap`` that is sliced off.  No ``nonzero`` and no
 boolean indexing: ``head`` and ``drops`` stay 0-d tensors on the device,
 and the tick reads nothing back to the host.  One copy of the buffer is
 made per tick (the ``cap + 1``-row scratch); the appends write into it.
+
+On a shard mesh (``parallel.mesh.ShardedSim``) the buffer is cut into
+capacity blocks, ``np.array_split``'s: shard s holds rows
+:func:`capacity_block` of it, and the buffer's order stays the single
+device's — global row major, one emission after another, so append k of
+every shard comes before append k+1 of any.  A shard ranks its own lanes,
+and one ``gather`` of every shard's ``[EMISSIONS]`` emission counts gives
+each emission's total and the shard's offset in it (an exclusive prefix
+over the shards before it): shard s writes append k at ``head_k +
+offset_{k,s} + rank``.  One more ``gather`` of every shard's candidate
+lanes (global position and record) lets each shard write the records
+that land in its block into its ``block + 1``-row scratch.  ``ev_head``
+and ``ev_drops`` are replicated; nothing is read on the host.
 """
 
 from __future__ import annotations
@@ -50,25 +63,51 @@ def init_recorder_fields(n: int, capacity: int, device="cpu"):
     )
 
 
-class _Appender:
-    """The buffer of one tick: a ``cap + 1``-row scratch (row ``cap``
-    takes the dropped lanes) that every append writes into."""
+# the appends of one tick (:func:`record_tick_events`): pings, status
+# changes, suspect and faulty verdicts, two full-sync kinds, four refute
+# phases, joins
+EMISSIONS = 11
 
-    def __init__(self, buf, head, drops):
-        self.cap = buf.shape[0]
+
+def capacity_block(capacity: int, shards: int, index: int) -> tuple:
+    """Rows ``[lo, hi)`` of a ``capacity``-row event buffer that shard
+    ``index`` of ``shards`` holds: ``np.array_split``'s blocks (the first
+    ``capacity % shards`` blocks one row longer)."""
+    q, r = divmod(capacity, shards)
+    lo = index * q + min(index, r)
+    return lo, lo + q + (1 if index < r else 0)
+
+
+class _Appender:
+    """The buffer of one tick: a ``rows + 1``-row scratch (row ``rows``
+    takes the dropped lanes) that every append writes into.  Alone the
+    scratch is the whole buffer; on a mesh it is the shard's capacity
+    block ``[block_lo, block_lo + rows)`` of a ``capacity``-row buffer,
+    and the appends only collect their lanes (``pending``) until
+    :meth:`place` writes every shard's records into it."""
+
+    def __init__(self, buf, head, drops, capacity=None, block_lo=None):
+        self.rows = buf.shape[0]
+        self.cap = self.rows if capacity is None else capacity
+        self.block_lo = block_lo
+        self.pending = None if block_lo is None else []
         self.ext = torch.cat([buf, buf.new_zeros((1, buf.shape[1]))])
         self.head = head
         self.drops = drops
 
-    def append(self, mask, tick, kind, observer, subject, old_status, new_status, inc, aux):
-        """Masked append of up to M candidate events, in lane order."""
+    def append(self, mask, tick, kind, observer, subject, old_status, new_status, inc, aux,
+               offset=None, total=None):
+        """Masked append of up to M candidate events, in lane order.  On a
+        mesh, ``offset`` is the lanes the shards before this one selected
+        and ``total`` every shard's selected lanes."""
         mask = mask.reshape(-1)
         m = mask.shape[0]
         dev = mask.device
         mask_i = mask.to(torch.int32)
-        total = mask_i.sum(dtype=torch.int32)
+        if total is None:
+            total = mask_i.sum(dtype=torch.int32)
         rank = torch.cumsum(mask_i, 0, dtype=torch.int32) - 1
-        pos = self.head + rank
+        pos = self.head + rank if offset is None else self.head + offset + rank
         tgt = torch.where(mask & (pos < self.cap), pos, self.cap)
 
         def lane(v):
@@ -83,13 +122,28 @@ class _Appender:
              lane(new_status), lane(inc), lane(aux)],
             dim=1,
         )
-        self.ext.index_put_((tgt.to(torch.int64),), rec)
+        if self.pending is None:
+            self.ext.index_put_((tgt.to(torch.int64),), rec)
+        else:
+            self.pending.append(torch.cat([tgt[:, None], rec], dim=1))
         end = self.head + total
         self.drops = self.drops + (end - self.cap).clamp(min=0)
         self.head = end.clamp(max=self.cap)
 
+    def collected(self) -> torch.Tensor:
+        """This shard's candidate lanes, ``[M, 1 + RECORD_WIDTH]``: each
+        lane's global position (``capacity`` = dropped) and record."""
+        return torch.cat(self.pending)
+
+    def place(self, lanes: torch.Tensor) -> None:
+        """Write the lanes (every shard's :meth:`collected`) whose position
+        falls in this shard's block; the rest go to the scratch row."""
+        at = lanes[:, 0] - self.block_lo
+        at = torch.where((at >= 0) & (at < self.rows), at, self.rows)
+        self.ext.index_put_((at.to(torch.int64),), lanes[:, 1:])
+
     def result(self):
-        return self.ext[: self.cap], self.head, self.drops
+        return self.ext[: self.rows], self.head, self.drops
 
 
 class TickEventMasks(NamedTuple):
@@ -120,26 +174,29 @@ class TickEventMasks(NamedTuple):
     rejoined: torch.Tensor  # [N] bool — rejoin-of-left self-write this tick
 
 
-def record_tick_events(state, tick, prev_known, prev_status, masks: TickEventMasks):
-    """Append this tick's events; returns the state with new ``ev_*`` and
-    ``first_heard`` fields.  Emission order, as in the JAX op: pings,
-    status changes, suspect and faulty verdicts, full syncs (ping path,
-    then ping-req path), refutes (four phases), joins."""
-    n = prev_known.shape[0]
+def record_tick_events(sh, state, tick, prev_known, prev_status, masks: TickEventMasks,
+                       n: int, capacity: int):
+    """Append this tick's events (a shard body's generator); returns the
+    state with new ``ev_*`` and ``first_heard`` fields.  Emission order,
+    as in the JAX op: pings, status changes, suspect and faulty verdicts,
+    full syncs (ping path, then ping-req path), refutes (four phases),
+    joins.  ``sh`` is the shard (``engine_scalable.Solo`` alone): the
+    masks and the ``[N, ...]`` planes hold its rows ``[sh.lo, sh.lo +
+    rows)`` of the ``n``-node cluster, ``state.ev_buf`` its capacity block
+    of the ``capacity``-row buffer.  Alone it yields nothing; on a mesh it
+    yields two ``gather``s (module docstring)."""
+    rows = prev_known.shape[0]
+    lo = sh.lo
     dev = prev_known.device
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
-    row = ids[:, None].expand(n, n).reshape(-1)
-    col = ids[None, :].expand(n, n).reshape(-1)
-    is_self = ids[:, None] == ids[None, :]
+    ids = torch.arange(lo, lo + rows, dtype=torch.int32, device=dev)
+    subjects = torch.arange(n, dtype=torch.int32, device=dev)
+    row = ids[:, None].expand(rows, n).reshape(-1)
+    col = subjects[None, :].expand(rows, n).reshape(-1)
+    is_self = ids[:, None] == subjects[None, :]
     i32 = torch.int32
-    app = _Appender(state.ev_buf, state.ev_head, state.ev_drops)
     target = masks.target.clamp(0, n - 1)
 
-    # 1. pings: one event per initiated direct probe
-    app.append(masks.valid_send, tick, ev.EV_PING, ids, target, -1, -1, 0,
-               masks.delivered.to(i32))
-
-    # 2. view changes: the union of every apply mask, the phases in aux;
+    # view changes: the union of every apply mask, the phases in aux;
     # old view = the tick-start view (-1 unknown), new = end of tick
     join_learned = masks.joined[:, None] & state.known & ~is_self
     admin_self = (masks.left | masks.rejoined)[:, None] & is_self
@@ -154,34 +211,50 @@ def record_tick_events(state, tick, prev_known, prev_status, masks: TickEventMas
     changed = phase_bits > 0
     old_st = torch.where(prev_known, prev_status, -1).reshape(-1)
     inc = state.inc.reshape(-1)
-    app.append(changed, tick, ev.EV_STATUS, row, col, old_st, state.status.reshape(-1),
-               inc, phase_bits.reshape(-1))
-
-    # 3/4. detection verdicts (subsets of the status events)
-    app.append(masks.applied_sus, tick, ev.EV_SUSPECT, row, col, old_st, SUSPECT, inc, 0)
-    app.append(masks.applied_faulty, tick, ev.EV_FAULTY, row, col, old_st, FAULTY, inc, 0)
-
-    # 5. full syncs: ping path (sender <- target), then ping-req path
-    # (sender <- intermediary); aux = member records carried
-    app.append(masks.full_sync, tick, ev.EV_FULL_SYNC, ids, target, -1, -1, 0,
-               masks.fs_rec_rows)
     k = masks.pr_fs_mask.shape[1]
-    app.append(masks.pr_fs_mask, tick, ev.EV_FULL_SYNC, ids[:, None].expand(n, k),
-               masks.pr_sel.clamp(0, n - 1), -1, -1, 0, masks.pr_fs_recs)
-
-    # 6. refutes: one event per phase a node re-asserted itself in
-    self_inc = state.inc.diagonal()
-    for phase_bit, mask in (
-        (ev.PHASE_PING_RECV, masks.refute_recv),
-        (ev.PHASE_RESPONSE, masks.refute_resp),
-        (ev.PHASE_PING_REQ, masks.refute_prm),
-        (ev.PHASE_PING_REQ, masks.refute_prr),
-    ):
-        app.append(mask, tick, ev.EV_REFUTE, ids, ids, -1, ALIVE, self_inc, phase_bit)
-
-    # 7. joins: aux = members learned in the merge
-    app.append(masks.joined, tick, ev.EV_JOIN, ids, -1, -1, -1, 0,
-               join_learned.sum(dim=1, dtype=i32))
+    self_inc = state.inc.narrow(1, lo, rows).diagonal()
+    emissions = [
+        # 1. pings: one event per initiated direct probe
+        (masks.valid_send, ev.EV_PING, ids, target, -1, -1, 0, masks.delivered.to(i32)),
+        # 2. view changes
+        (changed, ev.EV_STATUS, row, col, old_st, state.status.reshape(-1), inc,
+         phase_bits.reshape(-1)),
+        # 3/4. detection verdicts (subsets of the status events)
+        (masks.applied_sus, ev.EV_SUSPECT, row, col, old_st, SUSPECT, inc, 0),
+        (masks.applied_faulty, ev.EV_FAULTY, row, col, old_st, FAULTY, inc, 0),
+        # 5. full syncs: ping path (sender <- target), then ping-req path
+        # (sender <- intermediary); aux = member records carried
+        (masks.full_sync, ev.EV_FULL_SYNC, ids, target, -1, -1, 0, masks.fs_rec_rows),
+        (masks.pr_fs_mask, ev.EV_FULL_SYNC, ids[:, None].expand(rows, k),
+         masks.pr_sel.clamp(0, n - 1), -1, -1, 0, masks.pr_fs_recs),
+    ] + [
+        # 6. refutes: one event per phase a node re-asserted itself in
+        (mask, ev.EV_REFUTE, ids, ids, -1, ALIVE, self_inc, phase_bit)
+        for phase_bit, mask in (
+            (ev.PHASE_PING_RECV, masks.refute_recv),
+            (ev.PHASE_RESPONSE, masks.refute_resp),
+            (ev.PHASE_PING_REQ, masks.refute_prm),
+            (ev.PHASE_PING_REQ, masks.refute_prr),
+        )
+    ] + [
+        # 7. joins: aux = members learned in the merge
+        (masks.joined, ev.EV_JOIN, ids, -1, -1, -1, 0, join_learned.sum(dim=1, dtype=i32)),
+    ]
+    if sh.shards == 1:
+        app = _Appender(state.ev_buf, state.ev_head, state.ev_drops)
+        for e in emissions:
+            app.append(e[0], tick, *e[1:])
+    else:
+        # each emission's total and this shard's offset in it
+        counts = torch.stack([e[0].reshape(-1).to(i32).sum(dtype=i32) for e in emissions])
+        every = (yield ("gather", counts)).reshape(sh.shards, EMISSIONS)
+        offsets = (torch.cumsum(every, 0, dtype=i32) - every)[sh.index]
+        totals = every.sum(dim=0, dtype=i32)
+        block_lo, _ = capacity_block(capacity, sh.shards, sh.index)
+        app = _Appender(state.ev_buf, state.ev_head, state.ev_drops, capacity, block_lo)
+        for j, e in enumerate(emissions):
+            app.append(e[0], tick, *e[1:], offset=offsets[j], total=totals[j])
+        app.place((yield ("gather", app.collected())))
 
     # the first-heard wavefront matrix: every adoption this tick stamps
     # it; a revived process's row resets (its reborn self view is born now)

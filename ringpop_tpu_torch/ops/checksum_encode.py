@@ -8,9 +8,6 @@ build each row's checksum string into a padded ``[B, W] uint8`` buffer for
 membership checksum is FarmHash32 of ``addr+status+incarnation`` joined
 with ';' over members sorted by address (lib/membership/index.js:100-123);
 the ring checksum joins the sorted server names (lib/ring/index.js:96-105).
-
-The JAX package's gather encoders (``impl`` "gather" / "gather2") are not
-ported yet (ROADMAP.md); asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -171,14 +168,19 @@ def membership_rows(
     ``max_digits`` bounds the incarnation's decimal digits (a wider value
     would silently corrupt the string).  ``impl``: "scatter_unique" (the
     default) or "scatter" — each member segment's bytes scattered to its
-    cumsum offset (see :func:`_scatter_rows`); both give the same bytes."""
+    cumsum offset (see :func:`_scatter_rows`); "gather" or "gather2" —
+    each output byte gathered from the member that owns it
+    (:func:`_membership_rows_gather`).  All four give the same first
+    ``lens`` bytes of every row; past them the scatter forms keep the
+    final separator and the gather forms zeros."""
     if impl in ("gather", "gather2"):
-        raise NotImplementedError(
-            "membership_rows impl=%r (the gather encoders) is not ported to "
-            "ringpop_tpu_torch yet (queued in ROADMAP.md)" % (impl,)
+        return _membership_rows_gather(
+            universe, present, status, incarnation, max_digits, width, chunk,
+            member_of="cumsum" if impl == "gather2" else "searchsorted",
         )
     if impl not in ("scatter_unique", "scatter"):
-        raise ValueError("membership_rows impl must be scatter_unique|scatter, got %r" % (impl,))
+        raise ValueError("membership_rows impl must be scatter_unique|scatter|gather|gather2, "
+                         "got %r" % (impl,))
     unique = impl == "scatter_unique"
     width = width or universe.member_row_width(max_digits)
     A = universe.addr_width
@@ -219,6 +221,83 @@ def membership_rows(
         positions = torch.cat([pos_a, pos_s, pos_d, pos_sep], dim=2)
         values = torch.cat([addr_bytes.expand(C, n, A), val_s, val_d, val_sep], dim=2)
         return _scatter_rows(width, positions.reshape(C, -1), values.reshape(C, -1), unique), total
+
+    return _chunked_rows(rows, present, status, incarnation, chunk)
+
+
+def _membership_rows_gather(
+    universe: Universe,
+    present: torch.Tensor,  # [B, N] bool
+    status: torch.Tensor,  # [B, N] int codes
+    incarnation: torch.Tensor,  # [B, N] int64
+    max_digits: int = MAX_DIGITS,
+    width: Optional[int] = None,
+    chunk: int = 64,
+    member_of: str = "searchsorted",
+):
+    """Gather-form encoder: output byte b of a row belongs to the member
+    whose ``[offset, offset + seg_len)`` interval holds b, and is that
+    member's address byte, status byte, incarnation digit or ';' by its
+    position within the segment; bytes from ``total`` on are zero.  No
+    byte-level scatter.  ``member_of`` picks how byte -> member is found:
+    "searchsorted" (a binary search over the segment-end cumsum) or
+    "cumsum" (a 1 at each present member's start, a prefix sum over the
+    row width, and the rank mapped back through the present members) —
+    both give the last present member whose offset is at most b."""
+    width = width or universe.member_row_width(max_digits)
+    A = universe.addr_width
+    n = universe.n
+    dev = present.device
+    i32, i64 = torch.int32, torch.int64
+    addr_bytes, addr_len, status_bytes, status_len = _tables(universe, dev)
+    b_pos = torch.arange(width, dtype=i32, device=dev)
+    members = torch.arange(n, dtype=i32, device=dev)
+
+    def rows(pres, stat, inc):
+        C = pres.shape[0]
+        stat = stat.to(i64)
+        pres_i = pres.to(i32)
+        slen = status_len[stat]
+        dlen = _ndigits(inc)
+        seg_len = (addr_len + slen + dlen + 1) * pres_i
+        ends = torch.cumsum(seg_len, dim=1, dtype=i32)
+        offset = ends - seg_len
+        total = (ends[:, -1] - 1).clamp(min=0) * (pres_i.sum(dim=1) > 0).to(i32)
+        if member_of == "cumsum":
+            starts = torch.zeros((C, width + 1), dtype=i32, device=dev).scatter_add_(
+                1, offset.clamp(0, width).to(i64), pres_i)
+            rank_of_byte = torch.cumsum(starts[:, :width], dim=1, dtype=i32) - 1
+            prank = torch.cumsum(pres_i, dim=1, dtype=i32) - 1
+            # column n takes the absent members (JAX's dropped writes)
+            rank_to_m = torch.zeros((C, n + 1), dtype=i32, device=dev).scatter_(
+                1, torch.where(pres, prank, n).to(i64), members.expand(C, n))[:, :n]
+            mc = torch.gather(rank_to_m, 1, rank_of_byte.clamp(0, n - 1).to(i64)).to(i64)
+        else:
+            mc = torch.searchsorted(ends, b_pos.expand(C, width).contiguous(), right=True)
+            mc = mc.clamp(0, n - 1)
+        local = b_pos - torch.gather(offset, 1, mc)
+        al = addr_len[mc]
+        sl = torch.gather(slen, 1, mc)
+        dl = torch.gather(dlen, 1, mc)
+        s_off = local - al
+        d_off = s_off - sl
+        byte_addr = addr_bytes[mc, local.clamp(0, A - 1).to(i64)]
+        byte_status = status_bytes[torch.gather(stat, 1, mc), s_off.clamp(0, _STATUS_W - 1).to(i64)]
+        # a per-member digit table ([N, D] divisions), not one per byte
+        val_d = _digit_bytes(inc, dlen, max_digits).reshape(C, n * max_digits)
+        byte_digit = torch.gather(val_d, 1, mc * max_digits + d_off.clamp(0, max_digits - 1))
+        sep = torch.full_like(byte_addr, ord(";"))
+        out = torch.where(
+            local < al,
+            byte_addr,
+            torch.where(
+                (s_off >= 0) & (s_off < sl),
+                byte_status,
+                torch.where((d_off >= 0) & (d_off < dl), byte_digit, sep),
+            ),
+        )
+        out = torch.where(b_pos < total[:, None], out, torch.zeros_like(out))
+        return out, total
 
     return _chunked_rows(rows, present, status, incarnation, chunk)
 

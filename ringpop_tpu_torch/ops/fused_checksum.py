@@ -1,7 +1,7 @@
 """Fused membership-checksum pipeline: per-member record encode, then a
 streaming FarmHash32 over the records with no ``[B, row_bytes]`` buffer.
 
-Counterpart of ``ringpop_tpu/ops/fused_checksum.py`` (lines 51-304):
+Counterpart of ``ringpop_tpu/ops/fused_checksum.py``:
 
 1. **Record encode** (:func:`member_records` / :func:`member_records_at`):
    each member's ``addr + status + incarnation + ';'`` record is built
@@ -39,6 +39,11 @@ def record_width(universe: ce.Universe, max_digits: int = MAX_DIGITS) -> int:
     ``addr + status + digits + ';'`` (the stream never reads past
     ``len-1``, so the final record's trailing ';' is naturally dropped)."""
     return universe.addr_width + ce._STATUS_W + max_digits + 1
+
+
+def record_word_width(universe: ce.Universe, max_digits: int = MAX_DIGITS) -> int:
+    """Words of one packed member record (:func:`pack_record_words`)."""
+    return (record_width(universe, max_digits) + 3) // 4
 
 
 @functools.lru_cache(maxsize=16)
@@ -270,3 +275,17 @@ def fused_hash_rows(
     out = torch.where(total > 12, fh._hash_13_24(head, total), out)
     return torch.where(total > 24, long_out, out)
 
+
+def membership_checksums(
+    universe: ce.Universe,
+    present: torch.Tensor,  # [B, N] bool
+    status: torch.Tensor,  # [B, N] int codes
+    inc_ms: torch.Tensor,  # [B, N] int64
+    max_digits: int = MAX_DIGITS,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """One-shot convenience: encode every record densely and hash them —
+    the fused twin of ``hash32_rows(*membership_rows(...))``; ``[B]``
+    int32 (uint32 bit patterns).  ``impl`` as :func:`fused_hash_rows`'s."""
+    rec_b, rec_l = member_records(universe, present, status, inc_ms, max_digits)
+    return fused_hash_rows(pack_record_words(rec_b), rec_l, impl=impl)

@@ -35,9 +35,17 @@ rows; ``fused_tick_resolution()`` reports this pick beside JAX's.
   one float, is summed in the order of JAX's node-sharded mean
   (``engine_scalable.sharded_mean_f32``).
 
-The storm's ``wavefront`` and ``histograms`` planes and the full engine's
-``flight_recorder`` and ``histograms`` are not sharded yet and are refused
-by name; the exchange telemetry (``exchange_metrics = S``) is.
+Every obs plane runs on the mesh, bitwise the single device's, as fields
+of the sharded state that ``.state`` joins (as in JAX, neither driver has
+a drain of its own; ``obs.events`` and ``obs.histograms`` read the joined
+fields).  The full engine's ``first_heard`` is node-leading, its event
+buffer sits in capacity blocks (``models/sim/flight.py``: ordered as the
+single device's, placed by one gather of the shards' emission counts and
+one of their candidate lanes) and its ``hist`` is whole on every shard;
+the storm's ``first_heard`` [N, U] is split by node rows (the common
+checkpoint file keeps it whole, as JAX's) and its ``hist`` is whole on
+every shard; the exchange telemetry (``exchange_metrics = S``) keeps a
+row a shard.
 """
 
 from __future__ import annotations
@@ -167,9 +175,11 @@ class ShardedSim(CheckpointableMixin):
     Each shard runs ``engine.shard_tick`` on its own rows, launching the
     tick's kernels there (``fused_tick_resolution()``); the bounded-parity
     overflow replay (``parity_replays``) is the single-device cluster's,
-    decided on the whole cluster's counts.  ``SimParams(flight_recorder=
-    True)`` and ``histograms=True`` are refused: those planes are not
-    sharded yet."""
+    decided on the whole cluster's counts.  With ``SimParams(flight_recorder=
+    True)`` and ``histograms=True`` the planes are fields of the joined
+    ``state``: ``obs.events.decode_events`` and ``obs.histograms.summarize``
+    read them, and a drain is a reset of ``ev_head``/``ev_drops`` or
+    ``hist`` through the ``state`` setter."""
 
     def __init__(self, n: int, mesh: Optional[Mesh] = None, params=None,
                  addresses: Optional[Sequence[str]] = None, seed: int = 0):
@@ -184,12 +194,6 @@ class ShardedSim(CheckpointableMixin):
         params = params or engine.SimParams(n=n)
         if params.n != n:
             params = params._replace(n=n)
-        for plane in ("flight_recorder", "histograms"):
-            if getattr(params, plane):
-                raise ValueError(
-                    "SimParams(%s=True) is not sharded yet: run it on the "
-                    "single-device SimCluster (ROADMAP.md queue A)" % plane
-                )
         if n % shards:
             raise ValueError("n=%d not divisible by mesh size %d" % (n, shards))
         requested = params.fused_tick
@@ -342,10 +346,11 @@ class ShardedSim(CheckpointableMixin):
         return u32.to_numpy(torch.cat([st.checksum.to(self.device) for st in self._states]))
 
     # -- checkpoint/resume (models/sim/recovery.py) -------------------------
-    # Every non-scalar field is node-leading and split across per-shard
-    # files, one a mesh shard by default; a restore reassembles them and
-    # splits them again under THIS mesh, so a save resumes on any shard
-    # count, on SimCluster and in either package.
+    # Every non-scalar field of the joined state is split across per-shard
+    # files with np.array_split, one a mesh shard by default (JAX's
+    # format); a restore reassembles them and splits them again under THIS
+    # mesh, so a save resumes on any shard count, on SimCluster and in
+    # either package.
 
     def _default_ckpt_shards(self) -> int:
         return self.mesh.size
@@ -532,7 +537,11 @@ class ShardedStorm(CheckpointableMixin):
     direct round's partner rows by the uncapped all-gather, then the
     plain exchange per shard) and "off" the inline classic phases.
     ``exchange_cap_override`` forces the all-to-all bucket cap (cap=1
-    overflows every route onto the fallback)."""
+    overflows every route onto the fallback).  With ``ScalableParams(
+    wavefront=True)`` and ``histograms=True`` the planes are fields of the
+    gathered ``state`` (``first_heard`` split by node rows on the shards,
+    ``hist`` whole on each): ``obs.events.scalable_wavefront_summary`` and
+    ``obs.histograms.summarize`` read them."""
 
     def __init__(self, n: int, mesh: Optional[Mesh] = None, params=None, seed: int = 0,
                  exchange_cap_override: Optional[int] = None):
@@ -543,12 +552,6 @@ class ShardedStorm(CheckpointableMixin):
         shards = self.mesh.size
         self.device = self.mesh.devices[0]
         device_type = _one_device_type(self.mesh)
-        for plane in ("wavefront", "histograms"):
-            if getattr(params, plane):
-                raise ValueError(
-                    "ScalableParams(%s=True) is not sharded yet: run it on the "
-                    "single-device ScalableCluster (ROADMAP.md queue A)" % plane
-                )
         if n % shards:
             raise ValueError("n=%d not divisible by mesh size %d" % (n, shards))
         requested = params.fused_exchange

@@ -1,9 +1,12 @@
 """The port's checksum-string encoders against the JAX package, byte for
 byte: ``membership_rows`` (both scatter forms, chunked and not, with 14 and
-19 incarnation digits) and ``ring_rows``, on views with every status,
-absent members and incarnations of every digit count from 1 to
-``max_digits``; the buffers and the lengths must be equal, and each row
-must be the reference's checksum string."""
+19 incarnation digits; both gather forms at several digit counts and
+widths, against JAX's and against ``scatter_unique``) and ``ring_rows``,
+on views with every status, absent members and incarnations of every
+digit count from 1 to ``max_digits``; the buffers and the lengths must be
+equal, and each row must be the reference's checksum string.  Also
+``record_word_width`` and ``membership_checksums`` against JAX's, the
+latter equal to ``hash32_rows`` of every encoder's rows."""
 
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ import pytest
 import torch
 
 from ringpop_tpu.ops import checksum_encode as jce
+from ringpop_tpu.ops import fused_checksum as jfc
 from ringpop_tpu_torch.ops import checksum_encode as pce
+from ringpop_tpu_torch.ops import farmhash as pfh
+from ringpop_tpu_torch.ops import fused_checksum as pfc
+from ringpop_tpu_torch.ops import u32
 from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 
 ADDRS = ["127.0.0.1:%d" % (3000 + i) for i in range(13)] + ["a", "bb:1", "10.0.0.9:99"]
@@ -80,9 +87,66 @@ def test_ring_rows_match_jax():
         assert bytes(pb[b, : len(s)].numpy()) == s
 
 
-def test_gather_encoders_are_not_ported():
-    _, up, present, status, inc = _views(14)
-    for impl in ("gather", "gather2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pce.membership_rows(up, torch.as_tensor(present), torch.as_tensor(status),
-                                torch.as_tensor(inc), impl=impl)
+@pytest.mark.parametrize("max_digits,extra", [(14, 0), (19, 0), (14, 13), (6, 5)])
+@pytest.mark.parametrize("impl", ["gather", "gather2"])
+def test_gather_encoders_match_jax_and_scatter(max_digits, extra, impl):
+    """The gather encoders' buffers and lengths equal JAX's bitwise (the
+    default width and a wider buffer; chunked at 8 rows), and their first
+    ``lens`` bytes equal ``scatter_unique``'s: past them the gather forms
+    hold zeros where the scatter forms keep the final ';'."""
+    uj, up, present, status, inc = _views(max_digits, seed=max_digits + extra)
+    width = up.member_row_width(max_digits) + extra if extra else None
+    chunk = 8 if extra else 64
+    jb, jl = jce.membership_rows(uj, jnp.asarray(present), jnp.asarray(status),
+                                 jnp.asarray(inc), max_digits=max_digits, width=width,
+                                 chunk=chunk, impl=impl)
+    args = (up, torch.as_tensor(present), torch.as_tensor(status), torch.as_tensor(inc))
+    pb, pl = pce.membership_rows(*args, max_digits=max_digits, width=width, chunk=chunk,
+                                 impl=impl)
+    assert pb.dtype == torch.uint8 and pl.dtype == torch.int32
+    assert np.array_equal(pb.numpy(), np.asarray(jb))
+    assert np.array_equal(pl.numpy(), np.asarray(jl))
+    sb, sl = pce.membership_rows(*args, max_digits=max_digits, width=width, chunk=chunk)
+    assert torch.equal(pl, sl) and pb.shape == sb.shape
+    for b, s in enumerate(_strings(up, present, status, inc)):
+        assert int(pl[b]) == len(s) and bytes(pb[b, : len(s)].numpy()) == s, b
+        assert torch.equal(pb[b, : len(s)], sb[b, : len(s)]) and not pb[b, len(s):].any()
+
+
+def test_unknown_encoder_is_refused():
+    _, up, present, status, inc = _views(6)
+    with pytest.raises(ValueError, match="gather2"):
+        pce.membership_rows(up, torch.as_tensor(present), torch.as_tensor(status),
+                            torch.as_tensor(inc), impl="bisect")
+
+
+@pytest.mark.parametrize("max_digits", [6, 14, 19])
+def test_record_word_width_matches_jax(max_digits):
+    uj, up = jce.Universe.from_addresses(ADDRS), pce.Universe.from_addresses(ADDRS)
+    assert pfc.record_word_width(up, max_digits) == jfc.record_word_width(uj, max_digits)
+    assert pfc.record_word_width(up, max_digits) == -(-pfc.record_width(up, max_digits) // 4)
+
+
+def _checksum_views(max_digits=14):
+    uj, up, present, status, inc = _views(max_digits, seed=40 + max_digits)
+    return uj, (up, torch.as_tensor(present), torch.as_tensor(status), torch.as_tensor(inc))
+
+
+def test_membership_checksums_match_jax():
+    """``membership_checksums`` (the plain stream hash on the CPU, as
+    ``impl=None`` picks here) equals JAX's."""
+    uj, args = _checksum_views()
+    want = np.asarray(jfc.membership_checksums(uj, *(jnp.asarray(a.numpy()) for a in args[1:]),
+                                               14, impl="xla"))
+    got = pfc.membership_checksums(*args, 14)
+    assert got.dtype == torch.int32
+    assert np.array_equal(u32.to_numpy(got), want)
+    assert torch.equal(got, pfc.membership_checksums(*args, 14, impl="plain"))
+
+
+@pytest.mark.parametrize("max_digits", [14, 19])
+@pytest.mark.parametrize("impl", ["scatter_unique", "scatter", "gather", "gather2"])
+def test_membership_checksums_equal_hash_rows_of_every_encoder(max_digits, impl):
+    _, args = _checksum_views(max_digits)
+    rows = pce.membership_rows(*args, max_digits=max_digits, impl=impl)
+    assert torch.equal(pfh.hash32_rows(*rows), pfc.membership_checksums(*args, max_digits))

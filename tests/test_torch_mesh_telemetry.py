@@ -5,7 +5,7 @@ With ``exchange_metrics = S`` the counters and cap-utilization histograms
 come from the plane's own routing statistics, one row a shard; they must
 equal the single-device analytic twin's (``_exchange_obs_update``) bit for
 bit, and JAX's mesh drain.  The drain's reset, the refusals (telemetry
-off, a foreign bucket count, the planes not sharded yet) and the
+off, a foreign bucket count, an indivisible node count) and the
 trajectory-neutrality of the counters are pinned too.  The JAX persistent
 compilation cache is off in this module (``no_jax_cache``,
 tests/test_torch_mesh.py).
@@ -162,9 +162,6 @@ def test_refusals():
         storm.drain_exchange_metrics()
     with pytest.raises(ValueError, match="must equal the mesh size"):
         pmesh.ShardedStorm(n=N, mesh=_mesh(4), params=_params(N, 2), seed=4)
-    for plane in ("wavefront", "histograms"):
-        with pytest.raises(ValueError, match=plane):
-            pmesh.ShardedStorm(n=N, mesh=_mesh(2), params=_params(N, 0, **{plane: True}))
     with pytest.raises(ValueError, match="divisible"):
         pmesh.ShardedStorm(n=N, mesh=_mesh(3), params=_params(N, 0))
 

@@ -33,7 +33,6 @@ from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
 from ringpop_tpu_torch.ops import _build, block_loop as pbl, fused_apply as pfa
 from ringpop_tpu_torch.ops import fused_piggyback as pfp, stream_hash as psh, toolkit, u32
 from ringpop_tpu_torch.parallel import ShardedSim, make_mesh, make_mesh_2d
-from ringpop_tpu_torch.parallel.mesh import Shard
 from tests._xla_mappings import bounded_mappings  # noqa: F401  (an autouse fixture)
 from tests.test_torch_mesh import no_jax_cache  # noqa: F401  (a fixture)
 
@@ -263,23 +262,9 @@ def test_resolution_note_reports_port_and_jax_picks():
     assert sim.fused_tick_resolution()["devices"] == ["cpu"] * 4
 
 
-@pytest.mark.parametrize("plane", ("flight_recorder", "histograms"))
-def test_unsharded_planes_are_refused_by_name(plane):
-    with pytest.raises(ValueError, match=plane):
-        ShardedSim(16, make_mesh(2, device=CPU), params=pe.SimParams(n=16, **{plane: True}))
-
-
 def test_indivisible_node_count_is_refused():
     with pytest.raises(ValueError, match="not divisible"):
         ShardedSim(18, make_mesh(4, device=CPU), params=pe.SimParams(n=18))
-
-
-def test_the_shard_body_refuses_the_planes_on_a_tile():
-    p = pe.SimParams(n=16, checksum_mode="fast", histograms=True)
-    tile = convert.split_sim_state(pe.init_state(p), [CPU, CPU])[0]
-    body = pe.shard_tick(Shard(0, 2, 8, 0, False), tile, pe.TickInputs.quiet(8), p, None)
-    with pytest.raises(ValueError, match="not sharded"):
-        next(body)
 
 
 def test_split_and_join_sim_state_round_trip():
