@@ -128,7 +128,19 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    non-empty drains, peak memory); the routed 1M storm with route
    histograms (rings and metrics equal to its planes-off run); and the
    tick-cluster harness (``torch-sim`` at n=1024, ``torch-sim-scalable``
-   at n=100,000, lookups against a numpy host ring); the 1M storm on a
+   at n=100,000, lookups against a numpy host ring); the host obs layer
+   (``obs_host_path``): the n=1024 farmhash planes-on ``SimCluster``
+   wrapped by ``obs.perf.wrap_cluster`` and tapped by a ``SimTracerHost``
+   beside an unwrapped, untapped twin — a 16-tick churn window through
+   ``timed_window``, the same window profiled (host reads a tick equal),
+   an 8-tick window through ``obs.xprof.capture``, state bitwise the
+   twin's and every drain covered by the tracer's records after each
+   window, the merged host timeline valid, the ``perf.phase`` and
+   ``xprof.capture`` rows schema-valid — the resolution gauges of that
+   cluster and an n=4096 ``ScalableCluster``, and an n=4096 routed storm
+   with route histograms over 4 windows of 4 ticks feeding the SLO plane
+   (schema-valid ``slo.window`` rows, Prometheus ``_count`` lines equal
+   to the drained totals); the 1M storm on a
    4-shard mesh (``ShardedStorm``, all four shards on ``cuda:0``, and on
    ``cuda:0..3`` too where there are four cards) beside its single-device
    twin: a cold run with ``exchange_metrics=4`` checkpointed every 20
@@ -1962,6 +1974,327 @@ def tick_cluster_headline(n_sim: int = N_HEAD, n_scalable: int = 100_000, device
                                      display=sc.format_groups().splitlines()[-1].strip())
     out["seconds"] = time.perf_counter() - t0
     print("tick_cluster %s" % json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the host obs layer: dispatch timers, the trace tap, the profiler harness,
+# the resolution gauges and the SLO plane around the card's runs
+
+OBS_HOST_WINDOW = 16
+OBS_HOST_CAPTURE = 8
+OBS_HOST_SLO_WINDOWS = 4
+
+
+class _ListLogger:
+    """A trace host's logger keeping every log sink's blob."""
+
+    def __init__(self):
+        self.blobs = []
+
+    def info(self, msg, extra=None, **kw):
+        self.blobs.append((extra or kw)["blob"])
+
+    def debug(self, *a, **k):
+        pass
+
+    warning = warn = error = debug
+
+
+class _CapturingStatsd:
+    def __init__(self):
+        self.records = []
+
+    def increment(self, key, value=1):
+        self.records.append(("increment", key, value))
+
+    def gauge(self, key, value):
+        self.records.append(("gauge", key, value))
+
+    def timing(self, key, value):
+        self.records.append(("timing", key, value))
+
+
+def _schema_problems(path: str) -> list:
+    """``scripts/check_metrics_schema.py``'s checks of one run log (the
+    recorder's schema and the event rows' field sets) without its
+    ``check()``, which reads the logs through the JAX package."""
+    import importlib.util
+
+    from ringpop_tpu_torch.obs import recorder as orec
+
+    spec = importlib.util.spec_from_file_location(
+        "check_metrics_schema", os.path.join(HERE, "scripts", "check_metrics_schema.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return orec.validate_run_log(path) + mod._check_route_rows(path)
+
+
+def obs_host_path(n: int = N_HEAD, n_mid: int = N_MID, device="cuda") -> dict:
+    """The host obs layer around the card's runs.  ``SimCluster(n)`` in
+    farmhash mode with ``obs_headline``'s planes (flight recorder,
+    histograms, ``event_capacity`` 2^22), wrapped by ``obs.perf.wrap_cluster``
+    and tapped by an ``obs.sim_tap.SimTracerHost`` (log sinks on
+    ``sim.tick.metrics`` and ``sim.flight.events``, ``FakeTimers``), stepped
+    beside an unwrapped, untapped twin: bootstrap, converge, a 16-tick
+    churn window twice through ``obs.perf.timed_window`` (the twin's timed
+    alike, in the order cluster, twin, twin, cluster), the same window
+    under the profiler on each (host reads a tick equal), an 8-tick window
+    through ``obs.xprof.capture`` (the twin's timed unprofiled before and
+    after it), every drain equal to the twin's and every state
+    field bitwise the twin's after each window; the tracer's
+    ``flightEvents`` records cover each drain exactly, the 16-tick metrics
+    publish 16 ``tickMetrics`` records, ``add_host_timeline`` merges a
+    valid trace, the xprof row is ``ok`` with ops, and the ``perf.phase``
+    and ``xprof.capture`` rows pass the schema gate.  Then
+    ``emit_resolution_stat`` of that cluster and of an ``n_mid``
+    ``ScalableCluster`` through a capturing bridge, and an ``n_mid``
+    ``RoutedStorm(histograms=True)`` over 4 windows of 4 ticks of
+    ``check_route_e2e``'s churn (10% killed at tick 1, revived at 9): each
+    window's route bank read, drained with reset, and fed to an
+    ``obs.slo.SLOWindowPlane(window_len=3)``; the ``slo.window`` rows pass
+    the schema gate and the Prometheus text's ``_count`` lines equal the
+    drained totals."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from ringpop_tpu_torch.models.route.plane import ROUTE_HIST_TRACKS, RoutedStorm, RouteParams
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.net.timers import FakeTimers
+    from ringpop_tpu_torch.obs import chrome_trace as oct_
+    from ringpop_tpu_torch.obs import histograms as oh
+    from ringpop_tpu_torch.obs import perf, prometheus, slo, xprof
+    from ringpop_tpu_torch.obs.recorder import RunRecorder
+    from ringpop_tpu_torch.obs.sim_tap import SimTracerHost
+    from ringpop_tpu_torch.obs.statsd_bridge import StatsdBridge
+    from ringpop_tpu_torch.ops import toolkit
+    from ringpop_tpu_torch.ops import (
+        block_loop, exchange, fused_apply, fused_piggyback, stream_hash,
+    )
+    from ringpop_tpu_torch.utils.trace import Tracer
+
+    wrappers = {"apply_updates": fused_apply.apply_updates, "pb_budget": fused_piggyback.pb_budget,
+                "fused_stream": stream_hash.fused_stream, "exchange": exchange.exchange,
+                "block_loop": block_loop.block_loop}
+    params = engine.SimParams(n=n, checksum_mode="farmhash", flight_recorder=True,
+                              histograms=True, event_capacity=1 << 22)
+    sim = SimCluster(n=n, params=params, device=device)
+    twin = SimCluster(n=n, params=params, device=device)
+    timer = perf.wrap_cluster(sim)
+    host = SimTracerHost(sim, logger=_ListLogger(), timers=FakeTimers())
+    for event in ("sim.tick.metrics", "sim.flight.events"):
+        host.tracers.add(Tracer(host, event, {"type": "log"}))
+    sim.attach_tracer(host)
+    out = dict(n=n, mode="farmhash", event_capacity=params.event_capacity)
+
+    def same_state(label):
+        for f in engine.SimState._fields:
+            a, b = getattr(sim.state, f), getattr(twin.state, f)
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError("obs host %s: state %s differs from the twin" % (label, f))
+
+    drained = []
+
+    def drain(label):
+        """Both drains equal; the tracer's flightEvents records cover this
+        drain's events exactly, in order."""
+        first = len(host.logger.blobs)
+        events, want = sim.drain_events(), twin.drain_events()
+        if events != want:
+            raise AssertionError("obs host %s: the drain differs from the twin's" % label)
+        recs = [b for b in host.logger.blobs[first:] if "events" in b]
+        got = [(b["offset"], b["total"], len(b["events"])) for b in recs]
+        exp = [(lo, len(events), min(256, len(events) - lo)) for lo in range(0, len(events), 256)]
+        if got != exp or any(b["events"] and b["events"][0] is not events[b["offset"]]
+                             for b in recs):
+            raise AssertionError("obs host %s: flightEvents records %r, drain of %d"
+                                 % (label, got[:4], len(events)))
+        same_state(label)
+        drained.append(len(events))
+        del host.logger.blobs[first:]
+        return events
+
+    def window_ms(run, ticks):
+        _sync(device)
+        t0 = time.perf_counter()
+        m = run()
+        _sync(device)
+        return m, (time.perf_counter() - t0) / ticks * 1e3
+
+    tmp = tempfile.TemporaryDirectory()
+    rec = RunRecorder(os.path.join(tmp.name, "obs_host.runlog.jsonl"), config=dict(n=n))
+    try:
+        for c in (sim, twin):
+            c.bootstrap()
+        drain("bootstrap")
+        conv = [c.run_until_converged(96, quiet_after=1) for c in (sim, twin)]
+        if conv[0] != conv[1] or conv[0] < 0:
+            raise AssertionError("obs host: converged in %r (cluster, twin)" % conv)
+        out["converged_in"] = conv[0]
+        drain("converge")
+        window = EventSchedule.churn_window(OBS_HOST_WINDOW, n)
+        # wrapped, twin, twin, wrapped: each side's ms/tick is the mean of
+        # its two windows, so the order's share of the host's drift cancels
+        walls, twin_walls, ms_sim, ms_twin = [], [], [], []
+        for side in ("sim", "twin", "twin", "sim"):
+            if side == "sim":
+                m, wall = perf.timed_window(lambda: sim.run(window), warmup=0, repeats=1,
+                                            recorder=rec, phase="churn_window", timer=timer,
+                                            n=n, ticks=OBS_HOST_WINDOW)
+                walls.append(wall / OBS_HOST_WINDOW * 1e3)
+                ms_sim.append(m)
+            else:
+                m, ms = window_ms(lambda: twin.run(window), OBS_HOST_WINDOW)
+                twin_walls.append(ms)
+                ms_twin.append(m)
+        for a, b in zip(ms_sim, ms_twin):
+            for f in engine.TickMetrics._fields:
+                if not np.array_equal(getattr(a, f), getattr(b, f)):
+                    raise AssertionError("obs host: churn window metric %s differs" % f)
+        m_sim = ms_sim[0]
+        first = len(host.logger.blobs)
+        if host.publish_tick_metrics(m_sim, start_tick=1 + conv[0]) != OBS_HOST_WINDOW:
+            raise AssertionError("obs host: publish_tick_metrics did not give %d records"
+                                 % OBS_HOST_WINDOW)
+        ticks = [b for b in host.logger.blobs[first:] if "metrics" in b]
+        if (len(ticks) != OBS_HOST_WINDOW
+                or ticks[0]["metrics"]["pings_sent"] != int(m_sim.pings_sent[0])):
+            raise AssertionError("obs host: %d tickMetrics records" % len(ticks))
+        out["window"] = dict(ticks=OBS_HOST_WINDOW, ms_per_tick=sum(walls) / 2,
+                             twin_ms_per_tick=sum(twin_walls) / 2, walls_ms_per_tick=walls,
+                             twin_walls_ms_per_tick=twin_walls, tick_metrics_records=len(ticks))
+        drain("churn window")
+        prof = [_profile_window(lambda c=c: c.run(window), OBS_HOST_WINDOW, device)
+                for c in (sim, twin)]
+        if prof[0]["host_reads_per_tick"] != prof[1]["host_reads_per_tick"]:
+            raise AssertionError("obs host: host reads a tick %r wrapped, %r twin"
+                                 % (prof[0]["host_reads_per_tick"], prof[1]["host_reads_per_tick"]))
+        out["profiled"] = dict(wrapped=prof[0], twin=prof[1])
+        drain("profiled window")
+        # the twin's unprofiled window before and after the capture; the
+        # cluster runs the same window unprofiled after it, to stay in step
+        capture = EventSchedule.churn_window(OBS_HOST_CAPTURE, n)
+        _, twin_before = window_ms(lambda: twin.run(capture), OBS_HOST_CAPTURE)
+        before = {k: w.launches for k, w in wrappers.items()}
+        row = xprof.capture(lambda: sim.run(capture), os.path.join(tmp.name, "xprof"),
+                            phase="obs_host_capture", warmup=0, repeats=1, top_k=30,
+                            recorder=rec, n=n, ticks=OBS_HOST_CAPTURE)
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        _, twin_after = window_ms(lambda: twin.run(capture), OBS_HOST_CAPTURE)
+        _, sim_unprofiled = window_ms(lambda: sim.run(capture), OBS_HOST_CAPTURE)
+        twin_capture_ms = (twin_before + twin_after) / 2
+        if not row["ok"] or not row["ops"]:
+            raise AssertionError("obs host: xprof row %r" % {k: v for k, v in row.items()
+                                                              if k != "ops"})
+        # each kernel's records by its symbol (``(anonymous namespace)::
+        # apply_updates_kernel(...)``, ``void ...::fused_stream_kernel<9, true>(...)``)
+        symbol = {t.kernel_entry: re.compile(r"(?<!\w)%s_kernel\b" % t.kernel_entry)
+                  for t in toolkit.TWIN_REGISTRY}
+        seen = dict.fromkeys(symbol, 0)
+        for path in xprof.find_trace_files(row["trace_dir"]):
+            for e in xprof.load_trace_events(path):
+                if e.get("cat") == "kernel":
+                    for k, pat in symbol.items():
+                        if pat.search(str(e.get("name", ""))):
+                            seen[k] += 1
+        out["xprof"] = dict(
+            ok=row["ok"], digest=row["digest"], note=row.get("note"), wall_s=row["wall_s"],
+            ms_per_tick=row["wall_s"] / OBS_HOST_CAPTURE * 1e3,
+            twin_unprofiled_ms_per_tick=twin_capture_ms,
+            twin_unprofiled_before_after=[twin_before, twin_after],
+            unprofiled_ms_per_tick=sim_unprofiled, kernel_records=row["kernel_records"],
+            total_self_us=row["total_self_us"],
+            top=[dict(name=o["name"][:60], self_us=o["self_us"], count=o["count"],
+                      budget_entry=o["budget_entry"]) for o in row["ops"][:8]],
+            keyed=[dict(name=o["name"][:60], self_us=o["self_us"], count=o["count"],
+                        budget_entry=o["budget_entry"]) for o in row["ops"]
+                   if o["budget_entry"]],
+            kernel_records_seen={k: seen[k] for k in seen if launched[k] or seen[k]},
+            launches={k: v for k, v in launched.items() if v})
+        print(xprof.render_table(row), flush=True)
+        events = drain("capture")
+        trace = sim.export_flight_trace(events)
+        oct_.add_host_timeline(trace, timer)
+        problems = oct_.validate_chrome_trace(trace)
+        if problems:
+            raise AssertionError("obs host: merged trace invalid: %r" % problems[:3])
+        out["trace_events"] = len(trace["traceEvents"])
+        out["drained_events"] = drained
+        if timer.emit(rec) != len(timer.phases) or set(timer.phases) != {
+                "tick", "scan", "churn_window"}:
+            raise AssertionError("obs host: timer phases %r" % sorted(timer.phases))
+        if timer.phases["tick"].calls != 1 + conv[0] or timer.phases["scan"].calls != 5:
+            raise AssertionError("obs host: tick/scan calls %d/%d" % (
+                timer.phases["tick"].calls, timer.phases["scan"].calls))
+        out["phases"] = {r["phase"]: dict(calls=r["calls"], p50_ms=r["p50_ms"],
+                                          p95_ms=r["p95_ms"], p99_ms=r["p99_ms"])
+                         for r in timer.summary()}
+        rec.finish()
+        problems = _schema_problems(rec.path)
+        with open(rec.path) as fh:
+            names = [json.loads(line).get("name") for line in fh if line.strip()]
+        if problems or names.count("perf.phase") != 5 or names.count("xprof.capture") != 1:
+            raise AssertionError("obs host: run log %r, rows %r" % (problems[:3], names))
+
+        cap = _CapturingStatsd()
+        bridge = StatsdBridge(statsd=cap, host_port="127.0.0.1:3000")
+        sim.emit_resolution_stat(bridge)
+        ScalableCluster(n_mid, params=es.ScalableParams(n=n_mid, u=512),
+                        device=device).emit_resolution_stat(bridge)
+        if [k.split(".", 2)[2] for _, k, _ in cap.records] != [
+                "sim.fused_checksum.resolution_differs", "sim.fused_tick.resolution_differs",
+                "sim.fused_exchange.resolution_differs"]:
+            raise AssertionError("obs host: resolution gauges %r" % cap.records)
+        out["resolution_gauges"] = {k: v for _, k, v in cap.records}
+
+        rs = RoutedStorm(n_mid, params=es.ScalableParams(n=n_mid, u=512),
+                         route=RouteParams(n=n_mid, queries_per_tick=4096, histograms=True),
+                         seed=3, device=device)
+        sched = StormSchedule.churn_storm(4 * OBS_HOST_SLO_WINDOWS, n_mid, 0.10, fail_tick=1,
+                                          rejoin_tick=9, seed=1)
+        slo_rec = RunRecorder(os.path.join(tmp.name, "slo.runlog.jsonl"), config=dict(n=n_mid))
+        scap = _CapturingStatsd()
+        plane = slo.SLOWindowPlane(slo.SLOTarget(), window_len=3, recorder=slo_rec,
+                                   statsd=StatsdBridge(statsd=scap, host_port="127.0.0.1:3000"))
+        slo_ms, totals, rows = [], [], []
+        for w in range(OBS_HOST_SLO_WINDOWS):
+            _, rm = rs.run(sched.window(4 * w, 4 * w + 4))
+            t0 = time.perf_counter()
+            bank = oh.host_counts(rs.rstate.hist)
+            summary = rs.drain_histograms(reset=True)["route"]
+            rows.append(plane.observe_route_window(4 * w + 4, bank, rm))
+            slo_ms.append((time.perf_counter() - t0) * 1e3)
+            totals.append({t: summary[t]["count"] for t in ROUTE_HIST_TRACKS})
+            if [int(bank[i].sum()) for i in range(len(ROUTE_HIST_TRACKS))] != list(
+                    totals[-1].values()):
+                raise AssertionError("obs host: SLO window %d bank != its drain" % w)
+        slo_rec.finish()
+        problems = _schema_problems(slo_rec.path)
+        if problems:
+            raise AssertionError("obs host: SLO run log %r" % problems[:3])
+        text = prometheus.render_slo_plane(plane, rows[-1]["tick"])
+        pooled = sum(t["retry_depth"] for t in totals[-3:])
+        if 'ringpop_slo_window_count{target="route"} %d' % pooled not in text.splitlines():
+            raise AssertionError("obs host: render_slo_plane _count != %d" % pooled)
+        dev_text = prometheus.render_device_histograms(bank, ROUTE_HIST_TRACKS, "ringpop_route_")
+        for track, count in totals[-1].items():
+            if "ringpop_route_%s_count %d" % (track, count) not in dev_text.splitlines():
+                raise AssertionError("obs host: render_device_histograms %s _count != %d"
+                                     % (track, count))
+        if not sum(r["queries"] for r in rows) or not pooled:
+            raise AssertionError("obs host: the SLO windows saw no traffic")
+        out["slo"] = dict(n=n_mid, windows=len(rows), window_ticks=4, ms_per_window=slo_ms,
+                          drained=totals, statsd_samples=len(scap.records), last_row=rows[-1],
+                          prometheus_lines=len(text.splitlines()) + len(dev_text.splitlines()))
+    finally:
+        host.destroy()
+        tmp.cleanup()
+    print("obs host %s" % json.dumps(out), flush=True)
     return out
 
 
@@ -3809,6 +4142,10 @@ def main(argv) -> int:
          ("fused_stream", "block_loop")),
         ("routed 1M storm histograms", route_planes_headline, ("exchange",)),
         ("tick-cluster", tick_cluster_headline,
+         ("apply_updates", "pb_budget", "fused_stream", "exchange")),
+        # the host obs layer (timers, trace tap, profiler harness, SLO plane)
+        # around the n=1024 planes-on cluster and the n=4096 routed storm
+        ("obs host layer", obs_host_path,
          ("apply_updates", "pb_budget", "fused_stream", "exchange")),
         # the batch axis: B clusters a tick, and the fuzz campaigns
         ("BatchedSimClusters n=1024", batched_paths, ("apply_updates", "pb_budget", "fused_stream")),

@@ -18,9 +18,11 @@ state under an exact shape — "full" on the fused checksum pipeline,
 The obs planes' host halves: ``drain_events`` / ``event_drops`` /
 ``first_heard`` / ``export_flight_trace`` (``SimParams(flight_recorder=
 True)``), ``drain_histograms`` (``histograms=True``; ``statsd=`` takes an
-``obs.statsd_bridge.StatsdBridge``), and ``attach_recorder``, which folds
+``obs.statsd_bridge.StatsdBridge``), ``attach_recorder``, which folds
 every step's and window's metrics and every replay into an
-``obs.recorder.RunRecorder``.  Each drain resets the device counters after
+``obs.recorder.RunRecorder``, ``attach_tracer``, whose
+``obs.sim_tap.SimTracerHost`` gets every drained event window, and
+``emit_resolution_stat`` (the fused-op knobs as statsd gauges).  Each drain resets the device counters after
 its sinks took the window; draining is trajectory-neutral.
 
 Checkpoints (``models/sim/recovery.py``): ``save``/``load`` write and read
@@ -205,6 +207,15 @@ class SimCluster(CheckpointableMixin):
         self.parity_replays = 0
         # optional run log (attach_recorder)
         self.recorder = None
+        # optional trace tap (attach_tracer): drain_events() re-publishes
+        # the decoded window through it
+        self.tracer = None
+
+    def attach_tracer(self, tracer_host) -> None:
+        """Attach an ``obs.sim_tap.SimTracerHost``: every drain_events()
+        re-publishes the decoded flight-recorder stream through its
+        ``flightEvents`` emitter (the ``sim.flight.events`` trace event)."""
+        self.tracer = tracer_host
 
     def attach_recorder(self, recorder) -> None:
         """Attach an ``obs.recorder.RunRecorder``: later step()/run()
@@ -220,6 +231,20 @@ class SimCluster(CheckpointableMixin):
                 recorder=recorder,
             )
         self.recorder = recorder
+
+    def emit_resolution_stat(self, bridge) -> None:
+        """Publish the resolved fused-op knobs as ``sim.<knob>.*`` gauges
+        on an ``obs.statsd_bridge.StatsdBridge`` (the toolkit's gauge
+        shape; the backend is the cluster's device type)."""
+        for knob in ("fused_checksum", "fused_tick"):
+            toolkit.emit_resolution(
+                toolkit.resolution_note(
+                    knob, self._requested_knobs[knob], getattr(self.params, knob),
+                    self.device.type,
+                ),
+                statsd=bridge,
+                gauge_prefix="sim.%s" % knob,
+            )
 
     # -- bounded-parity overflow fallback --------------------------------
 
@@ -358,15 +383,20 @@ class SimCluster(CheckpointableMixin):
 
     def drain_events(self, reset: bool = True) -> List[dict]:
         """Decode the flight-recorder buffer into host event dicts
-        (``obs.events``), log a ``flight_drain`` row on the attached
+        (``obs.events``), publish them through the attached tracer
+        (``flightEvents``), log a ``flight_drain`` row on the attached
         recorder, then (``reset``) clear the write head and drop counter.
         Protocol state is untouched, so draining mid-run is neutral."""
         buf = self._need("ev_buf", "flight_recorder")
         head, drops = int(self.state.ev_head), int(self.state.ev_drops)
         # only the valid rows cross to the host
         decoded = obs_events.decode_events(buf[:head].to("cpu").numpy(), head, drops)
+        if self.tracer is not None:
+            self.tracer.publish_flight_events(decoded, drops=drops)
         if self.recorder is not None:
             self.recorder.record_event("flight_drain", events=len(decoded), drops=drops)
+        # reset last: a raising tracer or recorder sink leaves the window
+        # on the device for a retry
         if reset:
             zero = torch.zeros((), dtype=torch.int32, device=self.device)
             self.state = self.state._replace(ev_head=zero, ev_drops=zero.clone())

@@ -9,6 +9,7 @@ commutative record hash.
 each tick's metrics stay on the device until the loop ends.  The obs
 planes' host halves are here: ``attach_recorder`` (an
 ``obs.recorder.RunRecorder`` folds every step's and run's metrics),
+``emit_resolution_stat`` (the fused-exchange gauges on a statsd bridge),
 ``drain_histograms``, ``drain_exchange_metrics`` (both take a
 ``statsd=`` ``obs.statsd_bridge.StatsdBridge``), ``wavefront_snapshot`` and
 ``wavefront_summary``.  Checkpoints are the JAX package's format
@@ -189,6 +190,16 @@ class ScalableCluster(CheckpointableMixin):
             recorder=recorder,
         )
         self.recorder = recorder
+
+    def emit_resolution_stat(self, bridge) -> None:
+        """Publish the fused-exchange resolution as ``sim.fused_exchange.*``
+        gauges on an ``obs.statsd_bridge.StatsdBridge``."""
+        toolkit.emit_resolution(
+            toolkit.resolution_note("fused_exchange", self._requested_fused_exchange,
+                                    self.params.fused_exchange, self.device.type),
+            statsd=bridge,
+            gauge_prefix="sim.fused_exchange",
+        )
 
     def _recorded(self, metrics):
         metrics = metrics_to_numpy(metrics)

@@ -1,8 +1,8 @@
 """Chrome-trace (Perfetto-loadable) JSON export of flight-recorder runs.
 
-A copy of ``ringpop_tpu/obs/chrome_trace.py`` (export, validation and the
-sidecar writer); the host-timeline merge of the JAX module waits for the
-dispatch timer it reads (``obs/perf.py``, ROADMAP.md queue A item 7).
+A copy of ``ringpop_tpu/obs/chrome_trace.py``: export, validation, the
+sidecar writer and the host-timeline merge (:func:`add_host_timeline`,
+which reads an ``obs.perf.DispatchTimer``).
 
 Turns a decoded flight-recorder event stream (obs/events.py) into the
 Trace Event Format consumed by ``chrome://tracing`` and
@@ -224,6 +224,36 @@ def export_chrome_trace(
             "end_ts_us": end_ts,
         },
     }
+
+
+HOST_PID = 0  # the host-timeline process id (cluster tracks ride pid=1)
+
+
+def add_host_timeline(
+    trace: Dict[str, Any],
+    timer,
+    label: str = "host dispatch",
+) -> Dict[str, Any]:
+    """Merge a DispatchTimer's host-timeline track (obs.perf) into an
+    exported flight trace IN PLACE: one ``pid=HOST_PID`` process with
+    the per-phase dispatch spans, so Perfetto shows wall-clock host
+    phases above the per-node protocol tracks.  Host spans are
+    wall-relative (timer birth = 0) while the cluster tracks are
+    tick-relative — the two clocks share an origin, not a rate, which
+    is exactly what a dispatch-vs-protocol timeline wants to show.
+    Returns the trace dict."""
+    evs = trace.setdefault("traceEvents", [])
+    evs.append(
+        {
+            "ph": "M",
+            "pid": HOST_PID,
+            "tid": 0,
+            "name": "process_name",
+            "args": {"name": label},
+        }
+    )
+    evs.extend(timer.chrome_trace_events(pid=HOST_PID, tid=0))
+    return trace
 
 
 _KNOWN_PHASES = {"B", "E", "X", "i", "I", "M", "s", "t", "f", "C"}

@@ -8,9 +8,10 @@ module drains those counters to the host and answers the questions the
 reference's ``metrics.Histogram`` answers — count/min/max/p50/p95/p99 —
 plus the ``hist.drain`` run-log row.  The counters may be numpy uint32
 arrays or the port's int32 tensors of uint32 bit patterns
-(:func:`host_counts`).  The JAX module's host twins (``HostHistogram``,
-``AdaptiveProtocolPeriod``) have no caller in the port and are not
-copied; its statsd sink is the port's ``obs.statsd_bridge``.
+(:func:`host_counts`).  The host twins ``HostHistogram``,
+``compute_protocol_delay`` and ``AdaptiveProtocolPeriod`` (the
+``computeProtocolDelay`` consumer ``obs.perf`` reads) are copied too; the
+statsd sink is the port's ``obs.statsd_bridge``.
 
 Percentile semantics (exact, given the bucketization): the q-th
 percentile is the nearest-rank order statistic — the ``ceil(q/100 * N)``
@@ -173,7 +174,81 @@ def drain(
     return summary
 
 
+# -- host-side log2 histogram (the perf timers' accumulator) --------------
+
+
+class HostHistogram:
+    """A host-side twin of the device counters: same log2 buckets, same
+    percentile extraction — used by obs.perf's dispatch timers so
+    wall-clock distributions and device-side latency distributions share
+    one summary/rendering path.  Values are bucketized at a caller-chosen
+    resolution (``unit`` — e.g. 1e-4 s per unit keeps sub-millisecond
+    timing resolution in the low buckets)."""
+
+    def __init__(self, unit: float = 1.0):
+        if unit <= 0:
+            raise ValueError("unit must be positive")
+        self.unit = unit
+        self.counts = np.zeros(hg.NBUCKETS, np.int64)
+
+    def observe(self, value: float) -> None:
+        if value < 0:
+            return
+        b = int(hg.bucket_index_np(np.int64(value / self.unit)))
+        self.counts[b] += 1
+
+    def summary(self, qs: Sequence[float] = DEFAULT_QS) -> Dict[str, object]:
+        out = summarize_track(self.counts, qs)
+        # scale the bucket bounds back to value units
+        for k, v in list(out.items()):
+            if k != "count" and v is not None:
+                out[k] = v * self.unit
+        return out
+
+
+# -- the load-bearing consumer: adaptive protocol period ------------------
+
+
+def compute_protocol_delay(
+    p50: Optional[float], min_protocol_period: float = 200.0
+) -> float:
+    """The reference's ``computeProtocolDelay`` formula
+    (lib/gossip/index.js:42-50): twice the ping-timing histogram's
+    median, floored at the minimum protocol period.  ``p50 = None``
+    (no observations yet) keeps the floor — exactly the reference's
+    behavior before the first ping lands a timing sample."""
+    if p50 is None:
+        return float(min_protocol_period)
+    return float(max(2.0 * p50, min_protocol_period))
+
+
+class AdaptiveProtocolPeriod:
+    """Host-side adaptive-period model fed from a ping-latency
+    histogram — ``computeProtocolDelay``-style, OFF by default (nothing
+    constructs one unless asked; the engines' discrete clock stays
+    fixed).  Feed per-ping (per-tick dispatch) latencies in ms via
+    ``observe``; ``period_ms()`` is ``max(2 * p50, min_period_ms)``
+    with p50 read from the log2 histogram's conservative upper bound."""
+
+    def __init__(self, min_period_ms: float = 200.0, unit_ms: float = 1.0):
+        self.min_period_ms = float(min_period_ms)
+        self.hist = HostHistogram(unit=unit_ms)
+
+    def observe(self, latency_ms: float) -> None:
+        self.hist.observe(latency_ms)
+
+    def p50_ms(self) -> Optional[float]:
+        s = self.hist.summary(qs=(50,))
+        return s["p50"]
+
+    def period_ms(self) -> float:
+        return compute_protocol_delay(self.p50_ms(), self.min_period_ms)
+
+
 __all__: List[str] = [
+    "AdaptiveProtocolPeriod",
+    "HostHistogram",
+    "compute_protocol_delay",
     "drain",
     "drain_row",
     "percentile",

@@ -1,8 +1,10 @@
 """Metrics primitives: EWMA meters and a sampling histogram.
 
-A copy of ``Meter`` and ``Histogram`` from ``ringpop_tpu/utils/stats.py``
-(the run recorder folds per-tick metrics into them); the port keeps its
-own copy so that it imports nothing of the JAX package.
+A copy of ``Meter``, ``Histogram`` and ``NullLogger`` from
+``ringpop_tpu/utils/stats.py`` (the run recorder folds per-tick metrics
+into the first two; the trace host, ``obs.sim_tap.SimTracerHost``, logs
+to the third unless given a logger); the port keeps its own copy so that
+it imports nothing of the JAX package.
 
 The reference pulls these from the npm ``metrics`` package — Meters for
 client/server/total request rates (index.js:158-160) and a Histogram of
@@ -146,3 +148,21 @@ class Histogram:
             "p99": pct[0.99],
             "p999": pct[0.999],
         }
+
+
+class NullLogger:
+    """No-op structured logger (lib/nulls.js analog)."""
+
+    def debug(self, *a, **k):
+        pass
+
+    def info(self, *a, **k):
+        pass
+
+    def warning(self, *a, **k):
+        pass
+
+    warn = warning
+
+    def error(self, *a, **k):
+        pass
