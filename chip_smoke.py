@@ -207,6 +207,17 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 Profiled windows are counted from the profiler's raw records (the first
 one also through ``key_averages``, which must agree).
 
+   Last among the main paths, the static analysis (``analysis_path``):
+   the four default prongs of ``ringpop_tpu_torch.analysis`` on the CPU
+   (any finding fails the run), then the host-read audit on the card,
+   each path under the op recorder and
+   ``torch.cuda.set_sync_debug_mode("error")`` (any sync raises): the
+   straight-line n=1024 farmhash tick, ``BatchedSimClusters(4,
+   1024)``'s tick, ``hash32_rows`` of 1,024 real checksum rows and one
+   ``exchange`` at [1M, 16]; and the gated n=1024 fast churn tick, whose
+   ``_local_scalar_dense`` reads must be equal on the card, on the CPU
+   and in ``tick_profile``'s count; one ``analysis`` line;
+
 7. prints the ``kernels`` JSON line (each kernel with its batched
    times), the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -4008,6 +4019,177 @@ def membership_checksums_path(n: int = N_HEAD, max_digits: int = 14, device="cud
     return out
 
 
+def _audited(label: str, call, cpu_entry: str, cpu_reads: dict) -> dict:
+    """One card path under the op recorder (counts only) and
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronising call
+    raises, so the path must read nothing back to the host.  Warmed once
+    first, outside the audit (the kernel library build, per-device
+    caches).  ``cpu_entry``: the graph prong's registered CPU entry of the
+    same path, whose recorded host reads stand beside the card's."""
+    from ringpop_tpu_torch.analysis import dataflow
+
+    call()
+    torch.cuda.synchronize()
+    rec = dataflow.Recorder(track=False)
+    prev = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with rec:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rec.host_reads:
+        raise AssertionError("%s: %d host reads on the card" % (label, rec.host_reads))
+    return dict(card_host_reads=rec.host_reads, cpu_entry=cpu_entry,
+                cpu_host_reads=cpu_reads[cpu_entry], ops=rec.n_ops, wall_s=wall, syncs=0)
+
+
+def _require_launches(wrappers, before: dict, names, label: str, dev) -> None:
+    """Each of ``names`` launched on the card since ``before``."""
+    for k in names:
+        if dev.type == "cuda" and wrappers[k].launches == before[k]:
+            raise AssertionError("%s launched no %s" % (label, k))
+
+
+def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
+    """The static analysis (``ringpop_tpu_torch.analysis``) on the tree
+    and on the card: every default prong runs on the CPU (any finding
+    fails the run); then the host-read audit on CUDA tensors, each path
+    under the recorder and ``set_sync_debug_mode("error")``: the
+    straight-line n=1024 farmhash tick (``apply_updates``, ``pb_budget``,
+    ``fused_stream``), ``BatchedSimClusters(4, 1024)``'s tick,
+    ``hash32_rows`` of 1,024 real n=1024 checksum rows (``block_loop``) and
+    one ``exchange`` at [1M, 16]; and the gated n=1024 fast churn tick,
+    whose ``_local_scalar_dense`` reads on the card must equal the same
+    tick's on the CPU and ``tick_profile``'s count.  Prints one
+    ``analysis`` line."""
+    from ringpop_tpu_torch import tick_profile
+    from ringpop_tpu_torch.analysis import (
+        astlint, dataflow, graph_audit, kernel_coverage, noninterference, prongs,
+    )
+    from ringpop_tpu_torch.analysis.__main__ import PKG_ROOT
+    from ringpop_tpu_torch.models.sim import batched, engine
+    from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
+    from ringpop_tpu_torch.models.sim.recovery import states_to
+    from ringpop_tpu_torch.ops import block_loop, exchange, farmhash, fused_apply
+    from ringpop_tpu_torch.ops import fused_piggyback, stream_hash
+
+    t_phase = time.perf_counter()
+    runners = {
+        "ast": lambda: astlint.lint_paths(PKG_ROOT),
+        "graph": graph_audit.audit_entries,
+        "kernels": kernel_coverage.check_kernel_coverage,
+        "noninterference": noninterference.check_noninterference,
+    }
+    prong_report = {}
+    found = []
+    for name in prongs.DEFAULT_PRONGS:
+        t0 = time.perf_counter()
+        fs = runners[name]()
+        prong_report[name] = dict(wall_s=time.perf_counter() - t0, findings=len(fs))
+        found.extend(fs)
+    if found:
+        from ringpop_tpu_torch.analysis.findings import render_text
+        raise AssertionError("static analysis findings:\n" + render_text(found))
+    cpu_reads = {name: len(r.recording.host_reads)
+                 for name, r in graph_audit._TRACE_CACHE.items()}
+
+    wrappers = {"apply_updates": fused_apply.apply_updates, "pb_budget": fused_piggyback.pb_budget,
+                "fused_stream": stream_hash.fused_stream, "block_loop": block_loop.block_loop,
+                "exchange": exchange.exchange}
+    k0 = {k: w.launches for k, w in wrappers.items()}
+    dev = torch.device(device)
+    entries = {}
+
+    # the straight-line tick
+    sim = SimCluster(n=n, params=engine.SimParams(n=n, gate_phases=False), device=device)
+    sim.bootstrap()
+    sim.run(EventSchedule(ticks=8, n=n))
+    pre, quiet = sim.state, sim.quiet_inputs()
+    kill = quiet._replace(kill=quiet.kill.clone().index_fill_(
+        0, torch.tensor([5, n // 3, 2 * n // 3], device=dev), True))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    entries["straight-line tick n=%d farmhash" % n] = _audited(
+        "straight-line tick", lambda: engine.tick(pre, kill, sim.params, sim.universe),
+        "engine-tick-straight", cpu_reads)
+    _require_launches(wrappers, launches, ("apply_updates", "pb_budget", "fused_stream"),
+                      "the straight-line tick", dev)
+    del sim, pre
+
+    # the batched tick, B = 4
+    bat = batched.BatchedSimClusters(4, n, device=device)
+    bat.bootstrap()
+    bstate = bat.state
+    launches = {k: w.launches for k, w in wrappers.items()}
+    entries["BatchedSimClusters(4, %d) tick" % n] = _audited(
+        "batched tick", lambda: bat._tick(bstate, kill), "batched-tick", cpu_reads)
+    _require_launches(wrappers, launches, ("apply_updates", "pb_budget"), "the batched tick",
+                      dev)
+    del bat, bstate
+
+    # hash32_rows over real checksum rows: block_loop
+    mat, lens = _checksum_rows(n, 1024, 7, dev)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    entries["hash32_rows [1024, %d]" % mat.shape[1]] = _audited(
+        "hash32_rows", lambda: farmhash.hash32_rows(mat, lens), "farmhash-kernel", cpu_reads)
+    _require_launches(wrappers, launches, ("block_loop",), "hash32_rows", dev)
+    del mat, lens
+
+    # one exchange at the 1M storm's shape
+    args = _exchange_inputs(N_STORM, 16, 11, dev)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    entries["exchange [%d, 16]" % N_STORM] = _audited(
+        "exchange", lambda: exchange.exchange(*args, want_counts=False), "exchange-kernel",
+        cpu_reads)
+    _require_launches(wrappers, launches, ("exchange",), "the exchange call", dev)
+    del args
+
+    # the gated fast churn tick: card, CPU and the profiler's count
+    params = engine.SimParams(n=n, checksum_mode="fast")
+    sim = SimCluster(n=n, params=params, device=device)
+    sim.bootstrap()
+    if sim.run_until_converged(max_ticks=96, quiet_after=1) < 0:
+        raise AssertionError("the gated n=%d cluster did not converge" % n)
+    _kill_tick(sim, (5, n // 3, 2 * n // 3))
+    sched = EventSchedule(ticks=1, n=n)
+    sched.kill[0, n - 100 if n > 200 else n - 1] = True
+    pre = sim.state
+    rec = dataflow.Recorder(track=False)
+    with rec:
+        sim.run(sched)
+    torch.cuda.synchronize()
+    card_state = sim.state
+    sim.state = pre
+    prof = tick_profile._profiled(sim, sched)
+    sim.state = pre
+    cpu = SimCluster(n=n, params=params, device="cpu")
+    cpu.state = states_to(pre, "cpu")
+    cpu_rec = dataflow.Recorder(track=False)
+    with cpu_rec:
+        cpu.run(sched)
+    if not torch.equal(cpu.state.checksum, card_state.checksum.cpu()):
+        raise AssertionError("the gated tick's checksums differ, card against CPU")
+    gated = dict(card_scalar_reads=rec.scalar_reads, cpu_scalar_reads=cpu_rec.scalar_reads,
+                 tick_profile_scalar_reads=prof["host_reads"], card_host_reads=rec.host_reads,
+                 cpu_host_reads=cpu_rec.host_reads, card_ops=rec.n_ops, cpu_ops=cpu_rec.n_ops)
+    if not rec.scalar_reads == cpu_rec.scalar_reads == prof["host_reads"]:
+        raise AssertionError("gated tick host reads: card %d, CPU %d, tick_profile %d"
+                             % (rec.scalar_reads, cpu_rec.scalar_reads, prof["host_reads"]))
+    entries["gated churn tick n=%d fast" % n] = gated
+    del sim, cpu, pre, card_state
+
+    out = dict(card=_card_line(), prongs=prong_report,
+               prong_wall_s=sum(p["wall_s"] for p in prong_report.values()),
+               findings=len(found), entries=entries,
+               launches={k: w.launches - k0[k] for k, w in wrappers.items()},
+               phase_s=time.perf_counter() - t_phase)
+    print("analysis %s" % json.dumps(out), flush=True)
+    return out
+
+
 def check_sharded_sim_tiles(report: dict) -> None:
     """(d) Each kernel on one shard's own ``[256, 1024]`` tile, kept from the
     mesh paths (``apply_updates`` at a shard with ``lo != 0``), after the
@@ -4150,6 +4332,10 @@ def main(argv) -> int:
         # the batch axis: B clusters a tick, and the fuzz campaigns
         ("BatchedSimClusters n=1024", batched_paths, ("apply_updates", "pb_budget", "fused_stream")),
         ("fuzz sweeps", fuzz_throughput, ("apply_updates", "pb_budget")),
+        # the static analysis on the tree, and the host-read audit of the
+        # kernel paths on the card under set_sync_debug_mode("error")
+        ("analysis", analysis_path,
+         ("apply_updates", "pb_budget", "fused_stream", "block_loop", "exchange")),
     )
     launches = {k: 0 for k in wrappers}
     if not quick:

@@ -127,7 +127,7 @@ def lookup_n(ring: torch.Tensor, n_points: torch.Tensor, key_hash: torch.Tensor,
     steps = max(4 * n, 64)
     while True:
         steps = min(steps, points)
-        idx = torch.remainder(start + torch.arange(steps, device=ring.device), points)
+        idx = torch.remainder(start + torch.arange(steps, dtype=torch.int64, device=ring.device), points)
         owners = _owner(ring, idx).to("cpu").numpy()
         _, first = np.unique(owners, return_index=True)
         walk = owners[np.sort(first)]  # unique owners in walk order

@@ -105,6 +105,17 @@ class RouteState(NamedTuple):
     req_tick: Optional[torch.Tensor] = None  # [] int32
 
 
+# trajectory vs obs-only RouteState fields, as in the JAX plane
+# (``ROUTE_OBS_ONLY_FIELDS`` / ``ROUTE_TRAJECTORY_FIELDS``): the ring
+# representations and the traffic rng drive the route counters; the
+# histogram and request-trace planes are write-only.  The noninterference
+# prong (``ringpop_tpu_torch.analysis.noninterference``) reads both.
+ROUTE_OBS_ONLY_FIELDS = frozenset(
+    {"hist", "req_buf", "req_head", "req_drops", "req_counts", "req_tick"}
+)
+ROUTE_TRAJECTORY_FIELDS = frozenset({"ring", "flat_ring", "mask", "rng"})
+
+
 class RouteCarry(NamedTuple):
     """What a checkpoint keeps of the route state (the ring is rebuilt
     from ``mask`` on load)."""

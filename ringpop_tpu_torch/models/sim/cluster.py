@@ -318,7 +318,7 @@ class SimCluster(CheckpointableMixin):
         inputs = schedule.as_inputs(self.device)
         pre = self.state
         self.state, metrics = self._run_window(pre, inputs, schedule.ticks, self.params)
-        if self._bounded_parity and int(metrics.parity_overflow.sum()) > 0:
+        if self._bounded_parity and int(metrics.parity_overflow.sum(dtype=torch.int64)) > 0:
             self.state, metrics = self._run_window(pre, inputs, schedule.ticks, self._replayed())
         metrics = metrics_to_numpy(metrics)
         if self.recorder is not None:

@@ -373,6 +373,18 @@ def _coprimes_of(n: int, k: int = 128):
     return got
 
 
+_COPRIME_INVS: dict = {}
+
+
+def _coprime_invs_on(n: int, device) -> torch.Tensor:
+    """``_coprimes_of(n)``'s inverses on ``device``, uploaded once per
+    device: an upload inside a tick is a synchronous copy on the card."""
+    got = _COPRIME_INVS.get((n, device))
+    if got is None:
+        got = _COPRIME_INVS[(n, device)] = torch.as_tensor(_coprimes_of(n)[1], device=device)
+    return got
+
+
 def _fold(rng: torch.Tensor, salt: int) -> torch.Tensor:
     """Cheap per-node key derivation: [N, 2] -> new [N, 2] (uint32 words)."""
     k0 = rng[:, 0] * u32.s32(0x9E3779B9) + u32.s32(salt)
@@ -425,7 +437,7 @@ def _nonzero_static(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     rank = torch.cumsum(flat.to(torch.int64), 0) - 1
     out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
     tgt = torch.where(flat & (rank < size), rank, size)
-    out = out.index_put((tgt,), torch.arange(flat.numel(), device=mask.device))
+    out = out.index_put((tgt,), torch.arange(flat.numel(), dtype=torch.int64, device=mask.device))
     return out[:size]
 
 
@@ -613,7 +625,7 @@ def _checksums_where(sh, state, universe, params, dirty, cached, changed):
     # target the dropped slot R
     counts = yield ("counts", n_dirty)
     before, nd, mine = sum(counts[:sh.index]), sum(counts), counts[sh.index]
-    rank = torch.cumsum(dirty.to(torch.int32), 0) - 1
+    rank = torch.cumsum(dirty.to(torch.int32), 0, dtype=torch.int64) - 1
     out = cached
     for c0 in range(0, nd, k):
         a = max(c0, before) - before
@@ -1039,7 +1051,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         # nodes' rows at the joiners' columns, reduce-scattered to the rows'
         # shards
         ja_mask = _zeros((n, n), b8, dev)
-        cols = torch.arange(lo, lo + rows, device=dev)
+        cols = torch.arange(lo, lo + rows, dtype=torch.int64, device=dev)
         for k in range(params.join_size):
             upd = _zeros((n, n), b8, dev).index_put(
                 (jorder[:, k], cols), jvalid[:, k] & joined
@@ -1128,7 +1140,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     # hashed base permutation (see the JAX engine for the derivation); the
     # base is drawn from every node's key, so its draws are all-gathered
     resh = wrapped & participating
-    coprimes, coprime_invs = _coprimes_of(n)
+    coprimes = _coprimes_of(n)[0]
 
     def _reshuffled(_):
         draws = yield ("gather", _uniform(state.rng, (rows,), salt=77))
@@ -1137,7 +1149,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         r = _uniform(state.rng, (rows, 2), salt=7)
         k_cop = len(coprimes)
         a_idx = (r[:, 0] * k_cop).to(i32).clamp(0, k_cop - 1)
-        a_inv = torch.as_tensor(coprime_invs, device=dev)[a_idx.long()]
+        a_inv = _coprime_invs_on(n, dev)[a_idx.long()]
         b = (r[:, 1] * float(n)).to(i32) % n
         d = base_inv[None, :] - b[:, None]
         d = d + (d < 0).to(i32) * n
@@ -1398,7 +1410,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         # [M, sender] arrivals: written into the intermediaries' rows at
         # the senders' columns, reduce-scattered to the intermediaries
         cnt_sm = _zeros((n, n), i32, dev)
-        cols = torch.arange(lo, lo + rows, device=dev)
+        cols = torch.arange(lo, lo + rows, dtype=torch.int64, device=dev)
         for k in range(K):
             cnt_sm = cnt_sm.index_put(
                 (pr_sel[:, k], cols), responder[:, k].to(i32), accumulate=True
@@ -1470,7 +1482,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         )
 
         # -- suspect verdict, on post-response state (the sender's own row) --
-        local_rows = torch.arange(rows, device=dev)
+        local_rows = torch.arange(rows, dtype=torch.int64, device=dev)
         sus_mask = _zeros((rows, n), b8, dev).index_put((local_rows, tclip), mark_suspect)
         sus_inc = state.inc[local_rows, tclip]  # the member's current inc
         cur_self = _diag(state.inc, lo)

@@ -204,6 +204,19 @@ class ChurnInputs(NamedTuple):
         return ChurnInputs(kill=z, revive=z)
 
 
+_POW10: dict = {}
+
+
+def _pow10(device) -> torch.Tensor:
+    """[10] int64 powers of ten on ``device``, uploaded once per device (an
+    upload inside a tick is a synchronous copy on the card)."""
+    got = _POW10.get(device)
+    if got is None:
+        got = _POW10[device] = torch.tensor([10**k for k in range(10)], dtype=torch.int64,
+                                            device=device)
+    return got
+
+
 def host_read(pred) -> bool:
     """A device predicate read on the host: one device sync on the card.
     ``host_read.count`` counts every read (the storm reports it per tick)."""
@@ -633,7 +646,7 @@ def _publish_batch(state, csum, slot, subj_mask, new_status, new_inc, hearer_mas
         if toolkit.is_batched(fh):
             state = state._replace(first_heard=fh.index_copy(1, at, col))
         else:
-            fh.index_copy_(1, at, col)
+            fh.index_copy_(1, at, col)  # torchgate: ignore[inplace-on-state] — this tick's own copy
     # an empty batch leaves the (inactive) slot's delta and birth as they
     # were, so a straight-line publish equals a skipped one bit for bit
     return state._replace(
@@ -898,8 +911,8 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     alive_all = yield ("gather", proc_alive)
 
     # ---- rumor aging + slot recycling ----------------------------------
-    live_count = yield ("sum", proc_alive.sum())
-    pow10 = torch.tensor([10**k for k in range(10)], dtype=torch.int64, device=dev)
+    live_count = yield ("sum", proc_alive.sum(dtype=torch.int64))
+    pow10 = _pow10(dev)
     digits = (live_count >= pow10).sum(dtype=torch.int32)
     max_age = params.piggyback_factor * digits + params.age_slack
     aged = state.r_active & (t - state.r_birth > max_age)

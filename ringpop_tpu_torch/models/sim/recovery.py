@@ -366,7 +366,8 @@ class CheckpointableMixin:
         self._ckpt_install(states)
         dev = getattr(self, "device", None)
         if dev is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            # times the install; a restore, not a tick
+            torch.cuda.synchronize(dev)  # torchgate: ignore[block-until-ready]
         mgr.last_restore["install_s"] = time.perf_counter() - t0
         self.tick_count = tick
         return tick

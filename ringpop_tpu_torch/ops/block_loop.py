@@ -47,14 +47,12 @@ def _round(h, g, f, a, b, c, d, e):
 
 def block_loop_plain(h0, g0, f0, blocks, iters):
     """Plain PyTorch version of :func:`block_loop`: the masked loop over
-    the block axis, stopping after the longest row's last round (later
-    rounds are inactive on every row)."""
+    every round of the block axis.  The rounds past a row's trip count are
+    inactive, so bit-neutral; the trip counts are never read on the host,
+    so the loop costs no host read on any device, inside vmap or not."""
     B, n_iter, _ = blocks.shape
     h, g, f = h0, g0, f0
-    # inside vmap the trip counts cannot be read on the host: every round
-    # runs (the rounds past a row's count are inactive, so bit-neutral)
-    steps = n_iter if toolkit.is_batched(iters) else (min(n_iter, int(iters.max())) if B else 0)
-    for i in range(steps):
+    for i in range(n_iter if B else 0):
         active = i < iters
         a, b, c, d, e = blocks[:, i].unbind(1)
         nh, ng, nf = _round(h, g, f, a, b, c, d, e)

@@ -96,13 +96,25 @@ def _ndigits(x: torch.Tensor) -> torch.Tensor:
     return count
 
 
+_POW10_TABLES: dict = {}
+
+
+def _pow10_table(device) -> torch.Tensor:
+    """:data:`_POW10` on ``device``, uploaded once per device (an upload
+    inside a tick is a synchronous copy on the card)."""
+    got = _POW10_TABLES.get(device)
+    if got is None:
+        got = _POW10_TABLES[device] = torch.as_tensor(_POW10, device=device)
+    return got
+
+
 def _digit_bytes(x: torch.Tensor, dlen: torch.Tensor, max_digits: int) -> torch.Tensor:
     """[..., max_digits] ASCII digits of x, most significant first, left-
     aligned within dlen (positions >= dlen are garbage, masked by caller)."""
     x = x.to(torch.int64)
     k = torch.arange(max_digits, dtype=torch.int32, device=x.device)
     exp = (dlen[..., None] - 1 - k).clamp(0, MAX_DIGITS - 1)
-    pow10 = torch.as_tensor(_POW10, device=x.device)[exp.long()]
+    pow10 = _pow10_table(x.device)[exp.long()]
     digit = torch.div(x[..., None], pow10, rounding_mode="floor") % 10
     return (digit + ord("0")).to(torch.uint8)
 
@@ -200,7 +212,7 @@ def membership_rows(
         seg_len = (addr_len + slen + dlen + 1) * pres_i
         offset = torch.cumsum(seg_len, dim=1, dtype=torch.int32) - seg_len
         total = (seg_len.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0) * (
-            pres_i.sum(dim=1) > 0
+            pres_i.sum(dim=1, dtype=torch.int64) > 0
         ).to(torch.int32)
         drop = width
         p3 = pres[:, :, None]
@@ -262,7 +274,7 @@ def _membership_rows_gather(
         seg_len = (addr_len + slen + dlen + 1) * pres_i
         ends = torch.cumsum(seg_len, dim=1, dtype=i32)
         offset = ends - seg_len
-        total = (ends[:, -1] - 1).clamp(min=0) * (pres_i.sum(dim=1) > 0).to(i32)
+        total = (ends[:, -1] - 1).clamp(min=0) * (pres_i.sum(dim=1, dtype=torch.int64) > 0).to(i32)
         if member_of == "cumsum":
             starts = torch.zeros((C, width + 1), dtype=i32, device=dev).scatter_add_(
                 1, offset.clamp(0, width).to(i64), pres_i)
@@ -333,7 +345,7 @@ def ring_rows(
     seg_len = (addr_len + 1) * pres_i
     offset = torch.cumsum(seg_len, dim=1, dtype=torch.int32) - seg_len
     total = (seg_len.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0) * (
-        pres_i.sum(dim=1) > 0
+        pres_i.sum(dim=1, dtype=torch.int64) > 0
     ).to(torch.int32)
     drop = width
     p3 = in_ring[:, :, None]

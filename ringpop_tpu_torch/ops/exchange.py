@@ -66,7 +66,7 @@ def delta_sum_plain(
 
     def row_sums(d):
         bits = (d[..., None] >> bit_ids) & 1  # [..., C, W, 32]
-        return from_u64((bits * tbl).sum(dim=(-2, -1)))
+        return from_u64((bits * tbl).sum(dim=(-2, -1), dtype=torch.int64))
 
     return torch.cat([row_sums(words[..., lo:lo + chunk, :]) for lo in range(0, n, chunk)], dim=-1)
 
@@ -210,7 +210,8 @@ def _launch(heard, pulled, pushed, r_delta, want_counts, clusters):
     plan = exchange_plan(n, w, _aligned(heard, pulled, pushed), _sm_count(dev.index), b)
     ptrs = [_build.ptr(t) for t in (heard, pulled, pushed, r_delta, new, acc, cnt)]
     _build.library().call("ringpop_exchange", dev, ptrs, n, w, plan.vec, plan.seg, plan.blocks,
-                          int(plan.smem_table), b, 0 if shared_table else w * WORD)
+                          int(plan.smem_table), b,  # torchgate: ignore[host-coerce] — a host plan
+                          0 if shared_table else w * WORD)
     exchange.launches += 1
     return new, acc, cnt
 

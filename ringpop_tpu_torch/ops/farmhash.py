@@ -53,7 +53,7 @@ def _mur(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def _fetch32(mat: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     """Per-row little-endian 4-byte fetch at (possibly unaligned) offsets."""
     off = off.clamp(0, mat.shape[1] - 4).to(torch.int64)
-    idx = off[:, None] + torch.arange(4, device=mat.device)[None, :]
+    idx = off[:, None] + torch.arange(4, dtype=torch.int64, device=mat.device)[None, :]
     b = torch.gather(mat, 1, idx).to(torch.int32)
     return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
 

@@ -67,7 +67,7 @@ def bucket_counts(idx: torch.Tensor, weights: Optional[torch.Tensor] = None) -> 
         if w is None:
             part = hit.sum(dim=0, dtype=torch.int64)
         else:
-            part = (hit * w[lo:lo + _CHUNK, None]).sum(dim=0)
+            part = (hit * w[lo:lo + _CHUNK, None]).sum(dim=0, dtype=torch.int64)
         out = part if out is None else out + part
     return out
 

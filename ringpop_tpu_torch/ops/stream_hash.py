@@ -58,7 +58,7 @@ def stream_member_step(carry, rec, rec_len):
     # _LEAD zero words in front (the word shift) and res_w behind
     ext = torch.nn.functional.pad(rec, (_LEAD, res_w))
     top = ext.shape[-1] - 1
-    at = (torch.arange(_LEAD, _LEAD + res_w, device=rec.device) - wq).clamp(0, top)
+    at = (torch.arange(_LEAD, _LEAD + res_w, dtype=torch.int64, device=rec.device) - wq).clamp(0, top)
     cand = torch.gather(ext, -1, at)
     spill = srl_var(torch.gather(ext, -1, (at - 1).clamp(0, top)), back)
     shifted = torch.where(bq == 0, cand, (cand << bq) | spill)

@@ -122,7 +122,7 @@ def pack_bool_rows(mask: torch.Tensor) -> torch.Tensor:
         torch.ones(32, dtype=torch.int64, device=mask.device),
         torch.arange(32, dtype=torch.int64, device=mask.device),
     )
-    packed = (w * bits).sum(dim=-1)  # distinct bits: the sum is the OR
+    packed = (w * bits).sum(dim=-1, dtype=torch.int64)  # distinct bits: the sum is the OR
     return ((packed ^ (1 << 31)) - (1 << 31)).to(torch.int32)
 
 

@@ -110,7 +110,7 @@ def from_u64(x: torch.Tensor) -> torch.Tensor:
 
 def row_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Sum mod 2^32 along ``dim`` (int64 accumulate, then wrap)."""
-    return from_u64(to_u64(x).sum(dim=dim))
+    return from_u64(to_u64(x).sum(dim=dim, dtype=torch.int64))
 
 
 def to_f32(x: torch.Tensor) -> torch.Tensor:

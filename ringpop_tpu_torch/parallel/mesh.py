@@ -281,7 +281,7 @@ class ShardedSim(CheckpointableMixin):
         whole cluster overflowed the bounded chunk, discard the result and
         return ``replay(exact_params)`` from the pre-run states (None when
         nothing overflowed)."""
-        if not self._bounded_parity or not int(metrics.parity_overflow.sum()):
+        if not self._bounded_parity or not int(metrics.parity_overflow.sum(dtype=torch.int64)):
             return None
         self.parity_replays += 1
         return replay(self._exact_params())

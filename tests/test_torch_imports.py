@@ -49,3 +49,11 @@ def test_scanner_catches_forbidden_imports():
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     assert [m for m in mods if _forbidden(m)] == ["jax.numpy", "ringpop_tpu.ops"]
+
+
+def test_the_analysis_package_is_scanned():
+    # the static analysis (ringpop_tpu_torch/analysis/) stands alone too
+    rels = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("__main__", "astlint", "dataflow", "findings", "graph_audit",
+                 "kernel_coverage", "noninterference", "prongs"):
+        assert os.path.join("ringpop_tpu_torch", "analysis", name + ".py") in rels
