@@ -208,13 +208,16 @@ Profiled windows are counted from the profiler's raw records (the first
 one also through ``key_averages``, which must agree).
 
    Last among the main paths, the static analysis (``analysis_path``):
-   the four default prongs of ``ringpop_tpu_torch.analysis`` on the CPU
-   (any finding fails the run), then the host-read audit on the card,
-   each path under the op recorder and
-   ``torch.cuda.set_sync_debug_mode("error")`` (any sync raises): the
+   the nine prongs of ``ringpop_tpu_torch.analysis`` on the CPU (any
+   finding fails the run), then the host-read audit on the card, each
+   path under the op recorder,
+   ``torch.cuda.set_sync_debug_mode("error")`` (any sync raises) and the
+   aliasing audit (no kernel result aliases an operand): the
    straight-line n=1024 farmhash tick, ``BatchedSimClusters(4,
    1024)``'s tick, ``hash32_rows`` of 1,024 real checksum rows and one
-   ``exchange`` at [1M, 16]; and the gated n=1024 fast churn tick, whose
+   ``exchange`` at [1M, 16]; the measured peak of the straight-line tick
+   and of a warm 1M storm tick against the ``scale`` polynomial; the
+   retrace probes on the card; and the gated n=1024 fast churn tick, whose
    ``_local_scalar_dense`` reads must be equal on the card, on the CPU
    and in ``tick_profile``'s count; one ``analysis`` line;
 
@@ -4047,6 +4050,73 @@ def _audited(label: str, call, cpu_entry: str, cpu_reads: dict) -> dict:
                 cpu_host_reads=cpu_reads[cpu_entry], ops=rec.n_ops, wall_s=wall, syncs=0)
 
 
+class _AliasAudit:
+    """Stands in for the kernel library's ``call`` while a path runs: each
+    launch's result pointers (``_build.READ_POINTERS``: the slots after
+    the operands) are held against its operand pointers, so a kernel that
+    writes into one of its inputs is seen."""
+
+    def __enter__(self):
+        from ringpop_tpu_torch.ops import _build
+
+        self.lib = _build.library()
+        self.launches = 0
+        self.aliased = []
+        orig = self.lib.call
+
+        def call(name, device, ptrs, *ints):
+            k = _build.READ_POINTERS[name]
+            reads = {p for p in ptrs[:k] if p}
+            if any(p and p in reads for p in ptrs[k:]):
+                self.aliased.append(name)
+            self.launches += 1
+            return orig(name, device, ptrs, *ints)
+
+        self.lib.call = call
+        return self
+
+    def __exit__(self, *exc):
+        del self.lib.call  # the class's method again
+        return False
+
+
+def _aliasing_audited(label: str, call, cpu_entry: str, cpu_reads: dict) -> dict:
+    """:func:`_audited` with every kernel launch's results held against its
+    operands: no result pointer may equal an operand's."""
+    with _AliasAudit() as audit:
+        out = _audited(label, call, cpu_entry, cpu_reads)
+    if audit.aliased:
+        raise AssertionError("%s: a kernel result aliases an operand in %s"
+                             % (label, sorted(set(audit.aliased))))
+    out.update(alias_checked_launches=audit.launches, aliased=0)
+    return out
+
+
+def _peak_above_resident(run) -> int:
+    """``torch.cuda.max_memory_allocated`` over ``run()`` above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - resident
+
+
+def _scale_check(entry: str, n: int, run) -> dict:
+    """The measured peak of ``run`` (one tick at ``n``) against the scale
+    prong's footprint polynomial of ``entry`` at ``n``: it must not exceed it."""
+    from ringpop_tpu_torch.analysis import manifests, ranges, scale_budget
+
+    poly = manifests.load(scale_budget.MANIFEST_NAME)["entries"][entry]["poly_bytes"]
+    bound = ranges.poly_bytes({int(e): c for e, c in poly.items()}, n)
+    peak = _peak_above_resident(run)
+    if peak > bound:
+        raise AssertionError("%s at n=%d: peak %d bytes above resident exceeds the "
+                             "polynomial's %d" % (entry, n, peak, bound))
+    return dict(entry=entry, n=n, peak_bytes=peak, poly_bytes=bound, ratio=peak / bound)
+
+
 def _require_launches(wrappers, before: dict, names, label: str, dev) -> None:
     """Each of ``names`` launched on the card since ``before``."""
     for k in names:
@@ -4056,16 +4126,22 @@ def _require_launches(wrappers, before: dict, names, label: str, dev) -> None:
 
 def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     """The static analysis (``ringpop_tpu_torch.analysis``) on the tree
-    and on the card: every default prong runs on the CPU (any finding
-    fails the run); then the host-read audit on CUDA tensors, each path
-    under the recorder and ``set_sync_debug_mode("error")``: the
-    straight-line n=1024 farmhash tick (``apply_updates``, ``pb_budget``,
-    ``fused_stream``), ``BatchedSimClusters(4, 1024)``'s tick,
-    ``hash32_rows`` of 1,024 real n=1024 checksum rows (``block_loop``) and
-    one ``exchange`` at [1M, 16]; and the gated n=1024 fast churn tick,
-    whose ``_local_scalar_dense`` reads on the card must equal the same
-    tick's on the CPU and ``tick_profile``'s count.  Prints one
-    ``analysis`` line."""
+    and on the card: all nine prongs run on the CPU (any finding fails the
+    run; each prong's wall is printed); then the host-read audit on CUDA
+    tensors, each path under the recorder, ``set_sync_debug_mode("error")``
+    and the aliasing audit (no kernel result pointer equals an operand's):
+    the straight-line n=1024 farmhash tick (``apply_updates``,
+    ``pb_budget``, ``fused_stream``), ``BatchedSimClusters(4, 1024)``'s
+    tick, ``hash32_rows`` of 1,024 real n=1024 checksum rows
+    (``block_loop``) and one ``exchange`` at [1M, 16]; the scale check
+    (the peak above resident of the straight-line tick and of one warm 1M
+    storm tick, each at most the ``scale`` prong's polynomial at its N, and
+    the budget at most the card's memory); the retrace probes on CUDA
+    operands (nothing uploaded after the first step, no build, no new
+    custom op; at most one library build in the whole script); and the
+    gated n=1024 fast churn tick, whose ``_local_scalar_dense`` reads on
+    the card must equal the same tick's on the CPU and ``tick_profile``'s
+    count.  Prints one ``analysis`` line."""
     from ringpop_tpu_torch import tick_profile
     from ringpop_tpu_torch.analysis import (
         astlint, dataflow, graph_audit, kernel_coverage, noninterference, prongs,
@@ -4077,25 +4153,49 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     from ringpop_tpu_torch.ops import block_loop, exchange, farmhash, fused_apply
     from ringpop_tpu_torch.ops import fused_piggyback, stream_hash
 
+    from ringpop_tpu_torch.analysis import (
+        cost, donation, manifests, overflow, retrace, scale_budget,
+    )
+    from ringpop_tpu_torch.models.sim import engine_scalable as es
+    from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
+    from ringpop_tpu_torch.ops import _build
+
     t_phase = time.perf_counter()
     runners = {
         "ast": lambda: astlint.lint_paths(PKG_ROOT),
         "graph": graph_audit.audit_entries,
         "kernels": kernel_coverage.check_kernel_coverage,
         "noninterference": noninterference.check_noninterference,
+        "overflow": overflow.check_overflow,
+        "scale": scale_budget.check_against_manifest,
+        "cost": cost.check_against_manifest,
+        "donation": donation.check_against_manifest,
+        "retrace": retrace.check_against_manifest,
     }
+    if set(runners) != set(prongs.ALL_PRONGS):
+        raise AssertionError("prongs without a runner here: %s"
+                             % sorted(set(prongs.ALL_PRONGS) - set(runners)))
     prong_report = {}
     found = []
-    for name in prongs.DEFAULT_PRONGS:
+    # the detailed recordings first: graph and noninterference reuse them
+    order = ("ast", "overflow", "scale", "cost", "graph", "kernels", "noninterference",
+             "donation", "retrace")
+    for name in order:
         t0 = time.perf_counter()
         fs = runners[name]()
         prong_report[name] = dict(wall_s=time.perf_counter() - t0, findings=len(fs))
         found.extend(fs)
+    print("analysis prongs %s" % json.dumps(prong_report), flush=True)
     if found:
         from ringpop_tpu_torch.analysis.findings import render_text
         raise AssertionError("static analysis findings:\n" + render_text(found))
     cpu_reads = {name: len(r.recording.host_reads)
                  for name, r in graph_audit._TRACE_CACHE.items()}
+    budget = dict(hbm_budget_bytes=scale_budget.HBM_BUDGET_BYTES,
+                  total_memory=torch.cuda.get_device_properties(0).total_memory)
+    if budget["hbm_budget_bytes"] > budget["total_memory"]:
+        raise AssertionError("the scale budget %d exceeds the card's %d bytes"
+                             % (budget["hbm_budget_bytes"], budget["total_memory"]))
 
     wrappers = {"apply_updates": fused_apply.apply_updates, "pb_budget": fused_piggyback.pb_budget,
                 "fused_stream": stream_hash.fused_stream, "block_loop": block_loop.block_loop,
@@ -4112,11 +4212,13 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     kill = quiet._replace(kill=quiet.kill.clone().index_fill_(
         0, torch.tensor([5, n // 3, 2 * n // 3], device=dev), True))
     launches = {k: w.launches for k, w in wrappers.items()}
-    entries["straight-line tick n=%d farmhash" % n] = _audited(
+    entries["straight-line tick n=%d farmhash" % n] = _aliasing_audited(
         "straight-line tick", lambda: engine.tick(pre, kill, sim.params, sim.universe),
         "engine-tick-straight", cpu_reads)
     _require_launches(wrappers, launches, ("apply_updates", "pb_budget", "fused_stream"),
                       "the straight-line tick", dev)
+    scale = {"straight-line tick n=%d farmhash" % n: _scale_check(
+        "engine-tick-straight", n, lambda: engine.tick(pre, kill, sim.params, sim.universe))}
     del sim, pre
 
     # the batched tick, B = 4
@@ -4124,7 +4226,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     bat.bootstrap()
     bstate = bat.state
     launches = {k: w.launches for k, w in wrappers.items()}
-    entries["BatchedSimClusters(4, %d) tick" % n] = _audited(
+    entries["BatchedSimClusters(4, %d) tick" % n] = _aliasing_audited(
         "batched tick", lambda: bat._tick(bstate, kill), "batched-tick", cpu_reads)
     _require_launches(wrappers, launches, ("apply_updates", "pb_budget"), "the batched tick",
                       dev)
@@ -4133,7 +4235,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     # hash32_rows over real checksum rows: block_loop
     mat, lens = _checksum_rows(n, 1024, 7, dev)
     launches = {k: w.launches for k, w in wrappers.items()}
-    entries["hash32_rows [1024, %d]" % mat.shape[1]] = _audited(
+    entries["hash32_rows [1024, %d]" % mat.shape[1]] = _aliasing_audited(
         "hash32_rows", lambda: farmhash.hash32_rows(mat, lens), "farmhash-kernel", cpu_reads)
     _require_launches(wrappers, launches, ("block_loop",), "hash32_rows", dev)
     del mat, lens
@@ -4141,11 +4243,40 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     # one exchange at the 1M storm's shape
     args = _exchange_inputs(N_STORM, 16, 11, dev)
     launches = {k: w.launches for k, w in wrappers.items()}
-    entries["exchange [%d, 16]" % N_STORM] = _audited(
+    entries["exchange [%d, 16]" % N_STORM] = _aliasing_audited(
         "exchange", lambda: exchange.exchange(*args, want_counts=False), "exchange-kernel",
         cpu_reads)
     _require_launches(wrappers, launches, ("exchange",), "the exchange call", dev)
     del args
+
+    # one warm 1M storm tick against the scalable entry's polynomial
+    storm = ScalableCluster(n=N_STORM, params=es.ScalableParams(n=N_STORM, u=512),
+                            device=device)
+    storm.run(StormSchedule.churn_storm(4, N_STORM, fraction=0.1, fail_tick=1))
+    quiet = es.ChurnInputs.quiet(N_STORM, dev)
+    scale["warm 1M storm tick"] = _scale_check(
+        "engine-scalable-tick", N_STORM, lambda: es.tick(storm.state, quiet, storm.params))
+    del storm, quiet
+
+    # the retrace probes on the card: after the first step nothing uploads
+    # (straight probes under set_sync_debug_mode("error")) and the custom
+    # ops stay as they were
+    t0 = time.perf_counter()
+    probes = retrace.run_probes(device=device, sync_error=True)
+    for name, steps in probes.items():
+        if any("error" in st for st in steps):
+            raise AssertionError("retrace probe %s on the card: %s" % (name, steps))
+        if any(st["uploads"] for st in steps[1:]):
+            raise AssertionError("retrace probe %s uploaded after its first step: %s"
+                                 % (name, steps))
+        if len({st["custom_ops"] for st in steps}) != 1 or any(
+                st["library_builds"] for st in steps):
+            raise AssertionError("retrace probe %s registered or built: %s" % (name, steps))
+    retrace_report = dict(
+        probes={k: [st["uploads"] for st in v] for k, v in probes.items()},
+        custom_ops=probes["exchange"][0]["custom_ops"],
+        straight=[p.name for p in retrace.DEFAULT_PROBES if p.straight],
+        wall_s=time.perf_counter() - t0)
 
     # the gated fast churn tick: card, CPU and the profiler's count
     params = engine.SimParams(n=n, checksum_mode="fast")
@@ -4181,9 +4312,13 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     entries["gated churn tick n=%d fast" % n] = gated
     del sim, cpu, pre, card_state
 
+    if _build.BUILDS > 1:
+        raise AssertionError("the kernel library was built %d times" % _build.BUILDS)
     out = dict(card=_card_line(), prongs=prong_report,
                prong_wall_s=sum(p["wall_s"] for p in prong_report.values()),
-               findings=len(found), entries=entries,
+               findings=len(found), entries=entries, scale=scale, budget=budget,
+               retrace=retrace_report, library_builds=_build.BUILDS,
+               cost_manifest_torch=manifests.load(cost.MANIFEST_NAME).get("torch_version"),
                launches={k: w.launches - k0[k] for k, w in wrappers.items()},
                phase_s=time.perf_counter() - t_phase)
     print("analysis %s" % json.dumps(out), flush=True)

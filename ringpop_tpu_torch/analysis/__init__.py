@@ -11,7 +11,14 @@ all`` and the README's port prong table derive from:
 - :mod:`.kernel_coverage` (``kernels``): every CUDA kernel has a
   ``TWIN_REGISTRY`` row, live entries and gate tests;
 - :mod:`.noninterference` (``noninterference``): no obs-only input field
-  reaches a trajectory output field.
+  reaches a trajectory output field;
+- :mod:`.overflow` over :mod:`.ranges` (``overflow``): interval ranges
+  over the recorded ops — dtype escapes, unbounded state carries, index
+  lanes at the declared N;
+- :mod:`.scale_budget` (``scale``), :mod:`.cost` (``cost``),
+  :mod:`.donation` (``donation``, the aliasing surface) and
+  :mod:`.retrace` (``retrace``): each against its manifest in
+  ``analysis/budgets/`` (:mod:`.manifests`).
 
 CLI: ``python -m ringpop_tpu_torch.analysis`` (see ``--help``).  Nothing
 here imports JAX or the JAX package.

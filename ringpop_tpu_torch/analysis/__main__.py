@@ -12,6 +12,14 @@ Examples::
     python -m ringpop_tpu_torch.analysis --prong graph,noninterference
     python -m ringpop_tpu_torch.analysis --changed-only        # files git sees changed
     python -m ringpop_tpu_torch.analysis --list-rules
+    python -m ringpop_tpu_torch.analysis --prong all           # the opt-in prongs too
+    python -m ringpop_tpu_torch.analysis --prong scale --write # regenerate a manifest
+    python -m ringpop_tpu_torch.analysis --prong cost --budget /tmp/COST.json
+
+The budget prongs (``scale``, ``cost``, ``donation``, ``retrace``) diff the
+manifests in ``analysis/budgets/``; ``--write`` regenerates the selected
+ones instead (and refuses an entry that failed), ``--budget`` names another
+manifest file for a single budget prong.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from pathlib import Path
 from typing import List, Optional
 
 from ringpop_tpu_torch.analysis import astlint, findings as fmod
-from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, DEFAULT_PRONGS, PRONGS
+from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, BUDGET_PRONGS, DEFAULT_PRONGS, PRONGS
 
 PKG_ROOT = Path(__file__).resolve().parents[1]  # .../ringpop_tpu_torch
 REPO_ROOT = PKG_ROOT.parent
@@ -81,6 +89,24 @@ class _Stopwatch:
         self.seconds[self.name] = self.seconds.get(self.name, 0.0) + time.perf_counter() - self.t0
 
 
+def _write(names: List[str], path: Optional[Path]) -> int:
+    """``--write``: measure and commit each named budget prong's manifest."""
+    from ringpop_tpu_torch.analysis import cost, donation, retrace, scale_budget
+
+    prongs = {"scale": (scale_budget.collect_budgets, scale_budget.write_manifest),
+              "cost": (cost.collect_costs, cost.write_manifest),
+              "donation": (donation.collect, donation.write_manifest),
+              "retrace": (retrace.run_probes, retrace.write_manifest)}
+    for name in names:
+        collect, write = prongs[name]
+        try:
+            print("wrote %s" % write(collect(), path))
+        except ValueError as e:
+            print("%s: %s" % (name, e), file=sys.stderr)
+            return 2
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m ringpop_tpu_torch.analysis",
@@ -98,6 +124,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--changed-only", action="store_true",
                         help="scope to files git sees changed (diff, cached, untracked)")
     parser.add_argument("--list-rules", action="store_true", help="print the rule table")
+    parser.add_argument("--write", action="store_true",
+                        help="regenerate the selected budget prongs' manifests (%s)"
+                        % ", ".join(BUDGET_PRONGS))
+    parser.add_argument("--budget", type=Path, default=None,
+                        help="manifest file for a single budget prong (default: analysis/budgets/)")
     args = parser.parse_args(argv)
 
     if args.list_rules:
@@ -125,6 +156,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     unknown = prongs - set(ALL_PRONGS)
     if unknown:
         parser.error(f"unknown prong(s): {sorted(unknown)}")
+    budgets = [p for p in BUDGET_PRONGS if p in prongs]
+    if (args.write or args.budget) and not budgets:
+        parser.error("--write and --budget need a budget prong: %s" % ", ".join(BUDGET_PRONGS))
+    if args.budget and len(budgets) != 1:
+        parser.error("--budget names the manifest of one budget prong")
+    if args.write:
+        return _write(budgets, args.budget)
 
     all_findings: List[fmod.Finding] = []
     prong_seconds: dict = {}
@@ -160,6 +198,41 @@ def main(argv: Optional[List[str]] = None) -> int:
         with _Stopwatch(prong_seconds, "ast"):
             lint_files = None if files is None else [f for f in files if f.suffix == ".py"]
             all_findings.extend(astlint.lint_paths(PKG_ROOT, files=lint_files))
+
+    # the detail prongs first: their recordings (a superset) serve graph and
+    # noninterference from the shared cache
+    if "overflow" in prongs:
+        from ringpop_tpu_torch.analysis import overflow
+
+        entry_names = None if scoped_rel is None else overflow.entries_for_changed(scoped_rel)
+        if entry_names is None or entry_names:
+            with _Stopwatch(prong_seconds, "overflow"):
+                all_findings.extend(overflow.check_overflow(entry_names))
+
+    if "scale" in prongs and in_scope(_GRAPH_SOURCES):
+        from ringpop_tpu_torch.analysis import scale_budget
+
+        with _Stopwatch(prong_seconds, "scale"):
+            all_findings.extend(scale_budget.check_against_manifest(path=args.budget))
+
+    if "cost" in prongs and in_scope(_GRAPH_SOURCES):
+        from ringpop_tpu_torch.analysis import cost
+
+        with _Stopwatch(prong_seconds, "cost"):
+            all_findings.extend(cost.check_against_manifest(path=args.budget))
+
+    if "donation" in prongs:
+        from ringpop_tpu_torch.analysis import donation
+
+        if in_scope(donation.SOURCES):
+            with _Stopwatch(prong_seconds, "donation"):
+                all_findings.extend(donation.check_against_manifest(path=args.budget))
+
+    if "retrace" in prongs and in_scope(_GRAPH_SOURCES):
+        from ringpop_tpu_torch.analysis import retrace
+
+        with _Stopwatch(prong_seconds, "retrace"):
+            all_findings.extend(retrace.check_against_manifest(path=args.budget))
 
     if "graph" in prongs and in_scope(_GRAPH_SOURCES):
         from ringpop_tpu_torch.analysis import graph_audit

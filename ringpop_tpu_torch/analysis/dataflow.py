@@ -24,6 +24,18 @@ that storage, whose labels join the old version's and the op's inputs'.
 A recording keeps every tensor it saw alive until it is dropped, so no
 storage address is reused within one.
 
+With ``detail`` on (the ranges, cost and aliasing prongs), each
+:class:`OpRecord` also keeps its operands' and results' shapes, its
+non-tensor arguments (:data:`OpRecord.args`, a tensor standing as its
+:class:`TensorArg` position among ``inputs``), which results are new
+storages (``out_alloc``) and the storages it wrote (``writes``); and the
+recording keeps each value's first version (``roots``: an in-place write
+makes a new version of the same storage), and the concrete
+``(min, max)`` of every integer value made from no tensor input
+(``arange``, ``full``, ``zeros``, ``scalar_tensor``, ``randint``, ...) and of
+every tensor the entry reads that was made outside it (a constant table,
+a lifted scalar).  ``graph`` and ``noninterference`` record without it.
+
 :func:`slice_reachability` propagates labels from chosen input leaves to
 every output leaf with witness chains (:class:`Witness`,
 :func:`witness_chain`), as JAX's does over a jaxpr.  A host read whose
@@ -46,6 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = [
     "HASH_CONSTANTS",
+    "TensorArg",
     "HOST_READ_OPS",
     "OpRecord",
     "Recording",
@@ -83,13 +96,24 @@ _ANALYSIS_DIR = os.path.join(_PKG_DIR, "analysis")
 
 
 @dataclasses.dataclass(frozen=True)
+class TensorArg:
+    """A tensor operand inside :attr:`OpRecord.args`: its position in the
+    op's ``inputs``."""
+
+    index: int
+
+
+@dataclasses.dataclass(frozen=True)
 class OpRecord:
     """One aten op as it ran: ``inputs``/``outputs`` are value ids (a
     storage version each; None for a tensor with no storage or no data),
     ``loc`` the innermost port function on the stack (``module.py:func``),
     ``host_read`` whether the op synchronised with the host (a read, or an
     upload of a host table), and ``stack`` the port frames of an op that
-    widened a hash-path value (:class:`Recorder` with ``hash_taint``)."""
+    widened a hash-path value (:class:`Recorder` with ``hash_taint``).
+    The rest is kept with ``detail`` only (module docstring); ``writes``
+    pairs each written storage's value id before the op with the one
+    after."""
 
     name: str
     inputs: Tuple[Optional[int], ...]
@@ -99,6 +123,12 @@ class OpRecord:
     loc: str = ""
     host_read: bool = False
     stack: Tuple[str, ...] = ()
+    in_shapes: Tuple[Tuple[int, ...], ...] = ()
+    out_shapes: Tuple[Tuple[int, ...], ...] = ()
+    args: Tuple = ()
+    kwargs: Tuple[Tuple[str, object], ...] = ()
+    out_alloc: Tuple[bool, ...] = ()
+    writes: Tuple[Tuple[int, int], ...] = ()
 
 
 @dataclasses.dataclass
@@ -113,6 +143,18 @@ class Recording:
     output_values: List[Optional[int]]
     out: object = None
     hash_findings: List[OpRecord] = dataclasses.field(default_factory=list)
+    # with ``detail``: value id -> (min, max) of the integer values made
+    # from no tensor input or outside the entry; each input and output
+    # leaf's (shape, dtype) (None: not a tensor); each output leaf's
+    # storage by the value id it first had; every value id's first version
+    concrete: Dict[int, Tuple[int, int]] = dataclasses.field(default_factory=dict)
+    roots: Dict[int, int] = dataclasses.field(default_factory=dict)
+    input_meta: List[Optional[Tuple[Tuple[int, ...], str]]] = dataclasses.field(
+        default_factory=list)
+    output_meta: List[Optional[Tuple[Tuple[int, ...], str]]] = dataclasses.field(
+        default_factory=list)
+    output_roots: List[Optional[int]] = dataclasses.field(default_factory=list)
+    detail: bool = False
 
     @property
     def host_reads(self) -> List[OpRecord]:
@@ -203,23 +245,32 @@ class Recorder(TorchDispatchMode):
     a widening, logged in ``hash_findings`` with its port stack unless
     ``allowed(stack)`` says it is deliberate; either way the path ends there.
     Other results (bool masks, bytes) leave the path, as JAX's audit
-    follows only uint32 and int32 hops."""
+    follows only uint32 and int32 hops.  ``detail`` keeps the shapes,
+    arguments, writes and concrete ranges (module docstring).  ``uploads``
+    counts the host-table uploads among the host reads."""
 
     def __init__(self, track: bool = True, hash_taint: bool = False,
-                 allowed: Optional[Callable[[Tuple[str, ...]], bool]] = None):
+                 allowed: Optional[Callable[[Tuple[str, ...]], bool]] = None,
+                 detail: bool = False):
         super().__init__()
         self.track = track
         self.hash_taint = hash_taint and track
+        self.detail = detail and track
         self.allowed = allowed
         self.ops: List[OpRecord] = []
         self.host_reads = 0
         self.scalar_reads = 0
+        self.uploads = 0
         self.n_ops = 0
         self.hash_findings: List[OpRecord] = []
         self._cur: Dict[tuple, int] = {}
         self._next = 0
         self._keep: List[torch.Tensor] = []
         self._hashed: set = set()
+        # detail: value id -> the value id its storage first had; concrete
+        # ranges (see Recording.concrete)
+        self._root: Dict[int, int] = {}
+        self.concrete: Dict[int, Tuple[int, int]] = {}
 
     # -- value ids ----------------------------------------------------------
 
@@ -238,7 +289,30 @@ class Recorder(TorchDispatchMode):
             vid = self._fresh()
             self._cur[key] = vid
             self._keep.append(t)
+            if self.detail:
+                self._root[vid] = vid
+                self._note_concrete(vid, t)
         return vid
+
+    def root_of(self, vid: Optional[int]) -> Optional[int]:
+        """The value id ``vid``'s storage first had (``detail`` only)."""
+        return None if vid is None else self._root.get(vid, vid)
+
+    def _note_concrete(self, vid: int, t: torch.Tensor) -> None:
+        """Keep the (min, max) of an integer or bool CPU tensor."""
+        if t.device.type != "cpu" or t.dtype.is_floating_point or t.dtype.is_complex:
+            return
+        if t.numel() == 0:
+            return
+        try:
+            v = t.detach()
+            if v.dtype == torch.bool:
+                v = v.to(torch.uint8)
+            elif v.dtype in (torch.uint16, torch.uint32, torch.uint64):
+                v = v.to(torch.int64) if v.dtype != torch.uint64 else v
+            self.concrete[vid] = (int(v.min()), int(v.max()))
+        except (RuntimeError, NotImplementedError, TypeError):
+            pass
 
     # -- the mode -------------------------------------------------------------
 
@@ -290,6 +364,8 @@ class Recorder(TorchDispatchMode):
             self.host_reads += 1
             if name == LOCAL_SCALAR_DENSE:
                 self.scalar_reads += 1
+            elif name == HOST_UPLOAD_OP:
+                self.uploads += 1
         if not self.track:
             return out
 
@@ -300,25 +376,52 @@ class Recorder(TorchDispatchMode):
             for t in _outputs(v):
                 written.add(_storage_key(t))
         in_keys = {_storage_key(t) for t in in_tensors}
+        writes = []  # detail: (old, new) value ids of each written storage
         out_vids = []
+        out_alloc = []
         for t in out_tensors:
             key = _storage_key(t)
             if key is None:
                 out_vids.append(None)
+                out_alloc.append(False)
                 continue
             if key in in_keys and key not in written:
                 out_vids.append(self._cur.get(key))  # a view: the same value
+                out_alloc.append(False)
                 continue
+            old = self._cur.get(key)
             vid = self._fresh()
             self._cur[key] = vid
             self._keep.append(t)
             out_vids.append(vid)
+            out_alloc.append(key not in written)
+            if self.detail:
+                self._root[vid] = self._root.get(old, old) if key in written and old else vid
+                if key in written and old:
+                    writes.append((old, vid))
+                if not in_tensors:
+                    self._note_concrete(vid, t)
         # a written argument that is not among the outputs still changed
-        for key in written - {_storage_key(t) for t in out_tensors}:
+        for key in sorted(written - {_storage_key(t) for t in out_tensors}, key=repr):
             if key is not None:
+                old = self._cur.get(key)
                 self._cur[key] = vid = self._fresh()
                 out_vids.append(vid)
+                if self.detail:
+                    self._root[vid] = self._root.get(old, old) if old else vid
+                    if old:
+                        writes.append((old, vid))
         stack = _port_stack(limit=1)
+        extra = {}
+        if self.detail:
+            extra = dict(
+                in_shapes=tuple(tuple(t.shape) for t in in_tensors),
+                out_shapes=tuple(tuple(t.shape) for t in out_tensors),
+                args=_arg_spec(args, in_tensors),
+                kwargs=tuple((k, _arg_spec((v,), in_tensors)[0]) for k, v in kwargs.items()),
+                out_alloc=tuple(out_alloc),
+                writes=tuple(writes),
+            )
         rec = OpRecord(
             name=name,
             inputs=tuple(in_vids),
@@ -327,6 +430,7 @@ class Recorder(TorchDispatchMode):
             out_dtypes=tuple(str(t.dtype) for t in out_tensors),
             loc=stack[0] if stack else "",
             host_read=host_read,
+            **extra,
         )
         self.ops.append(rec)
         if self.hash_taint:
@@ -360,13 +464,39 @@ def flatten(x) -> list:
     return [x]
 
 
+def _arg_spec(args, in_tensors) -> tuple:
+    """An op's arguments with each tensor as its :class:`TensorArg` and
+    every other value as a plain int, float, bool, str or None."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            i = next((j for j, t in enumerate(in_tensors) if t is a), -1)
+            out.append(TensorArg(i))
+        elif isinstance(a, (list, tuple)):
+            out.append(_arg_spec(a, in_tensors))
+        elif a is None or isinstance(a, (bool, int, float, str)):
+            out.append(a)
+        else:
+            out.append(str(a))
+    return tuple(out)
+
+
+def _meta(t) -> Optional[Tuple[Tuple[int, ...], str]]:
+    return (tuple(t.shape), str(t.dtype)) if isinstance(t, torch.Tensor) else None
+
+
 def record(fn: Callable, args: Tuple, track: bool = True, hash_taint: bool = False,
-           allowed=None) -> Recording:
-    """Run ``fn(*args)`` under a :class:`Recorder` and return what it saw."""
-    rec = Recorder(track=track, hash_taint=hash_taint, allowed=allowed)
+           allowed=None, detail: bool = False) -> Recording:
+    """Run ``fn(*args)`` under a :class:`Recorder` and return what it saw
+    (``detail``: the shapes, arguments, writes and concrete ranges too)."""
+    rec = Recorder(track=track, hash_taint=hash_taint, allowed=allowed, detail=detail)
     in_leaves = flatten(tuple(args))
     in_vids = [rec.value_of(t) if isinstance(t, torch.Tensor) and track else None
                for t in in_leaves]
+    if rec.detail:
+        # the entry's inputs are contracts, not constants
+        for v in in_vids:
+            rec.concrete.pop(v, None)
     with rec:
         out = fn(*args)
     out_leaves = flatten(out)
@@ -374,7 +504,15 @@ def record(fn: Callable, args: Tuple, track: bool = True, hash_taint: bool = Fal
         rec._cur.get(_storage_key(t)) if isinstance(t, torch.Tensor) and track else None
         for t in out_leaves
     ]
-    return Recording(rec.ops, in_vids, out_vids, out, rec.hash_findings)
+    recording = Recording(rec.ops, in_vids, out_vids, out, rec.hash_findings)
+    if rec.detail:
+        recording.detail = True
+        recording.concrete = dict(rec.concrete)
+        recording.input_meta = [_meta(t) for t in in_leaves]
+        recording.output_meta = [_meta(t) for t in out_leaves]
+        recording.output_roots = [rec.root_of(v) for v in out_vids]
+        recording.roots = dict(rec._root)
+    return recording
 
 
 # ---------------------------------------------------------------------------

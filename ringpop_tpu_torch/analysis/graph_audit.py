@@ -25,7 +25,9 @@ checked:
 Each entry runs once before it is recorded, as the card audit runs its
 paths: a per-device constant table uploads on first use, once a process.
 Recordings are cached per process (:func:`clear_trace_cache`) and shared
-with the noninterference prong.  :data:`JAX_ENTRY_COUNTERPARTS` maps each of
+with the noninterference, overflow, scale and cost prongs; those three
+need the recorder's ``detail``, and a detailed recording (the same ops and
+values, plus shapes, arguments and ranges) replaces a plain one.  :data:`JAX_ENTRY_COUNTERPARTS` maps each of
 JAX's ``DEFAULT_ENTRIES`` to its port entry, or says why there is none.
 The ``*-pallas`` entries become the wrapper entries (``*-kernel``): the
 plain version on a CPU tensor, the CUDA kernel on a card's
@@ -348,24 +350,25 @@ def _entry_scalable_tick(**kw):
     return _ticks(lambda s, i: es.tick(s, i, params)), (state, _scalable_inputs())
 
 
-def _mesh(shards: int = 2):
+def _mesh(shards: int = 2, device="cpu"):
     from ringpop_tpu_torch.parallel import mesh as pmesh
 
-    return pmesh.make_mesh(shards, device="cpu")
+    return pmesh.make_mesh(shards, device=device)
 
 
-def _entry_exchange_plane(metrics: bool = False):
-    """The mesh's direct-round plane on a 2-shard CPU mesh: the capped
+def _entry_exchange_plane(metrics: bool = False, device="cpu", seed: int = 5):
+    """The mesh's direct-round plane on a 2-shard mesh (of the CPU here;
+    the retrace prong's probe also runs it on a card): the capped
     all-to-all row routes and ``exchange_local`` on each shard's tile."""
     from ringpop_tpu_torch.ops import exchange as exch
     from ringpop_tpu_torch.parallel import comm, mesh as pmesh
 
-    m = _mesh()
+    m = _mesh(device=device)
     plane = pmesh.make_exchange_plane(m, "plain", n=N, metrics=metrics)
     rows = N // m.size
     shards = [pmesh.Shard(s, m.size, rows, pmesh.exchange_cap(rows, m.size), metrics)
               for s in range(m.size)]
-    rng = _rng(5)
+    rng = _rng(seed)
     heard, _, _, r_delta = _exchange_args()
     w = heard.shape[1]
     active = torch.as_tensor(rng.integers(-2**31, 2**31, w), dtype=torch.int32)
@@ -379,7 +382,7 @@ def _entry_exchange_plane(metrics: bool = False):
         args = [heard[cut], r_delta, active, ok[cut], fwd[cut], inv[cut]]
         if metrics:
             args += [exch.init_exchange_counters(1), exch.init_exchange_hist(1)]
-        per_shard.append(tuple(args))
+        per_shard.append(tuple(a.to(device) for a in args))
     mc = comm.MeshComm(m.devices)
 
     def fn(per_shard):
@@ -632,23 +635,27 @@ def _allowed(stack: Tuple[str, ...]) -> bool:
     return False
 
 
-def record_entry(name: str, fn: Callable, args: Tuple, reads: Union[int, str] = 0) -> Recorded:
-    """Record ``fn(*args)`` (hash taint on) and the reads it declares."""
+def record_entry(name: str, fn: Callable, args: Tuple, reads: Union[int, str] = 0,
+                 detail: bool = False) -> Recorded:
+    """Record ``fn(*args)`` (hash taint on) and the reads it declares
+    (``detail``: the recorder's shapes, arguments and ranges too)."""
     from ringpop_tpu_torch.models.sim import engine_scalable as es
 
     fn(*args)  # warm: per-device constant tables upload on first use
     before = es.host_read.count
-    rec = dataflow.record(fn, args, hash_taint=True, allowed=_allowed)
+    rec = dataflow.record(fn, args, hash_taint=True, allowed=_allowed, detail=detail)
     declared = es.host_read.count - before if reads == YIELDED else int(reads)
     return Recorded(rec, declared, args)
 
 
-def recorded(ep: EntryPoint) -> Recorded:
-    """A registered entry's recording, made once per process."""
+def recorded(ep: EntryPoint, detail: bool = False) -> Recorded:
+    """A registered entry's recording, made once per process.  A detailed
+    recording serves every prong (its ops and value ids are the plain
+    one's), so a prong that needs the detail replaces a plain one."""
     hit = _TRACE_CACHE.get(ep.name)
-    if hit is None:
+    if hit is None or (detail and not hit.recording.detail):
         fn, args = ep.build()
-        hit = record_entry(ep.name, fn, args, ep.reads)
+        hit = record_entry(ep.name, fn, args, ep.reads, detail=detail)
         _TRACE_CACHE[ep.name] = hit
     return hit
 

@@ -7,8 +7,12 @@ table all derive from :data:`PRONGS` (tests/test_torch_analysis_cli.py
 pins the table and the CLI's dispatch against it).  Adding a prong means
 a :class:`ProngSpec` here plus its runner arm in ``__main__``.
 
-The JAX package's ``overflow``, ``scale``, ``donation``, ``retrace`` and
-``cost`` prongs have no port counterpart yet; ROADMAP.md lists them.
+Nine prongs, the JAX package's set: ``overflow`` stands for JAX's
+``ranges`` interpreter and its consumer, ``graph`` for ``jaxpr``.  A prong
+whose full run alone on the tree takes under ~10 s on one core is in the
+default set (the wall of each, measured on an 8-core CPU sandbox, is
+beside its spec); the others are opt-in (``--prong all``
+runs every prong, and ``chip_smoke.py`` runs all nine).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
-__all__ = ["ProngSpec", "PRONGS", "DEFAULT_PRONGS", "ALL_PRONGS"]
+__all__ = ["ProngSpec", "PRONGS", "DEFAULT_PRONGS", "ALL_PRONGS", "BUDGET_PRONGS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +84,62 @@ PRONGS: Dict[str, ProngSpec] = {
             default=True,
             ci="tests/test_torch_analysis_noninterference.py",
         ),
+        ProngSpec(
+            name="overflow",
+            summary=(
+                "interval ranges over every entry's recorded ops: dtype escapes, "
+                "unbounded state carries and int32 index lanes at the declared N"
+            ),
+            rules=("dtype-overflow", "unbounded-carry", "index-overflow", "stale-allowlist",
+                   "trace-failure"),
+            default=False,  # ~22 s alone (every entry recorded with detail)
+            ci="tests/test_torch_analysis_ranges.py + tests/test_torch_analysis_overflow.py",
+        ),
+        ProngSpec(
+            name="scale",
+            summary=(
+                "each entry's footprint polynomial in N and its feasible N* under the "
+                "H100's memory, against budgets/SCALE_BUDGET.json"
+            ),
+            rules=("scale-budget", "scale-failure"),
+            default=False,  # ~17 s alone (the recordings)
+            ci="tests/test_torch_analysis_scale.py",
+        ),
+        ProngSpec(
+            name="cost",
+            summary=(
+                "each entry's recorded ops, bytes accessed and peak bytes at toy size, "
+                "against budgets/COST_BUDGET.json"
+            ),
+            rules=("cost-budget", "cost-failure"),
+            default=False,  # ~16 s alone (the recordings)
+            ci="tests/test_torch_analysis_cost.py",
+        ),
+        ProngSpec(
+            name="donation",
+            summary=(
+                "the drivers' aliasing surface: inputs written in place and outputs "
+                "sharing an input's storage, against budgets/DONATION_BUDGET.json"
+            ),
+            rules=("donation-budget", "donation-failure", "inplace-input-write"),
+            default=True,  # ~7 s
+            ci="tests/test_torch_analysis_donation.py",
+        ),
+        ProngSpec(
+            name="retrace",
+            summary=(
+                "probes of host-table uploads, per-device tables, kernel-library builds "
+                "and custom ops, against budgets/RETRACE_BUDGET.json"
+            ),
+            rules=("retrace-budget", "probe-failure"),
+            default=True,  # ~6 s
+            ci="tests/test_torch_analysis_retrace.py",
+        ),
     )
 }
+
+# the prongs with a committed manifest (``--write``, ``--budget``)
+BUDGET_PRONGS = ("scale", "cost", "donation", "retrace")
 
 DEFAULT_PRONGS = tuple(s.name for s in PRONGS.values() if s.default)
 ALL_PRONGS = tuple(PRONGS)

@@ -113,6 +113,8 @@ class RouteState(NamedTuple):
 ROUTE_OBS_ONLY_FIELDS = frozenset(
     {"hist", "req_buf", "req_head", "req_drops", "req_counts", "req_tick"}
 )
+# the fields the JAX plane holds as uint32 (int32 bit patterns here)
+ROUTE_UINT32_FIELDS = frozenset({"rng", "hist"})
 ROUTE_TRAJECTORY_FIELDS = frozenset({"ring", "flat_ring", "mask", "rng"})
 
 

@@ -210,8 +210,10 @@ def dirty_stats(
     c_idx = _first_k(changed, max_changed, n)
     pb = buckets.point_bucket[c_idx.clamp(0, n - 1)]
     pb = torch.where((c_idx < n)[:, None], pb, nb)
-    dirty = torch.zeros(nb + 1, dtype=torch.bool, device=changed.device)
-    dirty[pb.reshape(-1).long()] = True
+    # index_fill, not ``dirty[idx] = True``: on a card the latter copies the
+    # lifted scalar to the device, a synchronous upload every tick
+    dirty = torch.zeros(nb + 1, dtype=torch.bool, device=changed.device).index_fill(
+        0, pb.reshape(-1).long(), True)
     dirty = dirty[:nb]
     n_dirty = dirty.sum(dtype=torch.int32)
     overflow = (n_changed > max_changed) | (n_dirty > max_dirty)

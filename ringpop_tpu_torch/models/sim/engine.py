@@ -175,6 +175,10 @@ SIM_TRAJECTORY_FIELDS = frozenset({
     "inc", "ch_active", "ch_status", "ch_inc", "ch_source", "ch_source_inc", "ch_pb",
     "susp_deadline", "perm_inv", "iter_pos", "rng", "checksum", "rec_bytes", "rec_len",
 })
+# the fields the JAX engine holds as uint32, kept here as int32 bit
+# patterns (ops/u32.py): their arithmetic wraps mod 2^32 by contract, and
+# the range prongs seed them full range (analysis/ranges.py)
+SIM_UINT32_FIELDS = frozenset({"rng", "checksum", "hist"})
 
 
 class TickInputs(NamedTuple):

@@ -169,6 +169,10 @@ NODE_SHARDED_FIELDS = frozenset(
 # (``SCALABLE_OBS_ONLY_FIELDS`` / ``SCALABLE_TRAJECTORY_FIELDS``; the note
 # at engine.SIM_OBS_ONLY_FIELDS)
 SCALABLE_OBS_ONLY_FIELDS = frozenset({"first_heard", "hist", "exch", "exch_hist"})
+# the fields the JAX engine holds as uint32 (int32 bit patterns here)
+SCALABLE_UINT32_FIELDS = frozenset({
+    "rng", "checksum", "base_sum", "r_delta", "heard", "hist", "exch", "exch_hist",
+})
 SCALABLE_TRAJECTORY_FIELDS = frozenset({
     "tick_index", "proc_alive", "gossip_on", "partition", "truth_status", "truth_inc",
     "r_active", "r_delta", "r_birth", "heard", "susp_subject", "susp_since", "defame_slot",

@@ -43,6 +43,16 @@ ENTRY_POINTS = {
     "ringpop_exchange": (7, 8),
     "ringpop_block_loop": (8, 3),
 }
+# how many of each entry point's pointers are operands it reads: the rest
+# are the results it writes (chip_smoke.py holds them apart: no result
+# aliases an operand)
+READ_POINTERS = {
+    "ringpop_apply_updates": 18,
+    "ringpop_pb_budget": 5,
+    "ringpop_fused_stream": 6,
+    "ringpop_exchange": 4,
+    "ringpop_block_loop": 5,
+}
 
 
 class KernelLibrary:
@@ -66,14 +76,31 @@ class KernelLibrary:
         """Launch ``name`` on ``device`` (the card the operands are on) and
         its current stream, and raise on a launch error.  ``ptrs`` are
         device pointers on that card (0 for an absent optional).  A mesh
-        shard or a cluster may sit on another card than the current one."""
+        shard or a cluster may sit on another card than the current one.
+        Every integer argument must fit a C ``int``: ``ctypes`` would cut
+        2^32 + 7 to 7 without a word, so one outside int32 raises here,
+        before the launch."""
         fn, table_type = self._entry[name]
+        check_ints(name, ints)
         with torch.cuda.device(device):
             err = fn(table_type(*ptrs), *ints, _current_stream(device.index))
         if err != 0:
             raise RuntimeError(
                 "%s: CUDA launch failed with cudaError %d" % (name, err)
             )
+
+
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def check_ints(name: str, ints: Sequence[int]) -> None:
+    """Raise unless every one of a kernel's integer arguments is an int
+    in int32 (the C entry points take ``int``)."""
+    for i, v in enumerate(ints):
+        if not INT32_MIN <= int(v) <= INT32_MAX:
+            raise OverflowError(
+                "%s: integer argument %d is %d, outside int32: the kernel would read "
+                "it truncated" % (name, i, int(v)))
 
 
 def _current_stream(index: int) -> int:
@@ -108,8 +135,14 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+# how many times this process compiled the library (the retrace prong and
+# chip_smoke.py read it: at most once a process)
+BUILDS = 0
+
+
 def build(verbose: bool = False) -> KernelLibrary:
     """Compile (if needed) and load the kernel library."""
+    global BUILDS
     srcs = sources()
     out = BUILD / ("libringpop_kernels_%s.so" % _digest(srcs))
     if out.exists():
@@ -151,6 +184,7 @@ def build(verbose: bool = False) -> KernelLibrary:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n%s" % link.stdout)
         os.replace(tmp_so, out)
+    BUILDS += 1
     if verbose:
         print("\n".join(logs))
     return KernelLibrary(out, time.perf_counter() - t0, built=True)

@@ -17,7 +17,9 @@ from ringpop_tpu_torch.analysis import __main__ as cli
 from ringpop_tpu_torch.analysis import astlint
 from ringpop_tpu_torch.analysis import graph_audit as ga
 from ringpop_tpu_torch.analysis import noninterference as ni
-from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, DEFAULT_PRONGS, PRONGS
+from ringpop_tpu_torch.analysis import cost, dataflow, donation, manifests, retrace
+from ringpop_tpu_torch.analysis import scale_budget as sb
+from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, BUDGET_PRONGS, DEFAULT_PRONGS, PRONGS
 from ringpop_tpu_torch.ops import toolkit
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
@@ -26,8 +28,12 @@ TABLE_ROW = re.compile(r"^\| port \| `([a-z]+)` \| (yes|opt-in) \| (.+) \|$", re
 
 
 def test_registry_shape():
-    assert ALL_PRONGS == ("ast", "graph", "kernels", "noninterference")
-    assert DEFAULT_PRONGS == ALL_PRONGS
+    assert ALL_PRONGS == ("ast", "graph", "kernels", "noninterference", "overflow", "scale",
+                          "cost", "donation", "retrace")
+    # the prongs that take over ~10 s alone on the tree are opt-in
+    assert DEFAULT_PRONGS == ("ast", "graph", "kernels", "noninterference", "donation",
+                              "retrace")
+    assert BUDGET_PRONGS == ("scale", "cost", "donation", "retrace")
     for spec in PRONGS.values():
         assert spec.rules and spec.summary and spec.ci
         for test in spec.ci.split(" + "):
@@ -182,11 +188,118 @@ def _ni_mutation(rule, tmp_path, monkeypatch):
     return ["--prong", "noninterference"]
 
 
+def _raising():
+    return (lambda t: t.item() + None), (torch.zeros(1, dtype=torch.int32),)
+
+
+def _overflow_mutation(rule, tmp_path, monkeypatch):
+    if rule == "dtype-overflow":  # an int32 sum over two N axes
+        def build():
+            return (lambda t: t.sum(dtype=torch.int32)), (torch.ones(8, 8, dtype=torch.int32),)
+    elif rule == "unbounded-carry":  # a signed state field growing a tick
+        def build():
+            fn, args = ga._entry_scalable_tick()
+
+            def doctored(state, inputs):
+                st, m = fn(state, inputs)
+                return st._replace(partition=st.partition + 1), m
+            return doctored, args
+    elif rule == "index-overflow":  # an int32 flat offset row * n + col
+        def build():
+            def flat(t):
+                r = torch.arange(t.shape[0])
+                return (r[:, None] * t.shape[0] + r[None, :]).to(torch.int32)
+            return flat, (torch.zeros(8),)
+    elif rule == "stale-allowlist":  # the tree's rows excuse nothing here
+        def build():
+            return (lambda t: t + 1), (torch.zeros(8, dtype=torch.int32),)
+    else:
+        build = _raising
+    _graph_entry(monkeypatch, "doctored", build)
+    return ["--prong", "overflow"]
+
+
+def _budget_file(tmp_path, name, entries):
+    p = tmp_path / name
+    p.write_text(json.dumps({"version": 1, "torch_version": torch.__version__,
+                             "hbm_budget_bytes": sb.HBM_BUDGET_BYTES, "entries": entries}))
+    return str(p)
+
+
+def _scale_mutation(rule, tmp_path, monkeypatch):
+    name = "fused-piggyback-plain"
+    committed = manifests.load(sb.MANIFEST_NAME)["entries"][name]
+    if rule == "scale-budget":  # an [N, N, N] temp
+        def build():
+            fn, args = ga._entry_fused_piggyback("plain")
+            n = args[1].shape[0]
+            return (lambda *a: (fn(*a), torch.zeros(n, n, n, dtype=torch.int32) + 1)), args
+    else:
+        build = _raising
+    _graph_entry(monkeypatch, name, build)
+    return ["--prong", "scale", "--budget", _budget_file(tmp_path, "s.json", {name: committed})]
+
+
+def _int_plane(dtype):
+    return (lambda t: (t * 2 + 1).sum(dim=1)), (torch.arange(64, dtype=dtype).reshape(8, 8),)
+
+
+def _cost_mutation(rule, tmp_path, monkeypatch):
+    base = cost.costs_of(dataflow.record(*_int_plane(torch.int32), detail=True))
+    # a plane widened to int64, or an entry that fails
+    build = (lambda: _int_plane(torch.int64)) if rule == "cost-budget" else _raising
+    _graph_entry(monkeypatch, "doctored", build)
+    return ["--prong", "cost", "--budget", _budget_file(tmp_path, "c.json", {"doctored": base})]
+
+
+def _donation_mutation(rule, tmp_path, monkeypatch):
+    entry = donation.DonationEntry("scalable-tick", donation._entry_scalable_tick)
+    surface = donation.collect(entries=[entry])["scalable-tick"]
+    if rule == "donation-budget":  # the surface drifted from the manifest
+        surface = dict(surface, aliased_outputs=[])
+    elif rule == "donation-failure":
+        entry = donation.DonationEntry("scalable-tick", lambda: 1 / 0)
+    else:  # the entry writes its input state in place
+        def build():
+            fn, args = donation._entry_scalable_tick()
+
+            def doctored(state, inputs):
+                state.partition.add_(1)
+                return fn(state, inputs)
+            return doctored, args
+        entry = donation.DonationEntry("scalable-tick", build)
+    monkeypatch.setattr(donation, "DEFAULT_ENTRIES", [entry])
+    return ["--prong", "donation", "--budget",
+            _budget_file(tmp_path, "d.json", {"scalable-tick": surface})]
+
+
+def _retrace_mutation(rule, tmp_path, monkeypatch):
+    def probe(upload):
+        def build(device):
+            table = [1, 2, 3, 4]
+
+            def fn(x):  # a host table uploaded on every call, or not
+                return x + (torch.tensor(table, dtype=torch.int32) if upload else 1)
+            return fn, [("a", (torch.zeros(4, dtype=torch.int32),)),
+                        ("b", (torch.ones(4, dtype=torch.int32),))]
+        return retrace.Probe("doctored", build)
+
+    clean = retrace.run_probes([probe(False)])
+    bad = probe(True) if rule == "retrace-budget" else retrace.Probe(
+        "doctored", lambda device: 1 / 0)
+    monkeypatch.setattr(retrace, "DEFAULT_PROBES", [bad])
+    p = tmp_path / "r.json"
+    p.write_text(json.dumps({"version": 1, "probes": clean}))
+    return ["--prong", "retrace", "--budget", str(p)]
+
+
 MUTATIONS = {"ast": _ast_mutation, "graph": _graph_mutation, "kernels": _kernel_mutation,
-             "noninterference": _ni_mutation}
+             "noninterference": _ni_mutation, "overflow": _overflow_mutation,
+             "scale": _scale_mutation, "cost": _cost_mutation, "donation": _donation_mutation,
+             "retrace": _retrace_mutation}
 CASES = sorted(
     [("ast", r) for r in list(astlint.RULES_BY_NAME) + list(PRONGS["ast"].rules)]
-    + [(p, r) for p in ("graph", "kernels", "noninterference") for r in PRONGS[p].rules]
+    + [(p, r) for p in ALL_PRONGS if p != "ast" for r in PRONGS[p].rules]
 )
 
 
@@ -199,3 +312,21 @@ def test_mutation_makes_the_cli_fail_and_name_the_rule(prong, rule, tmp_path, mo
     assert rc == 1
     assert rule in {f["rule"] for f in doc["findings"]}, doc["findings"]
     assert all(f["prong"] == prong for f in doc["findings"])
+
+
+def test_every_prong_reports_nothing_on_the_tree(capsys):
+    """``--prong all``: the nine prongs, the four committed manifests."""
+    rc = cli.main(["--prong", "all", "--format", "json"])
+    doc = json.loads(capsys.readouterr().out)
+    assert (rc, doc["count"]) == (0, 0), doc["findings"]
+    assert set(doc["prong_seconds"]) == set(ALL_PRONGS)
+
+
+def test_write_refuses_a_failed_entry(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(retrace, "DEFAULT_PROBES",
+                        [retrace.Probe("doctored", lambda device: 1 / 0)])
+    target = tmp_path / "r.json"
+    assert cli.main(["--prong", "retrace", "--write", "--budget", str(target)]) == 2
+    assert "refusing" in capsys.readouterr().err and not target.exists()
+    with pytest.raises(SystemExit):
+        cli.main(["--prong", "ast", "--write"])
