@@ -207,6 +207,18 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
 Profiled windows are counted from the profiler's raw records (the first
 one also through ``key_averages``, which must agree).
 
+   Then the port's parity oracle on the card: ``parity.check``'s lockstep
+   loop (the port's farmhash ``SimCluster`` on the card against the port's
+   ``OracleCluster``, one host ``Membership`` a node hashed with the C++
+   FarmHash, on ``scripts/parity_check.py``'s schedule) at n=256 fused, 40
+   ticks (``apply_updates``, ``pb_budget``, ``fused_stream``) and n=128
+   classic, 30 ticks (``block_loop``): every checksum of every tick equal,
+   converged at the end, the oracle's and the engine's walls printed apart
+   (cut from n=1024 for time: the oracle's host time grows as n^2); and
+   the live node (``live_path``): five node processes of the port through
+   ``TickCluster.create("live", 5)`` converge, one is killed, the four
+   survivors agree again and name the same owner for 100 keys.
+
    Last among the main paths, the static analysis (``analysis_path``):
    the nine prongs of ``ringpop_tpu_torch.analysis`` on the CPU (any
    finding fails the run), then the host-read audit on the card, each
@@ -1988,6 +2000,118 @@ def tick_cluster_headline(n_sim: int = N_HEAD, n_scalable: int = 100_000, device
                                      display=sc.format_groups().splitlines()[-1].strip())
     out["seconds"] = time.perf_counter() - t0
     print("tick_cluster %s" % json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the port's parity oracle on the card, and the live node
+#
+# The oracle (parity/oracle.py) is host code by nature: one host Membership a
+# node, hashed with the C++ FarmHash; the card runs only the engine held
+# against it.  Its host time grows about as n^2, so the paths are cut from
+# the headline n=1024 (a run of its own, ``python -m
+# ringpop_tpu_torch.parity.check -n 1024 --ticks 40``) to n=256 fused and
+# n=128 classic, for the script's time limit.
+
+PARITY_N, PARITY_TICKS = 256, 40
+PARITY_CLASSIC_N, PARITY_CLASSIC_TICKS = 128, 30
+LIVE_N, LIVE_BASE_PORT, LIVE_KEYS = 5, 47300, 100
+
+
+def _wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from ringpop_tpu_torch.ops import block_loop, exchange, fused_apply, fused_piggyback, stream_hash
+
+    return {"apply_updates": fused_apply.apply_updates,
+            "pb_budget": fused_piggyback.pb_budget,
+            "fused_stream": stream_hash.fused_stream,
+            "exchange": exchange.exchange,
+            "block_loop": block_loop.block_loop}
+
+
+def _kernel_counts() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
+
+
+def _parity_run(label: str, n: int, ticks: int, device="cuda", **knobs) -> dict:
+    """``parity.check``'s lockstep loop on the card: the port's farmhash
+    ``SimCluster`` on ``cuda`` against the port's ``OracleCluster`` on
+    ``parity_check.py``'s schedule.  A mismatched tick raises."""
+    from ringpop_tpu_torch.models.sim import engine
+    from ringpop_tpu_torch.parity import check
+
+    t0 = time.perf_counter()
+    got = check.run_lockstep(engine.SimParams(n=n, checksum_mode="farmhash", **knobs), device,
+                             check.schedule(n, ticks, seed=0), seed=0, mismatch_log=sys.stderr)
+    got.update(wall_s=time.perf_counter() - t0, launches=_kernel_counts())
+    print("parity %s %s" % (label, json.dumps(got)), flush=True)
+    if got["mismatched_ticks"]:
+        raise AssertionError("parity %s: %d of %d ticks differ from the oracle"
+                             % (label, got["mismatched_ticks"], ticks))
+    if not got["converged_at_end"]:
+        raise AssertionError("parity %s: not converged at the end" % label)
+    return got
+
+
+def parity_fused_path() -> dict:
+    return _parity_run("fused n=%d" % PARITY_N, PARITY_N, PARITY_TICKS)
+
+
+def parity_classic_path() -> dict:
+    return _parity_run("classic n=%d" % PARITY_CLASSIC_N, PARITY_CLASSIC_N, PARITY_CLASSIC_TICKS,
+                       fused_tick="off", fused_checksum="off")
+
+
+def _live_wait(tc, done, limit_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < limit_s:
+        tc.tick()
+        if done():
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    raise AssertionError("live: %s not reached in %.0f s: %s" % (what, limit_s,
+                                                                 tc.format_groups()))
+
+
+def live_path(n: int = LIVE_N) -> dict:
+    """Five node processes of the port (``TickCluster.create("live")``,
+    host code: no tensor): converge to one checksum group, SIGKILL one, the
+    four survivors agree again with the dead node out of every ring, and
+    every survivor names the same owner for 100 keys.  No kernel."""
+    from ringpop_tpu_torch.api.tick_cluster import TickCluster
+
+    out = {"n": n}
+    t0 = time.perf_counter()
+    tc = TickCluster.create("live", n, base_port=LIVE_BASE_PORT)
+    try:
+        tc.start()
+        out["start_s"] = time.perf_counter() - t0
+        hosts = tc.backend.hosts
+        out["converge_s"] = _live_wait(
+            tc, lambda: tc.converged() and None not in tc.checksum_groups(), 60, "convergence")
+        dead = hosts[-1]
+        tc.backend.kill(n - 1)
+        survivors = hosts[:-1]
+
+        def reconverged():
+            groups = tc.checksum_groups()
+            if groups.get(None) != [dead] or not tc.converged():
+                return False
+            return all(dead not in tc.backend.client.admin_stats(h)["ring"] for h in survivors)
+
+        out["reconverge_s"] = _live_wait(tc, reconverged, 90, "reconvergence after the kill")
+        keys = ["key-%d" % i for i in range(LIVE_KEYS)]
+        owners = [[tc.backend.lookup(k, i) for k in keys] for i in range(n - 1)]
+        if any(o != owners[0] for o in owners) or dead in owners[0]:
+            raise AssertionError("live: the survivors disagree on key owners")
+        out.update(keys_agreed=len(keys), owners=len(set(owners[0])),
+                   display=tc.format_groups().splitlines()[-1].strip())
+    finally:
+        tc.destroy()
+    out["wall_s"] = time.perf_counter() - t0
+    if any(p is not None and p.poll() is None for p in tc.backend.procs.values()):
+        raise AssertionError("live: a node process outlived destroy()")
+    print("live %s" % json.dumps(out), flush=True)
     return out
 
 
@@ -4395,9 +4519,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         from ringpop_tpu_torch.ops import _build, toolkit
-        from ringpop_tpu_torch.ops import (
-            block_loop, exchange, fused_apply, fused_piggyback, stream_hash,
-        )
+        wrappers = _wrappers()
     except ImportError as e:
         print("chip_smoke: run from a checkout of the repo (%s)" % e, file=sys.stderr)
         return 2
@@ -4426,13 +4548,6 @@ def main(argv) -> int:
         phase()
         print("%s: %.1f s" % (phase.__name__, time.perf_counter() - t0), flush=True)
 
-    wrappers = {
-        "apply_updates": fused_apply.apply_updates,
-        "pb_budget": fused_piggyback.pb_budget,
-        "fused_stream": stream_hash.fused_stream,
-        "exchange": exchange.exchange,
-        "block_loop": block_loop.block_loop,
-    }
     # each main path and the kernels it must launch
     paths = (
         ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
@@ -4467,6 +4582,13 @@ def main(argv) -> int:
         # the batch axis: B clusters a tick, and the fuzz campaigns
         ("BatchedSimClusters n=1024", batched_paths, ("apply_updates", "pb_budget", "fused_stream")),
         ("fuzz sweeps", fuzz_throughput, ("apply_updates", "pb_budget")),
+        # the port's engine in lockstep with the port's host oracle
+        # (parity/oracle.py), fused and classic, and five live node processes
+        ("parity n=%d against the port's oracle" % PARITY_N, parity_fused_path,
+         ("apply_updates", "pb_budget", "fused_stream")),
+        ("parity n=%d classic against the port's oracle" % PARITY_CLASSIC_N, parity_classic_path,
+         ("block_loop",)),
+        ("live nodes", live_path, ()),
         # the static analysis on the tree, and the host-read audit of the
         # kernel paths on the card under set_sync_debug_mode("error")
         ("analysis", analysis_path,

@@ -18,6 +18,8 @@ from typing import Optional, Union
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: the card unless the caller passed

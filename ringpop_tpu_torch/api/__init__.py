@@ -1,1 +1,7 @@
-"""Operator-facing entry points of the port (the tick-cluster harness)."""
+"""Public API of the port: the tick-cluster harness over the port's
+engines, and the live node (the Ringpop facade, request proxy, sharding
+handler, server endpoints, admin client and CLI)."""
+
+from ringpop_tpu_torch.api.ringpop import Ringpop
+
+__all__ = ["Ringpop"]

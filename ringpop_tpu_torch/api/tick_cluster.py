@@ -1,21 +1,25 @@
 """tick-cluster: the operator harness (scripts/tick-cluster.js) on the
-port's engines.
+port's engines and live nodes.
 
 Counterpart of ``ringpop_tpu/api/tick_cluster.py``: the same
-:class:`TickCluster` command surface and convergence display over two
+:class:`TickCluster` command surface and convergence display over three
 backends,
 
+- ``live`` — N real node processes of the port
+  (``python -m ringpop_tpu_torch.api.cli``) on 127.0.0.1, driven through
+  their admin endpoints (the JAX harness's ``live`` backend's
+  counterpart).  A node is host code by the protocol's nature: it
+  allocates no tensor;
 - ``torch-sim`` — the full-fidelity engine's :class:`SimCluster` (the
   ``jax-sim`` backend's counterpart), lookups served from the port's
   device ring (``models/ring/device.py``) under the asking node's view;
 - ``torch-sim-scalable`` — the O(N·U) engine's :class:`ScalableCluster`
   for 100k-class clusters (``jax-sim-scalable``'s counterpart).
 
-The JAX harness's ``live`` backend spawns the JAX package's node
-processes, host code with nothing to port, so :meth:`TickCluster.create`
-refuses it by name.  The backends run on the card unless ``device="cpu"``
-is passed.  Run it as ``python3 -m ringpop_tpu_torch.api.tick_cluster
---backend torch-sim -n 10`` (``--device cpu`` without a card).
+The simulator backends run on the card unless ``device="cpu"`` is
+passed.  Run it as ``python3 -m ringpop_tpu_torch.api.tick_cluster
+--backend torch-sim -n 10`` (``--device cpu`` without a card) or
+``--backend live -n 5``.
 
 Commands (tick-cluster.js:249-330 key menu): ``tick`` runs one protocol
 period on every live node and prints the nodes grouped by membership
@@ -28,7 +32,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
+import subprocess
 import sys
+import tempfile
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -39,6 +48,8 @@ from ringpop_tpu_torch.ops import farmhash32, u32
 
 # a view-keyed ring cache holds at most this many sorted rings
 _RING_CACHE = 8
+# the checkout's root, put on a live node's PYTHONPATH
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def generate_hosts(path: str, n: int, base_port: int = 3000, host: str = "127.0.0.1") -> List[str]:
@@ -65,6 +76,137 @@ def _cached_ring(cache: dict, in_ring: np.ndarray, build):
             cache.pop(next(iter(cache)))
         cache[key] = got = build()
     return got
+
+
+class LiveBackend:
+    """N real node processes of the port on 127.0.0.1, driven through their
+    admin endpoints (the JAX harness's ``LiveBackend``)."""
+
+    def __init__(self, n: int, base_port: int = 3000, app: str = "ringpop",
+                 hosts_file: Optional[str] = None):
+        from ringpop_tpu_torch.api.client import RingpopClient
+
+        self.n = n
+        self.app = app
+        self._own_hosts_file = hosts_file is None
+        if hosts_file is None:
+            fd, hosts_file = tempfile.mkstemp(prefix="ringpop-hosts-", suffix=".json")
+            os.close(fd)
+        self.hosts_file = hosts_file
+        self.hosts = generate_hosts(hosts_file, n, base_port)
+        self.procs: Dict[str, Optional[subprocess.Popen]] = {}
+        self.suspended: Dict[str, bool] = {}
+        self.client = RingpopClient(timeout_s=5.0)
+
+    def start(self, startup_timeout_s: float = 30.0) -> None:
+        for hp in self.hosts:
+            self._spawn(hp)
+        # per-host deadline: nodes boot concurrently, so a slow first node
+        # must not consume the probe budget of the ones after it
+        for hp in self.hosts:
+            deadline = time.time() + startup_timeout_s
+            while True:
+                try:
+                    self.client.health(hp)
+                    break
+                except Exception:
+                    proc = self.procs.get(hp)
+                    if proc is not None and proc.poll() is not None:
+                        raise RuntimeError("node %s exited with %s" % (hp, proc.returncode))
+                    if time.time() >= deadline:
+                        raise RuntimeError("node %s never became healthy" % hp)
+                    time.sleep(0.1)
+
+    def _spawn(self, host_port: str) -> None:
+        env = dict(
+            os.environ,
+            PYTHONPATH=os.pathsep.join(
+                [p for p in (_PKG_ROOT, os.environ.get("PYTHONPATH")) if p]
+            ),
+        )
+        self.procs[host_port] = subprocess.Popen(
+            [sys.executable, "-m", "ringpop_tpu_torch.api.cli", "--listen", host_port,
+             "--hosts", self.hosts_file, "--app", self.app, "--quiet"],
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+        self.suspended[host_port] = False
+
+    # -- command surface --------------------------------------------------
+
+    def tick_all(self) -> Dict[str, Optional[int]]:
+        """One gossip period per live node; returns host -> checksum
+        (None = unreachable), the '/admin/tick' sweep
+        (tick-cluster.js:87-114)."""
+        out: Dict[str, Optional[int]] = {}
+        for hp in self.hosts:
+            try:
+                out[hp] = self.client.admin_gossip_tick(hp)["checksum"]
+            except Exception:
+                out[hp] = None
+        return out
+
+    def join_all(self) -> None:
+        for hp in self.hosts:
+            try:
+                self.client.admin_member_join(hp)
+            except Exception:
+                pass
+
+    def stats_all(self) -> Dict[str, Any]:
+        out = {}
+        for hp in self.hosts:
+            try:
+                out[hp] = self.client.admin_stats(hp)
+            except Exception:
+                out[hp] = None
+        return out
+
+    def lookup(self, key, node: int = 0) -> Optional[str]:
+        """Key owner per node ``node``'s ring (/admin/lookup)."""
+        return self.client.admin_lookup(self.hosts[node], str(key))["dest"]
+
+    def kill(self, i: int) -> None:
+        hp = self.hosts[i]
+        proc = self.procs.get(hp)
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(5.0)
+        self.procs[hp] = None
+
+    def suspend(self, i: int) -> None:
+        hp = self.hosts[i]
+        proc = self.procs.get(hp)
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGSTOP)
+            self.suspended[hp] = True
+
+    def revive(self, i: int) -> None:
+        """SIGCONT a suspended proc; respawn a killed one
+        (tick-cluster.js:417-429)."""
+        hp = self.hosts[i]
+        proc = self.procs.get(hp)
+        if proc is not None and self.suspended.get(hp):
+            proc.send_signal(signal.SIGCONT)
+            self.suspended[hp] = False
+        elif proc is None or proc.poll() is not None:
+            self._spawn(hp)
+
+    def destroy(self) -> None:
+        self.client.destroy()
+        for hp, proc in self.procs.items():
+            if proc is not None and proc.poll() is None:
+                if self.suspended.get(hp):
+                    proc.send_signal(signal.SIGCONT)
+                proc.terminate()
+        for proc in self.procs.values():
+            if proc is not None:
+                try:
+                    proc.wait(5.0)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(5.0)
+        if self._own_hosts_file and os.path.exists(self.hosts_file):
+            os.unlink(self.hosts_file)
 
 
 class TorchSimBackend:
@@ -239,7 +381,7 @@ class TorchScalableBackend:
         pass
 
 
-BACKENDS = ("torch-sim", "torch-sim-scalable")
+BACKENDS = ("live", "torch-sim", "torch-sim-scalable")
 
 
 class TickCluster:
@@ -260,10 +402,7 @@ class TickCluster:
             kw.pop("base_port", None)  # integer-id universe: no ports
             return TickCluster(TorchScalableBackend(n, **kw))
         if backend == "live":
-            raise ValueError(
-                "the live backend spawns the JAX package's node processes (host code, "
-                "not ported): run ringpop_tpu.api.tick_cluster --backend live"
-            )
+            return TickCluster(LiveBackend(n, **kw))
         raise ValueError("unknown backend %r (%s)" % (backend, " | ".join(BACKENDS)))
 
     def start(self) -> None:
@@ -370,11 +509,12 @@ class TickCluster:
 def main(argv=None, stdin=None, stdout=None) -> int:
     p = argparse.ArgumentParser(
         prog="tick-cluster",
-        description="ringpop cluster harness (scripts/tick-cluster.js) on the PyTorch engines",
+        description="ringpop cluster harness (scripts/tick-cluster.js) on the port",
     )
     p.add_argument("-n", type=int, default=5, help="number of nodes")
     p.add_argument("--backend", choices=BACKENDS, default="torch-sim")
-    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu, for the simulator backends")
     p.add_argument("--base-port", type=int, default=3000)
     p.add_argument("--gen-hosts", metavar="PATH",
                    help="only write a hosts.json and exit (scripts/generate-hosts.js)")
@@ -382,7 +522,10 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     if args.gen_hosts:
         print(json.dumps(generate_hosts(args.gen_hosts, args.n, args.base_port)), file=stdout)
         return 0
-    tc = TickCluster.create(args.backend, args.n, base_port=args.base_port, device=args.device)
+    kw: Dict[str, Any] = {"base_port": args.base_port}
+    if args.backend != "live":  # a live node holds no tensor
+        kw["device"] = args.device
+    tc = TickCluster.create(args.backend, args.n, **kw)
     try:
         tc.start()
         tc.interactive(stdin, stdout)

@@ -1,19 +1,17 @@
 """Prometheus text exposition (text format 0.0.4) of the simulation
 drivers' device telemetry and recorded runs.
 
-A copy of the device half of ``ringpop_tpu/obs/prometheus.py``: the
-minimal purpose-built writer (:class:`PromWriter`, with native histogram
+A copy of ``ringpop_tpu/obs/prometheus.py``: the minimal purpose-built
+writer (:class:`PromWriter`, with native histogram
 families over the log2 buckets of ``ops.histogram``),
 :func:`render_device_histograms` (a drained ``[tracks, NBUCKETS]`` bank),
 :func:`render_slo_plane` (an ``obs.slo.SLOWindowPlane``) and
 :func:`render_tick_series` (a stacked metrics series).  The bucket banks
 are read through ``obs.histograms.host_counts``, so the port's int32
-tensors of uint32 bits render as the JAX package's uint32 arrays do.
-
-Left out: the JAX module's ``render_ringpop_metrics``, the
-``/admin/metrics`` body of a live node, which reads a live ``Ringpop``
-facade (meters, membership, gossip stats).  That facade is host-only
-code of the JAX package with no device half, and the port has none.
+tensors of uint32 bits render as the JAX package's uint32 arrays do;
+and :func:`render_ringpop_metrics` (the ``/admin/metrics`` body of a
+live node, ``api/server.py``: meters, membership, ring, gossip and
+dissemination state of a ``Ringpop`` facade).
 """
 
 from __future__ import annotations
@@ -163,6 +161,159 @@ class PromWriter:
             lines.append("# TYPE %s %s" % (name, fam["type"]))
             lines.extend(fam["samples"])
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- recorded-run rendering ------------------------------------------------
+
+_COUNTERISH = (
+    "pings_sent",
+    "pings_delivered",
+    "ping_reqs",
+    "full_syncs",
+    "changes_applied",
+    "suspects_marked",
+    "faulties_marked",
+    "refutes",
+    "piggyback_drops",
+    "full_sync_records",
+    "ping_req_inconclusive",
+    "join_merges",
+    "parity_overflow",
+    "suspects_published",
+    "faulties_published",
+    "refutes_published",
+    "leaves_published",
+    "rumors_retired",
+    "dirty_rows",
+)
+
+
+def render_ringpop_metrics(ringpop: Any) -> str:
+    """The ``/admin/metrics`` body for a live node: meters, membership,
+    protocol histogram, ring and dissemination state."""
+    w = PromWriter()
+    labels = {"app": ringpop.app, "instance": ringpop.whoami()}
+
+    import time as _time
+
+    w.sample(
+        "ringpop_uptime_seconds",
+        (_time.time() - ringpop.start_time) if ringpop.start_time else 0.0,
+        "Seconds since bootstrap completed",
+        "gauge",
+        labels,
+    )
+    w.sample(
+        "ringpop_ready",
+        1 if ringpop.is_ready else 0,
+        "1 once bootstrap completed",
+        "gauge",
+        labels,
+    )
+
+    for plane, meter in (
+        ("client", ringpop.client_rate),
+        ("server", ringpop.server_rate),
+        ("total", ringpop.total_rate),
+    ):
+        d = meter.to_dict()
+        plane_labels = dict(labels, plane=plane)
+        w.sample(
+            "ringpop_requests_total",
+            d["count"],
+            "Requests seen per plane (index.js:158-160 meters)",
+            "counter",
+            plane_labels,
+        )
+        w.sample(
+            "ringpop_request_rate_1m",
+            d["m1"],
+            "1-minute EWMA request rate",
+            "gauge",
+            plane_labels,
+        )
+
+    membership = ringpop.membership
+    w.sample(
+        "ringpop_members",
+        len(membership.members),
+        "Known members in the membership list",
+        "gauge",
+        labels,
+    )
+    status_counts: Dict[str, int] = {}
+    for m in membership.members:
+        status_counts[m.status] = status_counts.get(m.status, 0) + 1
+    for status, count in sorted(status_counts.items()):
+        w.sample(
+            "ringpop_members_by_status",
+            count,
+            "Known members by SWIM status",
+            "gauge",
+            dict(labels, status=status),
+        )
+    if membership.checksum is not None:
+        w.sample(
+            "ringpop_membership_checksum",
+            membership.checksum,
+            "FarmHash32 membership checksum (membership/index.js:48-75)",
+            "gauge",
+            labels,
+        )
+
+    w.sample(
+        "ringpop_ring_servers",
+        len(ringpop.ring.servers),
+        "Servers currently on the consistent-hash ring",
+        "gauge",
+        labels,
+    )
+    if getattr(ringpop.ring, "checksum", None) is not None:
+        w.sample(
+            "ringpop_ring_checksum",
+            ringpop.ring.checksum,
+            "Checksum over sorted ring server names",
+            "gauge",
+            labels,
+        )
+
+    # protocol-period timing histogram (gossip/index.js:37,52-55)
+    proto = ringpop.gossip.get_stats()
+    timing = proto.get("protocolTiming") or {}
+    for q in ("p50", "p95", "p99"):
+        w.sample(
+            "ringpop_protocol_period_ms",
+            timing.get(q),
+            "Protocol period duration percentiles",
+            "gauge",
+            dict(labels, quantile=q),
+        )
+    w.sample(
+        "ringpop_protocol_periods_total",
+        proto.get("protocolPeriods"),
+        "Protocol periods completed",
+        "counter",
+        labels,
+    )
+    w.sample(
+        "ringpop_changes_disseminated_total",
+        proto.get("numChangesDisseminated"),
+        "Membership changes disseminated on gossip bodies",
+        "counter",
+        labels,
+    )
+
+    # dissemination pressure
+    dissemination = getattr(ringpop, "dissemination", None)
+    if dissemination is not None:
+        w.sample(
+            "ringpop_dissemination_changes",
+            len(getattr(dissemination, "changes", {}) or {}),
+            "Changes pending dissemination",
+            "gauge",
+            labels,
+        )
+    return w.render()
 
 
 # -- recorded-run rendering ------------------------------------------------

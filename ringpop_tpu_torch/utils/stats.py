@@ -1,10 +1,12 @@
 """Metrics primitives: EWMA meters and a sampling histogram.
 
-A copy of ``Meter``, ``Histogram`` and ``NullLogger`` from
-``ringpop_tpu/utils/stats.py`` (the run recorder folds per-tick metrics
-into the first two; the trace host, ``obs.sim_tap.SimTracerHost``, logs
-to the third unless given a logger); the port keeps its own copy so that
-it imports nothing of the JAX package.
+A copy of ``ringpop_tpu/utils/stats.py``: ``Meter`` and ``Histogram``
+(the run recorder folds per-tick metrics into them, and a live
+``Ringpop`` meters its request planes and times its protocol periods),
+``NullStatsd`` and ``CapturingStatsd`` (a live node's statsd client and
+its test double) and ``NullLogger`` (the trace host,
+``obs.sim_tap.SimTracerHost``, logs to it unless given a logger); the
+port keeps its own copy so that it imports nothing of the JAX package.
 
 The reference pulls these from the npm ``metrics`` package — Meters for
 client/server/total request rates (index.js:158-160) and a Histogram of
@@ -148,6 +150,35 @@ class Histogram:
             "p99": pct[0.99],
             "p999": pct[0.999],
         }
+
+
+class NullStatsd:
+    """No-op statsd client (lib/nulls.js analog)."""
+
+    def increment(self, key: str, value: int = 1) -> None:
+        pass
+
+    def gauge(self, key: str, value: Any) -> None:
+        pass
+
+    def timing(self, key: str, value: Any) -> None:
+        pass
+
+
+class CapturingStatsd:
+    """Test double recording every emission."""
+
+    def __init__(self):
+        self.records: List[tuple] = []
+
+    def increment(self, key: str, value: int = 1) -> None:
+        self.records.append(("increment", key, value))
+
+    def gauge(self, key: str, value: Any) -> None:
+        self.records.append(("gauge", key, value))
+
+    def timing(self, key: str, value: Any) -> None:
+        self.records.append(("timing", key, value))
 
 
 class NullLogger:

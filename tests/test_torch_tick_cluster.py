@@ -10,7 +10,8 @@ package on the CPU.
   test_tick_cluster.py's surface): the same command script gives the same
   snapshots, checksum groups, convergence displays, ``run_command``
   outputs and lookups, including a lookup whose owner died.
-- ``create`` refuses ``live`` by name; the CLI's ``main`` drives a session.
+- ``create`` builds ``live`` and refuses unknown backends; the CLI's
+  ``main`` drives a session.
 
 Tolerance: none.
 """
@@ -18,6 +19,7 @@ Tolerance: none.
 from __future__ import annotations
 
 import io
+import os
 import json
 
 import numpy as np
@@ -147,8 +149,13 @@ def test_sim_lookup_follows_views_and_dead_nodes_raise():
 
 
 def test_create_refuses_live_and_unknown_backends():
-    with pytest.raises(ValueError, match="live backend"):
-        ptc.TickCluster.create("live", 3)
+    # live is a backend of the port now (tests/test_torch_live.py runs it):
+    # create builds it without spawning a node, and destroy cleans up
+    live = ptc.TickCluster.create("live", 3, base_port=47100)
+    assert isinstance(live.backend, ptc.LiveBackend)
+    assert live.backend.hosts == ["127.0.0.1:%d" % p for p in (47100, 47101, 47102)]
+    live.destroy()
+    assert not os.path.exists(live.backend.hosts_file)
     with pytest.raises(ValueError, match="unknown backend"):
         ptc.TickCluster.create("jax-sim", 3)
     with pytest.raises(ValueError, match="caps interactive"):
