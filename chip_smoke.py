@@ -220,7 +220,7 @@ one also through ``key_averages``, which must agree).
    survivors agree again and name the same owner for 100 keys.
 
    Last among the main paths, the static analysis (``analysis_path``):
-   the nine prongs of ``ringpop_tpu_torch.analysis`` on the CPU (any
+   the ten prongs of ``ringpop_tpu_torch.analysis`` on the CPU (any
    finding fails the run), then the host-read audit on the card, each
    path under the op recorder,
    ``torch.cuda.set_sync_debug_mode("error")`` (any sync raises) and the
@@ -232,6 +232,23 @@ one also through ``key_averages``, which must agree).
    retrace probes on the card; and the gated n=1024 fast churn tick, whose
    ``_local_scalar_dense`` reads must be equal on the card, on the CPU
    and in ``tick_profile``'s count; one ``analysis`` line;
+
+   Then the operator tools (``tools_path``, ``ringpop_tpu_torch/tools/``):
+   ``export_parity_trajectory`` at n=1024 (42 ticks of the direct farmhash
+   tick: ``apply_updates``, ``pb_budget``, ``fused_stream``) equal field
+   for field, ``generator`` aside, to the committed
+   ``PARITY_TRAJECTORY.json``, every represented checksum re-derived with
+   the C++ FarmHash (``ops/native.py``) over ringpop-node's checksum
+   string; ``export_parity_replay`` fused and unfused (``block_loop``)
+   equal to ``PARITY_REPLAY.json`` snapshot for snapshot and re-derived
+   likewise; the flight sample's sidecar equal to the committed one, the
+   request sample's (``exchange``) equal to the same tool's CPU run, both
+   run logs schema-valid; ``fuzz_sweep replay`` of the committed fixtures
+   and a 64-seed sweep of each engine, clean; ``check_ckpt_manifest`` on
+   the ckpt phases' kept checkpoints (valid), a byte-flipped copy
+   (refused) and the routed family's repair scan; and the traffic gate's
+   2, 4 and 8-shard entries measured on the card against the manifest.
+   One ``tools <sub-path>`` line each, with its seconds and launches;
 
 7. prints the ``kernels`` JSON line (each kernel with its batched
    times), the card line, and last ``{"ok": true, "device": {...}}``.
@@ -2116,6 +2133,212 @@ def live_path(n: int = LIVE_N) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the operator tools (ringpop_tpu_torch/tools/, analysis/traffic.py) on the card
+
+
+def _reference_string(members) -> str:
+    """ringpop-node's generateChecksumString over [address, status,
+    incarnationNumber] triples: sorted by address, joined with ';'."""
+    return ";".join("%s%s%d" % (a, s, inc) for a, s, inc in sorted(members, key=lambda m: m[0]))
+
+
+def _json_same(got: dict, want: dict, label: str, skip=("generator",)) -> None:
+    got = json.loads(json.dumps(got))
+    if set(got) != set(want):
+        raise AssertionError("%s: keys %s against %s" % (label, sorted(got), sorted(want)))
+    for key in sorted(set(want) - set(skip)):
+        if got[key] != want[key]:
+            raise AssertionError("%s: field %r differs from the committed artifact" % (label, key))
+
+
+def _tools_sub(out: dict, name: str, run) -> None:
+    """One sub-path: its seconds and the launches it made, printed."""
+    k0 = _kernel_counts()
+    t0 = time.perf_counter()
+    got = run()
+    got["wall_s"] = time.perf_counter() - t0
+    got["launches"] = {k: v - k0[k] for k, v in _kernel_counts().items()}
+    out[name] = got
+    print("tools %s %s" % (name, json.dumps(got)), flush=True)
+
+
+def tools_path(device="cuda") -> dict:
+    """The operator tools on the card, each held to the JAX package's
+    committed artifacts or the port's CPU run:
+
+    (a) ``export_parity_trajectory`` at its defaults (n=1024, 42 ticks):
+        every field but ``generator`` equal to the committed
+        ``PARITY_TRAJECTORY.json``, and every represented checksum equal to
+        the C++ FarmHash (``ops/native.py``) of the reference string over
+        its view, as ``validate_trajectory.js`` checks it;
+    (b) ``export_parity_replay`` at its defaults, fused and unfused: every
+        snapshot equal to the committed ``PARITY_REPLAY.json``'s and
+        re-derived through ``ops/native.py``;
+    (c) ``export_flight_trace``: its sidecar's ``traceEvents`` equal the
+        committed ``runlogs/sample_flight_n64`` sidecar's;
+        ``export_request_trace``: its sidecar equal to the same tool's run
+        on the CPU (the committed request sidecar was made with JAX's
+        legacy threefry; the CPU tests hold the port's CPU run to the JAX
+        script's); both run logs pass ``check_metrics_schema``;
+    (d) ``fuzz_sweep replay`` of the committed fixtures and a 64-seed
+        ``sweep`` of each engine, all clean (exit 0, as on the CPU);
+    (e) ``check_ckpt_manifest`` on the n=4096 storm checkpoint of the ckpt
+        phase (valid) and a copy with one byte flipped (a digest error),
+        and ``--repair-scan`` of the routed 100k family (saved at 4, its
+        tick-6 save torn, the resumed run's 8: resume from 8, 6 corrupt);
+    (f) the traffic gate's three entries measured on the card: the manifest
+        diff clean."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from ringpop_tpu_torch.analysis import traffic
+    from ringpop_tpu_torch.ops import native
+    from ringpop_tpu_torch.tools import (check_ckpt_manifest, check_metrics_schema,
+                                         export_flight_trace, export_parity_replay,
+                                         export_parity_trajectory, export_request_trace,
+                                         fuzz_sweep, default_path)
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="tools_")
+    try:
+        def trajectory():
+            doc, walls = export_parity_trajectory.trajectory(device=device)
+            with open(default_path("PARITY_TRAJECTORY.json"), "w") as f:  # the card's artifact
+                json.dump(doc, f, separators=(",", ":"))
+            with open(os.path.join(HERE, "PARITY_TRAJECTORY.json")) as f:
+                want = json.load(f)
+            _json_same(doc, want, "trajectory n=1024")
+            t0 = time.perf_counter()
+            views = 0
+            for t in doc["ticks_data"]:
+                for g in t["groups"]:
+                    if "representative" in g:
+                        s = _reference_string(g["representative"]["members"])
+                        if native.hash32(s) != g["checksum"]:
+                            raise AssertionError("trajectory tick %d: %s's checksum is not the "
+                                                 "FarmHash of its view"
+                                                 % (t["tick"], g["representative"]["observer"]))
+                        views += 1
+            return dict(walls, ticks=len(doc["ticks_data"]), views_rederived=views,
+                        unrepresented=doc["unrepresented_group_nodes_total"],
+                        native_s=time.perf_counter() - t0, equal_to_committed=True)
+
+        _tools_sub(out, "parity_trajectory n=1024", trajectory)
+
+        def replay(fused):
+            def run():
+                doc, walls = export_parity_replay.replay(fused=fused, device=device)
+                with open(os.path.join(HERE, "PARITY_REPLAY.json")) as f:
+                    want = json.load(f)
+                _json_same(doc, want, "replay fused=%s" % fused, skip=("generator", "engine"))
+                for snap in doc["snapshots"]:
+                    members = [(m["address"], m["status"], m["incarnationNumber"])
+                               for m in snap["members"]]
+                    if native.hash32(_reference_string(members)) != snap["expected_checksum"]:
+                        raise AssertionError("replay tick %d %s: not the FarmHash of its view"
+                                             % (snap["tick"], snap["observer"]))
+                return dict(walls, snapshots=len(doc["snapshots"]), equal_to_committed=True)
+            return run
+
+        _tools_sub(out, "parity_replay fused", replay(True))
+        _tools_sub(out, "parity_replay unfused", replay(False))
+
+        def traces():
+            flight = export_flight_trace.export(os.path.join(work, "flight"), device=device)
+            with open(flight["sidecar"]) as f:
+                got = json.load(f)["traceEvents"]
+            with open(os.path.join(HERE, "runlogs", "sample_flight_n64.flight.trace.json")) as f:
+                if got != json.load(f)["traceEvents"]:
+                    raise AssertionError("flight sidecar differs from the committed sample")
+            card = export_request_trace.export(os.path.join(work, "req_card"), device=device)
+            cpu = export_request_trace.export(os.path.join(work, "req_cpu"), device="cpu")
+            with open(card["sidecar"]) as f, open(cpu["sidecar"]) as g:
+                if json.load(f)["traceEvents"] != json.load(g)["traceEvents"]:
+                    raise AssertionError("request sidecar: card differs from the CPU")
+            problems = check_metrics_schema.check(
+                [flight["runlog"], flight["sidecar"], card["runlog"], card["sidecar"]],
+                verbose=False)
+            if problems:
+                raise AssertionError("schema: %s" % problems[:4])
+            return dict(flight_events=flight["events"], requests=card["requests"],
+                        breaches=card["breaches"], flight_equal_to_committed=True,
+                        requests_card_equal_to_cpu=True, schema_problems=0)
+
+        _tools_sub(out, "sample traces", traces)
+
+        def fuzz():
+            fixtures = sorted(os.path.join(HERE, "tests", "fuzz", "fixtures", f)
+                              for f in os.listdir(os.path.join(HERE, "tests", "fuzz", "fixtures"))
+                              if f.endswith(".json"))
+            rcs, lines = {}, {}
+            for name, argv in (("replay", ["replay"] + fixtures),
+                               ("sweep full", ["sweep", "--engine", "full", "--seeds", "0:64"]),
+                               ("sweep scalable", ["sweep", "--engine", "scalable", "--seeds",
+                                                   "0:64"])):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rcs[name] = fuzz_sweep.main(argv + ["--device", device])
+                lines[name] = buf.getvalue().strip().splitlines()[-1]
+            if any(rcs.values()):
+                raise AssertionError("fuzz_sweep on the card: %s %s" % (rcs, lines))
+            return dict(rcs=rcs, last_lines=lines)
+
+        _tools_sub(out, "fuzz_sweep", fuzz)
+
+        def ckpts():
+            storm = KEPT_CKPTS.get("storm_n%d" % N_MID)
+            routed = KEPT_CKPTS.get("routed_n%d" % ROUTE_100K["n"])
+            if storm is None or routed is None:
+                raise AssertionError("the ckpt phases kept no checkpoint: %s" % sorted(KEPT_CKPTS))
+            found = check_ckpt_manifest.find_checkpoints([storm])
+            problems = check_ckpt_manifest.check(found, verbose=False)
+            if not found or problems:
+                raise AssertionError("check_ckpt_manifest on the storm's checkpoints: %s %s"
+                                     % (found, problems))
+            flipped = os.path.join(work, "flipped")
+            shutil.copytree(found[0], flipped)
+            target = os.path.join(flipped, "common.npz")
+            with open(target, "r+b") as f:
+                f.seek(os.path.getsize(target) // 2)
+                byte = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([byte[0] ^ 0xFF]))
+            bad = check_ckpt_manifest.check([flipped], verbose=False)
+            if len(bad) != 1 or "CheckpointDigestError" not in bad[0]:
+                raise AssertionError("the flipped copy was not refused: %s" % bad)
+            # the routed family: saved at 4, torn at 6, and the resumed run's 8
+            scan = check_ckpt_manifest.repair_scan(routed, verbose=False)
+            valid = sorted(t for t, _ in scan["valid"])
+            if (valid != [4, 8] or [c[0] for c in scan["corrupt"]] != [6]
+                    or "CheckpointTornError" not in scan["corrupt"][0][2]
+                    or scan["resume_from"][0] != 8):
+                raise AssertionError("repair scan of the routed family: %s" % scan)
+            return dict(valid=len(found), flipped=bad[0].split(": ")[1],
+                        routed_valid=valid, routed_corrupt=[c[0] for c in scan["corrupt"]],
+                        routed_resume_from=scan["resume_from"][0])
+
+        _tools_sub(out, "check_ckpt_manifest", ckpts)
+
+        def gate():
+            actual = traffic.collect_measurements(device=device)
+            found = (traffic.reconcile_findings(actual)
+                     + traffic.compare_to_manifest(actual, traffic.load_manifest()))
+            if found:
+                raise AssertionError("traffic gate on the card: %s" % [f.message for f in found])
+            return dict(entries={k: dict(measured=v["measured_interconnect"],
+                                         model=v["model_interconnect"], ratio=v["ratio"])
+                                 for k, v in actual.items()}, findings=0)
+
+        _tools_sub(out, "traffic gate", gate)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["card"] = _card_line()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the host obs layer: dispatch timers, the trace tap, the profiler harness,
 # the resolution gauges and the SLO plane around the card's runs
 
@@ -3105,8 +3328,23 @@ def check_ckpt_e2e(n=N_MID, ticks=40):
                     skipped=list(r.skipped_errors))
         print("ckpt crash harness on the card (n=64, 12 ticks, every=3): no violation %s"
               % json.dumps(reports), flush=True)
+        _keep_ckpts(os.path.join(root, "storm"), "storm_n%d" % n)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# checkpoint families the ckpt phases wrote, kept for the tools path's
+# check_ckpt_manifest (name -> directory; main removes them on its way out)
+KEPT_CKPTS = {}
+
+
+def _keep_ckpts(src: str, name: str) -> None:
+    import shutil
+    import tempfile
+
+    if "root" not in KEPT_CKPTS:
+        KEPT_CKPTS["root"] = tempfile.mkdtemp(prefix="kept_ckpts_")
+    KEPT_CKPTS[name] = shutil.move(src, os.path.join(KEPT_CKPTS["root"], name))
 
 
 def _kept_saves(mgr) -> list:
@@ -3269,6 +3507,7 @@ def _ckpt_routed_100k() -> dict:
                    resumed_tick=resumed, skipped=skipped, restore_wall_s=restore_wall,
                    ring_checksum="%#010x" % want_ring, bitwise_equal_to_twin=True)
         print("ckpt_routed %s" % json.dumps(out), flush=True)
+        _keep_ckpts(root, "routed_n%d" % n)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4250,7 +4489,7 @@ def _require_launches(wrappers, before: dict, names, label: str, dev) -> None:
 
 def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     """The static analysis (``ringpop_tpu_torch.analysis``) on the tree
-    and on the card: all nine prongs run on the CPU (any finding fails the
+    and on the card: all ten prongs run on the CPU (any finding fails the
     run; each prong's wall is printed); then the host-read audit on CUDA
     tensors, each path under the recorder, ``set_sync_debug_mode("error")``
     and the aliasing audit (no kernel result pointer equals an operand's):
@@ -4278,7 +4517,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     from ringpop_tpu_torch.ops import fused_piggyback, stream_hash
 
     from ringpop_tpu_torch.analysis import (
-        cost, donation, manifests, overflow, retrace, scale_budget,
+        cost, donation, manifests, overflow, retrace, scale_budget, traffic,
     )
     from ringpop_tpu_torch.models.sim import engine_scalable as es
     from ringpop_tpu_torch.models.sim.storm import ScalableCluster, StormSchedule
@@ -4295,6 +4534,8 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
         "cost": cost.check_against_manifest,
         "donation": donation.check_against_manifest,
         "retrace": retrace.check_against_manifest,
+        # on the CPU as the rest; the card's run is the tools path's (f)
+        "traffic": lambda: traffic.check_against_manifest(device="cpu"),
     }
     if set(runners) != set(prongs.ALL_PRONGS):
         raise AssertionError("prongs without a runner here: %s"
@@ -4303,7 +4544,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     found = []
     # the detailed recordings first: graph and noninterference reuse them
     order = ("ast", "overflow", "scale", "cost", "graph", "kernels", "noninterference",
-             "donation", "retrace")
+             "donation", "retrace", "traffic")
     for name in order:
         t0 = time.perf_counter()
         fs = runners[name]()
@@ -4511,6 +4752,16 @@ def check_sharded_sim_tiles(report: dict) -> None:
 
 
 def main(argv) -> int:
+    try:
+        return _run(argv)
+    finally:  # whatever path failed, and under --quick, where no tools path reads them
+        if "root" in KEPT_CKPTS:
+            import shutil
+
+            shutil.rmtree(KEPT_CKPTS.pop("root"), ignore_errors=True)
+
+
+def _run(argv) -> int:
     quick = "--quick" in argv
 
     if not torch.cuda.is_available():
@@ -4592,6 +4843,10 @@ def main(argv) -> int:
         # the static analysis on the tree, and the host-read audit of the
         # kernel paths on the card under set_sync_debug_mode("error")
         ("analysis", analysis_path,
+         ("apply_updates", "pb_budget", "fused_stream", "block_loop", "exchange")),
+        # the operator tools: the Node-parity artifacts from the card's kernels,
+        # the sample traces, fuzz, checkpoint and traffic gates
+        ("operator tools", tools_path,
          ("apply_updates", "pb_budget", "fused_stream", "block_loop", "exchange")),
     )
     launches = {k: 0 for k in wrappers}

@@ -2,7 +2,8 @@
 
 Runs the registered prongs (:mod:`ringpop_tpu_torch.analysis.prongs`)
 over ``ringpop_tpu_torch/`` on the CPU and exits non-zero on any
-unsuppressed finding.
+unsuppressed finding.  The opt-in ``traffic`` prong runs the shard mesh
+on ``--device``: the card unless ``--device cpu``.
 
 Examples::
 
@@ -13,10 +14,12 @@ Examples::
     python -m ringpop_tpu_torch.analysis --changed-only        # files git sees changed
     python -m ringpop_tpu_torch.analysis --list-rules
     python -m ringpop_tpu_torch.analysis --prong all           # the opt-in prongs too
+    python -m ringpop_tpu_torch.analysis --prong traffic --device cpu
     python -m ringpop_tpu_torch.analysis --prong scale --write # regenerate a manifest
     python -m ringpop_tpu_torch.analysis --prong cost --budget /tmp/COST.json
 
-The budget prongs (``scale``, ``cost``, ``donation``, ``retrace``) diff the
+The budget prongs (``scale``, ``cost``, ``donation``, ``retrace``,
+``traffic``) diff the
 manifests in ``analysis/budgets/``; ``--write`` regenerates the selected
 ones instead (and refuses an entry that failed), ``--budget`` names another
 manifest file for a single budget prong.
@@ -31,6 +34,7 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+from ringpop_tpu_torch import resolve_device
 from ringpop_tpu_torch.analysis import astlint, findings as fmod
 from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, BUDGET_PRONGS, DEFAULT_PRONGS, PRONGS
 
@@ -89,14 +93,18 @@ class _Stopwatch:
         self.seconds[self.name] = self.seconds.get(self.name, 0.0) + time.perf_counter() - self.t0
 
 
-def _write(names: List[str], path: Optional[Path]) -> int:
+def _write(names: List[str], path: Optional[Path], device: Optional[str]) -> int:
     """``--write``: measure and commit each named budget prong's manifest."""
-    from ringpop_tpu_torch.analysis import cost, donation, retrace, scale_budget
+    from ringpop_tpu_torch.analysis import cost, donation, retrace, scale_budget, traffic
 
+    if "traffic" in names:  # the card is asked for before any prong runs
+        device = resolve_device(device)
     prongs = {"scale": (scale_budget.collect_budgets, scale_budget.write_manifest),
               "cost": (cost.collect_costs, cost.write_manifest),
               "donation": (donation.collect, donation.write_manifest),
-              "retrace": (retrace.run_probes, retrace.write_manifest)}
+              "retrace": (retrace.run_probes, retrace.write_manifest),
+              "traffic": (lambda: traffic.collect_measurements(device=device),
+                          traffic.write_manifest)}
     for name in names:
         collect, write = prongs[name]
         try:
@@ -129,6 +137,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         % ", ".join(BUDGET_PRONGS))
     parser.add_argument("--budget", type=Path, default=None,
                         help="manifest file for a single budget prong (default: analysis/budgets/)")
+    parser.add_argument("--device", default=None,
+                        help="where the traffic prong runs the mesh: cuda (the default) or cpu; "
+                        "without a card, cpu must be asked for")
     args = parser.parse_args(argv)
 
     if args.list_rules:
@@ -162,7 +173,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.budget and len(budgets) != 1:
         parser.error("--budget names the manifest of one budget prong")
     if args.write:
-        return _write(budgets, args.budget)
+        return _write(budgets, args.budget, args.device)
 
     all_findings: List[fmod.Finding] = []
     prong_seconds: dict = {}
@@ -193,6 +204,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def in_scope(sources) -> bool:
         return scoped_rel is None or any(r.startswith(sources) for r in scoped_rel)
+
+    # the traffic prong's device, asked for before any prong runs
+    run_traffic = "traffic" in prongs and in_scope(_GRAPH_SOURCES + ("obs/",))
+    traffic_device = resolve_device(args.device) if run_traffic else None
 
     if "ast" in prongs:
         with _Stopwatch(prong_seconds, "ast"):
@@ -233,6 +248,13 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         with _Stopwatch(prong_seconds, "retrace"):
             all_findings.extend(retrace.check_against_manifest(path=args.budget))
+
+    if run_traffic:
+        from ringpop_tpu_torch.analysis import traffic
+
+        with _Stopwatch(prong_seconds, "traffic"):
+            all_findings.extend(traffic.check_against_manifest(path=args.budget,
+                                                               device=traffic_device))
 
     if "graph" in prongs and in_scope(_GRAPH_SOURCES):
         from ringpop_tpu_torch.analysis import graph_audit

@@ -1,6 +1,6 @@
 """The committed manifests of the port's budget prongs (``scale``,
-``cost``, ``donation``, ``retrace``): where they live and how each is read
-and written.  They sit in ``ringpop_tpu_torch/analysis/budgets/``, apart
+``cost``, ``donation``, ``retrace``, ``traffic``): where they live and how
+each is read and written.  They sit in ``ringpop_tpu_torch/analysis/budgets/``, apart
 from the JAX package's manifests at the repo root, and are regenerated by
 ``python -m ringpop_tpu_torch.analysis --prong <name> --write`` after an
 intended change (the manifest's diff is the review)."""

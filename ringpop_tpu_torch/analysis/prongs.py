@@ -7,12 +7,15 @@ table all derive from :data:`PRONGS` (tests/test_torch_analysis_cli.py
 pins the table and the CLI's dispatch against it).  Adding a prong means
 a :class:`ProngSpec` here plus its runner arm in ``__main__``.
 
-Nine prongs, the JAX package's set: ``overflow`` stands for JAX's
-``ranges`` interpreter and its consumer, ``graph`` for ``jaxpr``.  A prong
+Ten prongs, the JAX package's set: ``overflow`` stands for JAX's
+``ranges`` interpreter and its consumer, ``graph`` for ``jaxpr``, and
+``traffic`` for ``scripts/check_traffic_model.py``.  A prong
 whose full run alone on the tree takes under ~10 s on one core is in the
 default set (the wall of each, measured on an 8-core CPU sandbox, is
 beside its spec); the others are opt-in (``--prong all``
-runs every prong, and ``chip_smoke.py`` runs all nine).
+runs every prong, and ``chip_smoke.py`` runs all ten).  ``traffic`` is
+opt-in because it runs the shard mesh on a device (``--device``, the card
+unless ``cpu``), so the default set stays a CPU analysis.
 """
 
 from __future__ import annotations
@@ -135,11 +138,21 @@ PRONGS: Dict[str, ProngSpec] = {
             default=True,  # ~6 s
             ci="tests/test_torch_analysis_retrace.py",
         ),
+        ProngSpec(
+            name="traffic",
+            summary=(
+                "the shard mesh's measured exchange bytes against the traffic model "
+                "and budgets/TRAFFIC_BUDGET.json"
+            ),
+            rules=("traffic-budget", "traffic-failure"),
+            default=False,  # ~2 s, but on --device (the card unless cpu)
+            ci="tests/test_torch_tools.py",
+        ),
     )
 }
 
 # the prongs with a committed manifest (``--write``, ``--budget``)
-BUDGET_PRONGS = ("scale", "cost", "donation", "retrace")
+BUDGET_PRONGS = ("scale", "cost", "donation", "retrace", "traffic")
 
 DEFAULT_PRONGS = tuple(s.name for s in PRONGS.values() if s.default)
 ALL_PRONGS = tuple(PRONGS)

@@ -17,7 +17,7 @@ from ringpop_tpu_torch.analysis import __main__ as cli
 from ringpop_tpu_torch.analysis import astlint
 from ringpop_tpu_torch.analysis import graph_audit as ga
 from ringpop_tpu_torch.analysis import noninterference as ni
-from ringpop_tpu_torch.analysis import cost, dataflow, donation, manifests, retrace
+from ringpop_tpu_torch.analysis import cost, dataflow, donation, manifests, retrace, traffic
 from ringpop_tpu_torch.analysis import scale_budget as sb
 from ringpop_tpu_torch.analysis.prongs import ALL_PRONGS, BUDGET_PRONGS, DEFAULT_PRONGS, PRONGS
 from ringpop_tpu_torch.ops import toolkit
@@ -29,11 +29,12 @@ TABLE_ROW = re.compile(r"^\| port \| `([a-z]+)` \| (yes|opt-in) \| (.+) \|$", re
 
 def test_registry_shape():
     assert ALL_PRONGS == ("ast", "graph", "kernels", "noninterference", "overflow", "scale",
-                          "cost", "donation", "retrace")
+                          "cost", "donation", "retrace", "traffic")
     # the prongs that take over ~10 s alone on the tree are opt-in
+    # (traffic runs the mesh on a device, so the default set stays on the CPU)
     assert DEFAULT_PRONGS == ("ast", "graph", "kernels", "noninterference", "donation",
                               "retrace")
-    assert BUDGET_PRONGS == ("scale", "cost", "donation", "retrace")
+    assert BUDGET_PRONGS == ("scale", "cost", "donation", "retrace", "traffic")
     for spec in PRONGS.values():
         assert spec.rules and spec.summary and spec.ci
         for test in spec.ci.split(" + "):
@@ -293,10 +294,24 @@ def _retrace_mutation(rule, tmp_path, monkeypatch):
     return ["--prong", "retrace", "--budget", str(p)]
 
 
+def _traffic_mutation(rule, tmp_path, monkeypatch):
+    cfg = dict(traffic.MESH_CONFIGS[0])
+    if rule == "traffic-budget":  # the committed wire bytes doctored
+        doc = json.loads(json.dumps(traffic.load_manifest()))
+        doc["entries"][traffic.entry_name(cfg)]["measured_interconnect"] *= 3
+    else:  # a mesh that cannot split its nodes
+        cfg["n"] = 63
+        doc = {"version": 1, "entries": {}}
+    monkeypatch.setattr(traffic, "MESH_CONFIGS", (cfg,))
+    p = tmp_path / "t.json"
+    p.write_text(json.dumps(doc))
+    return ["--prong", "traffic", "--budget", str(p), "--device", "cpu"]
+
+
 MUTATIONS = {"ast": _ast_mutation, "graph": _graph_mutation, "kernels": _kernel_mutation,
              "noninterference": _ni_mutation, "overflow": _overflow_mutation,
              "scale": _scale_mutation, "cost": _cost_mutation, "donation": _donation_mutation,
-             "retrace": _retrace_mutation}
+             "retrace": _retrace_mutation, "traffic": _traffic_mutation}
 CASES = sorted(
     [("ast", r) for r in list(astlint.RULES_BY_NAME) + list(PRONGS["ast"].rules)]
     + [(p, r) for p in ALL_PRONGS if p != "ast" for r in PRONGS[p].rules]
@@ -315,8 +330,8 @@ def test_mutation_makes_the_cli_fail_and_name_the_rule(prong, rule, tmp_path, mo
 
 
 def test_every_prong_reports_nothing_on_the_tree(capsys):
-    """``--prong all``: the nine prongs, the four committed manifests."""
-    rc = cli.main(["--prong", "all", "--format", "json"])
+    """``--prong all``: the ten prongs, the five committed manifests."""
+    rc = cli.main(["--prong", "all", "--format", "json", "--device", "cpu"])
     doc = json.loads(capsys.readouterr().out)
     assert (rc, doc["count"]) == (0, 0), doc["findings"]
     assert set(doc["prong_seconds"]) == set(ALL_PRONGS)
