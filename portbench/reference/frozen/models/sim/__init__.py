@@ -1,0 +1,1 @@
+"""Frozen copy (see portbench/reference/frozen/__init__.py)."""
