@@ -231,7 +231,7 @@ one also through ``key_averages``, which must agree).
    and of a warm 1M storm tick against the ``scale`` polynomial; the
    retrace probes on the card; and the gated n=1024 fast churn tick, whose
    ``_local_scalar_dense`` reads must be equal on the card, on the CPU
-   and in ``tick_profile``'s count; one ``analysis`` line;
+   and in the program's ``host_read`` counter; one ``analysis`` line;
 
    Then the operator tools (``tools_path``, ``ringpop_tpu_torch/tools/``):
    ``export_parity_trajectory`` at n=1024 (42 ticks of the direct farmhash
@@ -4503,9 +4503,8 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     operands (nothing uploaded after the first step, no build, no new
     custom op; at most one library build in the whole script); and the
     gated n=1024 fast churn tick, whose ``_local_scalar_dense`` reads on
-    the card must equal the same tick's on the CPU and ``tick_profile``'s
-    count.  Prints one ``analysis`` line."""
-    from ringpop_tpu_torch import tick_profile
+    the card must equal the same tick's on the CPU and the program's own
+    count (``engine_scalable.host_read.count``).  Prints one ``analysis`` line."""
     from ringpop_tpu_torch.analysis import (
         astlint, dataflow, graph_audit, kernel_coverage, noninterference, prongs,
     )
@@ -4643,7 +4642,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
         straight=[p.name for p in retrace.DEFAULT_PROBES if p.straight],
         wall_s=time.perf_counter() - t0)
 
-    # the gated fast churn tick: card, CPU and the profiler's count
+    # the gated fast churn tick: card, CPU and the program's read counter
     params = engine.SimParams(n=n, checksum_mode="fast")
     sim = SimCluster(n=n, params=params, device=device)
     sim.bootstrap()
@@ -4654,12 +4653,12 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     sched.kill[0, n - 100 if n > 200 else n - 1] = True
     pre = sim.state
     rec = dataflow.Recorder(track=False)
+    reads0 = es.host_read.count
     with rec:
         sim.run(sched)
     torch.cuda.synchronize()
+    counted = es.host_read.count - reads0
     card_state = sim.state
-    sim.state = pre
-    prof = tick_profile._profiled(sim, sched)
     sim.state = pre
     cpu = SimCluster(n=n, params=params, device="cpu")
     cpu.state = states_to(pre, "cpu")
@@ -4669,11 +4668,11 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     if not torch.equal(cpu.state.checksum, card_state.checksum.cpu()):
         raise AssertionError("the gated tick's checksums differ, card against CPU")
     gated = dict(card_scalar_reads=rec.scalar_reads, cpu_scalar_reads=cpu_rec.scalar_reads,
-                 tick_profile_scalar_reads=prof["host_reads"], card_host_reads=rec.host_reads,
+                 host_read_count=counted, card_host_reads=rec.host_reads,
                  cpu_host_reads=cpu_rec.host_reads, card_ops=rec.n_ops, cpu_ops=cpu_rec.n_ops)
-    if not rec.scalar_reads == cpu_rec.scalar_reads == prof["host_reads"]:
-        raise AssertionError("gated tick host reads: card %d, CPU %d, tick_profile %d"
-                             % (rec.scalar_reads, cpu_rec.scalar_reads, prof["host_reads"]))
+    if not rec.scalar_reads == cpu_rec.scalar_reads == counted:
+        raise AssertionError("gated tick host reads: card %d, CPU %d, host_read.count %d"
+                             % (rec.scalar_reads, cpu_rec.scalar_reads, counted))
     entries["gated churn tick n=%d fast" % n] = gated
     del sim, cpu, pre, card_state
 

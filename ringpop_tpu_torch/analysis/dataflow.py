@@ -78,8 +78,9 @@ __all__ = [
 # reaches the finaliser only after c1 and c2 have tainted it.
 HASH_CONSTANTS = frozenset({0xCC9E2D51, 0x1B873593, 0xE6546B64})
 
-# ops that read a device value on the host (tick_profile.py counts the
-# first as ``aten::_local_scalar_dense``, one per gated phase)
+# ops that read a device value on the host (the first,
+# ``aten::_local_scalar_dense``, once per gated phase:
+# ``engine_scalable.host_read.count`` counts the same reads)
 HOST_READ_OPS = frozenset({
     "aten::_local_scalar_dense",
     "aten::item",

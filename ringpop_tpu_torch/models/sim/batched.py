@@ -35,6 +35,7 @@ from ringpop_tpu_torch.models.sim.cluster import (
     EventSchedule, _tick_at, default_addresses, metrics_to_numpy,
 )
 from ringpop_tpu_torch.obs import events as obs_events
+from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import u32
 
@@ -127,9 +128,10 @@ class BatchedSimClusters:
         self.recorder = None
 
     def _tick(self, state, inputs):
-        return vmap_tick(
-            lambda s, i: engine.tick(s, i, self.params, self.universe), state, inputs
-        )
+        with perf.span("batched.tick"):
+            return vmap_tick(
+                lambda s, i: engine.tick(s, i, self.params, self.universe), state, inputs
+            )
 
     def attach_recorder(self, recorder) -> None:
         """Attach an ``obs.recorder.RunRecorder``; bootstrap()/run() metrics
@@ -144,24 +146,31 @@ class BatchedSimClusters:
             join=torch.ones(self.n, dtype=torch.bool, device=self.device)
         )
         self.state, m = self._tick(self.state, inputs)
-        m = metrics_to_numpy(m)
+        with perf.span("batched.metrics_read"):
+            m = metrics_to_numpy(m)
         if self.recorder is not None:
             self.recorder.record_ticks(type(m)(*(a[None] for a in m)))
         return m
 
     def run(self, schedule: EventSchedule) -> engine.TickMetrics:
         """Step the same [T, N] event schedule through every cluster;
-        metrics come back [T, B]-shaped (numpy)."""
-        inputs = schedule.as_inputs(self.device)
-        rows = []
-        state = self.state
-        for t in range(schedule.ticks):
-            state, m = self._tick(state, _tick_at(inputs, t))
-            rows.append(m)
-        self.state = state
-        ms = metrics_to_numpy(engine.TickMetrics(
-            *(torch.stack([getattr(m, f) for m in rows]) for f in engine.TickMetrics._fields)
-        ))
+        metrics come back [T, B]-shaped (numpy).  The span log's
+        ``rows_dirty`` counts their ``dirty_rows``."""
+        with perf.span("batched.run"):
+            inputs = schedule.as_inputs(self.device)
+            rows = []
+            state = self.state
+            for t in range(schedule.ticks):
+                state, m = self._tick(state, _tick_at(inputs, t))
+                rows.append(m)
+            self.state = state
+            with perf.span("batched.metrics_read"):
+                ms = metrics_to_numpy(engine.TickMetrics(
+                    *(torch.stack([getattr(m, f) for m in rows])
+                      for f in engine.TickMetrics._fields)
+                ))
+        if perf.active() is not None:
+            perf.count("rows_dirty", int(ms.dirty_rows.sum(dtype=np.int64)))
         if self.recorder is not None:
             self.recorder.record_ticks(ms)
         return ms

@@ -51,6 +51,7 @@ from ringpop_tpu_torch.models.sim.recovery import CheckpointableMixin, Checkpoin
 from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
 from ringpop_tpu_torch.obs import events as obs_events
 from ringpop_tpu_torch.obs import histograms as oh
+from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import fused_checksum as fc
 from ringpop_tpu_torch.ops import histogram as hg
@@ -123,8 +124,10 @@ def _tick_at(inputs, t: int):
 
 
 def metrics_to_numpy(metrics):
-    """A metrics tuple (either engine's) with every field as numpy."""
-    return type(metrics)(*(x.to("cpu").numpy() for x in metrics))
+    """A metrics tuple (either engine's) with every field as numpy: a
+    blocking read, a ``wait`` span of the span log."""
+    with perf.span("wait"):
+        return type(metrics)(*(x.to("cpu").numpy() for x in metrics))
 
 
 def fixup_sim_state(

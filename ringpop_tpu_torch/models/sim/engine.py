@@ -63,6 +63,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import farmhash as fh
 from ringpop_tpu_torch.ops import fused_apply as fap
@@ -539,12 +540,23 @@ def compute_checksums(state: SimState, universe: ce.Universe, params: SimParams)
     return _hash_rows(state.known, state.status, state.inc, universe, params)
 
 
+def _count_hashed(lens: torch.Tensor, per_row: int = 1) -> None:
+    """Add the rows handed to the row hash (``per_row`` elements of
+    ``lens`` a row), every vmapped cluster included, to the span log's
+    ``rows_hashed``: read from shapes, no device read."""
+    if perf.active() is not None:
+        perf.count("rows_hashed", toolkit.unbatched(lens).numel() // per_row)
+
+
 def _hash_rows(known, status, inc, universe, params):
     """FarmHash32 of the checksum strings of the given view rows."""
-    bufs, lens = ce.membership_rows(
-        universe, known, status, stamp_to_ms(inc, params), max_digits=params.max_digits
-    )
-    return fh.hash32_rows(bufs, lens, impl=resolve_hash_impl(params, known.device.type))
+    with perf.span("checksum.encode"):
+        bufs, lens = ce.membership_rows(
+            universe, known, status, stamp_to_ms(inc, params), max_digits=params.max_digits
+        )
+    with perf.span("checksum.hash"):
+        _count_hashed(lens)
+        return fh.hash32_rows(bufs, lens, impl=resolve_hash_impl(params, known.device.type))
 
 
 def _rank(sh, count):
@@ -667,11 +679,15 @@ def _fused_checksums_where(sh, state, universe, params, dirty, cached, changed):
     if shape in ("auto", "gated"):
         shape = "full"  # the fused pipeline's only exact shape
     if shape == "full":
-        rec_b, rec_l = fc.member_records(
-            universe, state.known, state.status, stamp_to_ms(state.inc, params),
-            params.max_digits,
-        )
-        fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b), rec_l, impl=impl)
+        with perf.span("checksum.encode"):
+            rec_b, rec_l = fc.member_records(
+                universe, state.known, state.status, stamp_to_ms(state.inc, params),
+                params.max_digits,
+            )
+            words = fc.pack_record_words(rec_b)
+        with perf.span("checksum.hash"):
+            _count_hashed(rec_l, n)
+            fresh = fc.fused_hash_rows(words, rec_l, impl=impl)
         return fresh, no_overflow, state._replace(rec_bytes=rec_b, rec_len=rec_l)
     if shape != "bounded":
         raise ValueError("parity_recompute must be auto|bounded|full, got %r" % (shape,))
@@ -696,27 +712,33 @@ def _fused_checksums_where(sh, state, universe, params, dirty, cached, changed):
             cidx = torch.where(lane < _quota(n_changed, cbefore, cbatch), cidx, cells)
         crow = torch.div(cidx, n, rounding_mode="floor").clamp(0, rows - 1)
         ccol = (cidx % n).clamp(0, n - 1)
-        cell_b, cell_l = fc.member_records_at(
-            universe,
-            ccol,
-            state.status[crow, ccol],
-            stamp_to_ms(state.inc[crow, ccol], params),
-            state.known[crow, ccol],
-            params.max_digits,
-        )
-        rec_b = _scatter_rows_drop(state.rec_bytes.reshape(cells, r), cidx, cell_b).reshape(
-            rows, n, r)
-        rec_l = _scatter_rows_drop(state.rec_len.reshape(cells), cidx, cell_l).reshape(rows, n)
+        with perf.span("checksum.encode"):
+            cell_b, cell_l = fc.member_records_at(
+                universe,
+                ccol,
+                state.status[crow, ccol],
+                stamp_to_ms(state.inc[crow, ccol], params),
+                state.known[crow, ccol],
+                params.max_digits,
+            )
+            rec_b = _scatter_rows_drop(state.rec_bytes.reshape(cells, r), cidx,
+                                       cell_b).reshape(rows, n, r)
+            rec_l = _scatter_rows_drop(state.rec_len.reshape(cells), cidx,
+                                       cell_l).reshape(rows, n)
         cell_over = (c_total - cbatch).clamp(min=0)
 
         # 2. hash the dirty rows' cached records; k == n hashes every row
         # in natural order (rehashing a clean row is bit-neutral)
         if k == n:
-            fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b), rec_l, impl=impl)
+            with perf.span("checksum.hash"):
+                _count_hashed(rec_l, n)
+                fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b), rec_l, impl=impl)
             return torch.where(dirty, fresh, cached), cell_over, rec_b, rec_l
         idx = _nonzero_static(dirty, kl, 0)
         lane_ok = torch.arange(kl, dtype=i32, device=dev) < _quota(n_dirty, before, k)
-        fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b[idx]), rec_l[idx], impl=impl)
+        with perf.span("checksum.hash"):
+            _count_hashed(idx)
+            fresh = fc.fused_hash_rows(fc.pack_record_words(rec_b[idx]), rec_l[idx], impl=impl)
         tgt = torch.where(lane_ok, idx, rows)
         return _scatter_rows_drop(cached, tgt, fresh), cell_over, rec_b, rec_l
 
@@ -932,7 +954,9 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     # the histograms' suspicion-duration start (deadline - suspicion_ticks)
     prev_known, prev_status, prev_susp = state.known, state.status, state.susp_deadline
 
+    phase = perf.phases()  # one span a phase (obs.perf)
     # ---- phase 0: fault-injection plane -------------------------------
+    phase.next("fault")
     proc_alive = (state.proc_alive & ~inputs.kill) | inputs.revive
     if inputs.resume is not None:
         proc_alive = proc_alive | inputs.resume
@@ -963,6 +987,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     state = yield from _phase(gate, rv.any(), _revive_reset, lambda s: s, state)
 
     # ---- phase 0.5: graceful leave ------------------------------------
+    phase.next("leave")
     lv = zeros_n
     if inputs.leave is not None:
         self_status = _diag(state.status, lo)
@@ -1002,6 +1027,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     state = yield from _phase(gate, rejoin.any(), _rejoin_write, lambda s: s, state)
 
     # ---- phase 1: join/bootstrap --------------------------------------
+    phase.next("join")
     joiner = (inputs.join | rv) & state.proc_alive & ~state.ready
     # packed [R, ceil(N/32)] applied-cells accumulator (toolkit layout)
     union0 = _zeros((rows, toolkit.packed_width(n)), i32, dev) if ft_on else None
@@ -1125,6 +1151,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     sent_self_inc = _diag(state.inc, lo)
 
     # ---- phase 2: target selection (round-robin iterator) -------------
+    phase.next("target")
     participating = state.proc_alive & state.ready & state.gossip_on
     pingable = (
         state.known & ((state.status == ALIVE) | (state.status == SUSPECT)) & ~is_self
@@ -1172,6 +1199,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     valid_send = target >= 0
 
     # ---- phase 3: sender piggyback selection (issueAsSender) ----------
+    phase.next("piggyback")
     server_count = (
         state.known & ((state.status == ALIVE) | (state.status == SUSPECT))
     ).sum(dim=1, dtype=i32)
@@ -1196,6 +1224,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     )
 
     # ---- phase 4: delivery mask ---------------------------------------
+    phase.next("delivery")
     tclip = target.clamp(0, n - 1).to(torch.int64)
     loss = _uniform(state.rng, (rows,), salt=13) < params.packet_loss
     tgt_ok = valid_send & alive_all[tclip]
@@ -1203,6 +1232,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     delivered = valid_send & tgt_ok & conn & ~loss
 
     # ---- phase 5: receivers apply ping changes ------------------------
+    phase.next("receive")
     seg = torch.where(delivered, target, n)
     msg_content = sendable & delivered[:, None]
     deadline = tick_next + params.suspicion_ticks
@@ -1281,12 +1311,14 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     )
 
     # mid-tick checksums (receivers respond with post-update checksums)
+    phase.next("checksum.mid")
     mid_checksum, mid_overflow, state = yield from _checksums_where(
         sh, state, universe, params, dirty, state.checksum, changed_mid
     )
     mid_all = yield ("gather", mid_checksum)
 
     # ---- phase 6: responses (issueAsReceiver + full-sync) -------------
+    phase.next("respond")
     cur_self_inc = _diag(state.inc, lo)
     respondable_any = yield ("gather", respondable.any(dim=1))
     resp_possible = delivered & (
@@ -1330,6 +1362,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     fs_records = fs_rec_rows.sum(dtype=i32)
 
     # ---- phase 7: ping-req (indirect probe) ---------------------------
+    phase.next("ping_req")
     need_pr = valid_send & ~delivered
     K = params.ping_req_size
 
@@ -1526,6 +1559,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     pr_fs_records = pr_fs_recs.sum(dtype=i32)
 
     # ---- phase 8: suspicion expiry ------------------------------------
+    phase.next("expiry")
     def _expired(state):
         return (
             (state.susp_deadline >= 0)
@@ -1556,6 +1590,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     )
 
     # ---- phase 9: checksums + metrics ---------------------------------
+    phase.next("checksum")
     dirty_late = rows_resp | rows_pr | rows_faulty
     changed_late = (applied_resp | applied_pr | applied_faulty) if fused else None
     checksum, late_overflow, state = yield from _checksums_where(
@@ -1606,6 +1641,7 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         parity_overflow=mid_overflow + late_overflow,
         **totals,
     )
+    phase.end()
 
     # ---- flight recorder and latency histograms (obs planes) ----------
     # written after every protocol phase from the masks that drove them;

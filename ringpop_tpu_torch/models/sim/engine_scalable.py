@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch import resolve_device
+from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import exchange as _exchange
 from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import toolkit, u32
@@ -223,9 +224,11 @@ def _pow10(device) -> torch.Tensor:
 
 def host_read(pred) -> bool:
     """A device predicate read on the host: one device sync on the card.
-    ``host_read.count`` counts every read (the storm reports it per tick)."""
+    ``host_read.count`` counts every read (the storm reports it per tick);
+    the read is a ``wait`` span inside the span of its site."""
     host_read.count += 1
-    return bool(pred)
+    with perf.span("wait"):
+        return bool(pred)
 
 
 host_read.count = 0
@@ -277,7 +280,8 @@ def run_solo(body):
             reply = host_read(x)
         elif op == "counts":
             host_read.count += 1
-            reply = [int(x)]
+            with perf.span("wait"):
+                reply = [int(x)]
         elif op == "mean":
             reply = _xla_mean_f32(x)
         elif op == "fetch":
@@ -433,14 +437,15 @@ def _prp_walk_rows(key: torch.Tensor, ids: torch.Tensor, n: int, salt: int, inve
     generator), cycle-walked back into range: each step of the walk reads
     whether any value, of any row and any shard, is still out of range —
     one agreed host read a step."""
-    hb = _prp_half_bits(n)
-    keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
-    x = _prp_apply(ids, keys, hb, inverse)
-    while True:
-        out = u32.uge(x, n)
-        if not (yield ("pred", out.any())):
-            return x
-        x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
+    with perf.span("prp_walk"):
+        hb = _prp_half_bits(n)
+        keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
+        x = _prp_apply(ids, keys, hb, inverse)
+        while True:
+            out = u32.uge(x, n)
+            if not (yield ("pred", out.any())):
+                return x
+            x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
 
 
 def _prp_walk(key: torch.Tensor, n: int, salt: int, inverse: bool) -> torch.Tensor:
@@ -879,7 +884,9 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     def take(x, idx):
         return x.index_select(0, idx)
 
+    phase = perf.phases()  # one span a phase (obs.perf)
     # ---- fault plane ---------------------------------------------------
+    phase.next("fault")
     revived = inputs.revive & ~state.proc_alive
     rejoined = inputs.revive & state.proc_alive & ~state.gossip_on
     proc_alive = (state.proc_alive & ~inputs.kill) | inputs.revive
@@ -915,6 +922,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     alive_all = yield ("gather", proc_alive)
 
     # ---- rumor aging + slot recycling ----------------------------------
+    phase.next("aging")
     live_count = yield ("sum", proc_alive.sum(dtype=torch.int64))
     pow10 = _pow10(dev)
     digits = (live_count >= pow10).sum(dtype=torch.int32)
@@ -950,6 +958,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
 
     # ---- gossip exchange: push-pull over K random pairings -------------
+    phase.next("exchange")
     # the K rounds' pairings are rotations of one fresh base permutation
     k_total = 1 + params.ping_req_size
     perm_impl = resolve_perm_impl(params, dev.type)
@@ -1090,6 +1099,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     state = state._replace(heard=new_heard)
 
     # ---- failure detection: suspect batch ------------------------------
+    phase.next("suspect")
     # cancel clocks whose subject is no longer suspect in truth
     truth_all = yield ("gather", state.truth_status)
     cancel = (state.susp_subject >= 0) & (
@@ -1129,6 +1139,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
 
     # ---- suspicion expiry: faulty batch --------------------------------
+    phase.next("expiry")
     expire = (
         (state.susp_since >= 0)
         & (t - state.susp_since >= params.suspicion_ticks)
@@ -1161,6 +1172,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
 
     # ---- refute + rejoin: alive batch ----------------------------------
+    phase.next("refute")
     # a live node that heard the rumor defaming it, and can reach its
     # representative defamer, re-asserts alive (member.js:76-81)
     ds = state.defame_slot
@@ -1186,6 +1198,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     )
 
     # ---- graceful leave: leave batch -----------------------------------
+    phase.next("leave")
     if inputs.leave is not None:
         if not params.enable_leave:
             raise ValueError(
@@ -1211,6 +1224,7 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
         n_leave = torch.zeros((), dtype=torch.int32, device=dev)
 
     # ---- checksums + metrics ------------------------------------------
+    phase.next("checksum")
     if params.checksum_in_tick:
         # every mutation applied its exact delta: csum == compute_checksums
         checksum = csum
@@ -1276,4 +1290,5 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
         ping_req_inconclusive=(yield ("sum", (direct_fail & ~any_responder).sum(dtype=torch.int32))),
         rumors_retired=retired.sum(dtype=torch.int32),
     )
+    phase.end()
     return state, metrics

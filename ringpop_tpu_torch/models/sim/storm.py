@@ -44,6 +44,7 @@ from ringpop_tpu_torch.models.sim.schedule import DeviceScheduleMixin
 from ringpop_tpu_torch.obs import events as obs_events
 from ringpop_tpu_torch.obs import exchange_stats as oxs
 from ringpop_tpu_torch.obs import histograms as oh
+from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import exchange as _exchange
 from ringpop_tpu_torch.ops import histogram as hg
 from ringpop_tpu_torch.ops import toolkit, u32
@@ -202,7 +203,8 @@ class ScalableCluster(CheckpointableMixin):
         )
 
     def _recorded(self, metrics):
-        metrics = metrics_to_numpy(metrics)
+        with perf.span("storm.metrics_read"):
+            metrics = metrics_to_numpy(metrics)
         if self.recorder is not None:
             self.recorder.record_ticks(metrics)
         return metrics
@@ -220,13 +222,15 @@ class ScalableCluster(CheckpointableMixin):
         """Loop the tick over the storm plan; returns ``[T]`` numpy metrics.
         With a checkpoint cadence on the run splits at the cadence lines
         (bitwise-neutral in state and metrics)."""
-        return self._run_chunked(schedule, self._run_window)
+        with perf.span("storm.run"):
+            return self._run_chunked(schedule, self._run_window)
 
     def _run_window(self, schedule: StormSchedule) -> es.ScalableMetrics:
         inputs = schedule.as_inputs(self.device)
         per_tick = []
         for t in range(schedule.ticks):
-            self.state, m = es.tick(self.state, _tick_at(inputs, t), self.params)
+            with perf.span("storm.tick"):
+                self.state, m = es.tick(self.state, _tick_at(inputs, t), self.params)
             per_tick.append(m)
         return self._recorded(es.ScalableMetrics(*(torch.stack(f) for f in zip(*per_tick))))
 
@@ -238,15 +242,17 @@ class ScalableCluster(CheckpointableMixin):
 
     def ring_checksum(self) -> int:
         """Rebuild the ring from current truth, return its digest."""
-        if self._replica_hashes is None:
-            self._replica_hashes = device_replica_hashes(
-                self.params.n, self.replica_points, self.device
-            )
-        # alive + suspect members stay in the ring
-        # (on_membership_event.js:106-134)
-        in_ring = self.state.proc_alive & (self.state.truth_status <= es.SUSPECT)
-        ring = build_ring(self._replica_hashes, in_ring)
-        return int(u32.to_numpy(ring_checksum(ring)))
+        with perf.span("storm.ring"):
+            if self._replica_hashes is None:
+                self._replica_hashes = device_replica_hashes(
+                    self.params.n, self.replica_points, self.device
+                )
+            # alive + suspect members stay in the ring
+            # (on_membership_event.js:106-134)
+            in_ring = self.state.proc_alive & (self.state.truth_status <= es.SUSPECT)
+            digest = ring_checksum(build_ring(self._replica_hashes, in_ring))
+            with perf.span("wait"):
+                return int(u32.to_numpy(digest))
 
     # -- latency histograms (ScalableParams.histograms) -------------------
 

@@ -14,6 +14,16 @@ wall-clock plane (device-side latency distributions live in
   that ``obs.chrome_trace.add_host_timeline`` merges into the flight
   trace.
 - :func:`timed_window` — the one warm-then-measure loop a bench shares.
+- The span log: :func:`span` and :func:`phases` mark the program's own
+  layers (driver calls, engine phases, host reads), :func:`count` adds to
+  a host-side counter, and :func:`tracing` installs a timer as the log
+  for a ``with`` block.  With no timer installed, ``span``/``phases``
+  return one shared no-op object and ``count`` returns at once: no clock
+  read, no allocation, no torch call.  A logged span holds its name,
+  start and end in Unix-epoch ns (the clock ``torch.profiler`` stamps
+  its records with), the index of its parent span and the shard body it
+  ran in (:attr:`DispatchTimer.body`, set by ``parallel.comm.lockstep``);
+  the log keeps every span until the timer is dropped.
 
 Three differences from the JAX module, forced by torch:
 
@@ -155,6 +165,15 @@ class DispatchTimer:
         # bounded so a long storm cannot grow the host timeline unboundedly
         self.spans: List[Tuple[str, float, float, bool]] = []
         self._keep_spans = keep_spans
+        # the span log (span/phases under tracing): [name, start_ns,
+        # end_ns, parent index or -1, shard body or None], epoch ns
+        self.log: List[list] = []
+        self.counters: Dict[str, int] = {}
+        # the shard body running (parallel.comm.lockstep); None outside a mesh
+        self.body: Optional[int] = None
+        self._stacks: Dict[Optional[int], List[int]] = {None: []}
+        self.epoch_offset_ns = time.time_ns() - time.perf_counter_ns()
+        self._birth_ns = time.perf_counter_ns() + self.epoch_offset_ns
 
     def _stats(self, name: str) -> PhaseStats:
         st = self.phases.get(name)
@@ -210,6 +229,36 @@ class DispatchTimer:
 
         return _Span()
 
+    # -- the span log -----------------------------------------------------
+
+    def open_span(self, name: str) -> int:
+        """Log a span that starts now; returns its index.  Its parent is
+        the innermost open span of the same shard body, or, for a body's
+        outermost span, the innermost open span outside every body: never
+        another body's span."""
+        stack = self._stacks.setdefault(self.body, [])
+        outer = stack or self._stacks[None]
+        index = len(self.log)
+        self.log.append([name, time.perf_counter_ns() + self.epoch_offset_ns, None,
+                         outer[-1] if outer else -1, self.body])
+        stack.append(index)
+        return index
+
+    def close_span(self, index: int) -> None:
+        """End span ``index`` now, with any span of its body still open
+        inside it (one a raised exception left open)."""
+        rec = self.log[index]
+        if rec[2] is not None:  # closed with a span around it
+            return
+        now = time.perf_counter_ns() + self.epoch_offset_ns
+        stack = self._stacks[rec[4]]
+        while stack:
+            inner = stack.pop()
+            if self.log[inner][2] is None:
+                self.log[inner][2] = now
+            if inner == index:
+                break
+
     # -- reporting --------------------------------------------------------
 
     def summary(self, qs: Sequence[float] = DEFAULT_QS) -> List[Dict[str, Any]]:
@@ -263,6 +312,22 @@ class DispatchTimer:
                     "args": {"compiled": compiled},
                 }
             )
+        # the span log, timed from the timer's birth as the spans above
+        # are with the default clock; a shard body's spans on their own row
+        for index, (name, t0, t1, parent, shard) in enumerate(self.log):
+            t1 = t0 if t1 is None else t1
+            events.append(
+                {
+                    "name": name,
+                    "ph": "X",
+                    "pid": pid,
+                    "tid": tid if shard is None else tid + 1 + shard,
+                    "ts": (t0 - self._birth_ns) / 1e3,
+                    "dur": max((t1 - t0) / 1e3, 1.0),
+                    "cat": "span",
+                    "args": {"span": index, "parent": parent, "shard": shard},
+                }
+            )
         return events
 
     # -- the load-bearing consumer ---------------------------------------
@@ -279,6 +344,109 @@ class DispatchTimer:
         if st is not None:
             p50 = percentiles_exact(st.warm_walls, (50,))["p50_ms"]
         return compute_protocol_delay(p50, min_period_ms)
+
+
+class _NoSpan:
+    """What :func:`span` and :func:`phases` return with no log installed:
+    its enter, exit, ``next`` and ``end`` do nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def next(self, name: str) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+# the timer :func:`tracing` installed: the one span log of the process
+_ACTIVE: Optional[DispatchTimer] = None
+
+
+class _Span:
+    __slots__ = ("_timer", "_name", "_index")
+
+    def __init__(self, timer: DispatchTimer, name: str):
+        self._timer, self._name = timer, name
+
+    def __enter__(self):
+        self._index = self._timer.open_span(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        self._timer.close_span(self._index)
+        return False
+
+
+class _Phases:
+    """The phases of a tick, one span each: ``next(name)`` ends the open
+    phase and opens ``name``; ``end()`` ends the last."""
+
+    __slots__ = ("_timer", "_index")
+
+    def __init__(self, timer: DispatchTimer):
+        self._timer, self._index = timer, None
+
+    def next(self, name: str) -> None:
+        self.end()
+        self._index = self._timer.open_span(name)
+
+    def end(self) -> None:
+        if self._index is not None:
+            self._timer.close_span(self._index)
+            self._index = None
+
+
+def active() -> Optional[DispatchTimer]:
+    """The installed span log, or None."""
+    return _ACTIVE
+
+
+def span(name: str):
+    """A context manager logging a span of the installed timer; the
+    shared no-op with none installed."""
+    timer = _ACTIVE
+    if timer is None:
+        return _NO_SPAN
+    return _Span(timer, name)
+
+
+def phases():
+    """The phase spans of one tick (:class:`_Phases`); the shared no-op
+    with no timer installed."""
+    timer = _ACTIVE
+    if timer is None:
+        return _NO_SPAN
+    return _Phases(timer)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the installed timer's counter ``name``."""
+    timer = _ACTIVE
+    if timer is not None:
+        timer.counters[name] = timer.counters.get(name, 0) + k
+
+
+@contextlib.contextmanager
+def tracing(timer: DispatchTimer):
+    """Install ``timer`` as the span log for a ``with`` block (the one
+    before it comes back after); the epoch offset of its clock is taken
+    here."""
+    global _ACTIVE
+    previous = _ACTIVE
+    timer.epoch_offset_ns = time.time_ns() - time.perf_counter_ns()
+    _ACTIVE = timer
+    try:
+        yield timer
+    finally:
+        _ACTIVE = previous
 
 
 def wrap_cluster(cluster, timer: Optional[DispatchTimer] = None) -> DispatchTimer:
@@ -357,9 +525,14 @@ def percentiles_exact(walls_s: Sequence[float], qs=DEFAULT_QS) -> Dict[str, floa
 __all__: List[str] = [
     "DispatchTimer",
     "PhaseStats",
+    "active",
+    "count",
     "fence",
     "percentiles_exact",
+    "phases",
+    "span",
     "stopwatch",
     "timed_window",
+    "tracing",
     "wrap_cluster",
 ]

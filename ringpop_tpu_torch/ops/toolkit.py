@@ -95,6 +95,14 @@ def is_batched(*tensors) -> bool:
     )
 
 
+def unbatched(t: torch.Tensor) -> torch.Tensor:
+    """The tensor under every ``torch.func.vmap`` level of ``t`` (``t``
+    itself outside vmap): its shape holds the batch axes too."""
+    while torch._C._functorch.is_batchedtensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
 def batch_front(t: Optional[torch.Tensor], dim: Optional[int], b: int) -> Optional[torch.Tensor]:
     """A vmap rule's operand with its batch axis first: ``[B, ...]``.  An
     operand that is not batched (``dim`` None) is expanded, a stride-0

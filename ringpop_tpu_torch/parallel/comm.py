@@ -30,29 +30,42 @@ from typing import List, Sequence
 import torch
 
 from ringpop_tpu_torch.models.sim.engine_scalable import host_read, sharded_mean_f32
+from ringpop_tpu_torch.obs import perf
 
 
 def lockstep(bodies: Sequence, comm: "MeshComm") -> List:
     """Run S shard bodies to their ends in lockstep; returns each body's
     return value, in shard order.  Raises if the bodies ask for different
-    collectives or do not all end together."""
+    collectives or do not all end together.  Under a span log each body's
+    spans are logged as its shard's (``DispatchTimer.body``); a combine's
+    host read is logged in shard 0's span of the site."""
+    log = perf.active()
+    outer = None if log is None else log.body
     replies = [None] * len(bodies)
-    while True:
-        reqs, ended = [], 0
-        for body, reply in zip(bodies, replies):
-            try:
-                reqs.append(body.send(reply))
-            except StopIteration as stop:
-                reqs.append(("end", stop.value))
-                ended += 1
-        ops = [r[0] for r in reqs]
-        if ended:
-            if ended != len(bodies):
-                raise RuntimeError("shards left the lockstep apart: %s" % (ops,))
-            return [r[1] for r in reqs]
-        if any(op != ops[0] for op in ops):
-            raise RuntimeError("shards out of lockstep: %s" % (ops,))
-        replies = comm.combine(ops[0], [r[1] for r in reqs])
+    try:
+        while True:
+            reqs, ended = [], 0
+            for shard, (body, reply) in enumerate(zip(bodies, replies)):
+                if log is not None:
+                    log.body = shard
+                try:
+                    reqs.append(body.send(reply))
+                except StopIteration as stop:
+                    reqs.append(("end", stop.value))
+                    ended += 1
+            ops = [r[0] for r in reqs]
+            if ended:
+                if ended != len(bodies):
+                    raise RuntimeError("shards left the lockstep apart: %s" % (ops,))
+                return [r[1] for r in reqs]
+            if any(op != ops[0] for op in ops):
+                raise RuntimeError("shards out of lockstep: %s" % (ops,))
+            if log is not None:
+                log.body = 0
+            replies = comm.combine(ops[0], [r[1] for r in reqs])
+    finally:
+        if log is not None:
+            log.body = outer
 
 
 class MeshComm:
