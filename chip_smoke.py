@@ -27,7 +27,9 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    ``block_loop`` at B=1024 and B=256 rows of the real
    n=1024 checksum strings (I=1843, as their word view, no copy) and at
    the ragged B=1000 with I in {1, 7} and zero trip counts, and
-   ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows;
+   ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows, and
+   ``member_records`` at the b32 ensemble's [32, 1024, 1024] cells, in the
+   sparse form, at n=1000 and 1001 and on a mixed-width universe;
    prints each kernel's two times, its plain version's time and its
    bounds (bytes or operations; for the two hash loops also the
    dependency chain of one row): ``device_ms``, the mean CUDA duration of
@@ -667,6 +669,83 @@ def check_block_loop(dev) -> dict:
     report["max_abs_err"] = err
     report["b256"] = out[256]
     return report
+
+
+def _record_cells(shape, seed, dev):
+    """(known, status, inc_ms) cells for the record kernel: every status,
+    a tenth absent, 13-digit epoch-ms incarnations, and in every 64th
+    cell one of 0, 10^k - 1 and 10^k for k < 19, 2^63 - 1 and -1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    size = int(np.prod(shape))
+    edge = np.asarray([0, -1, 2**63 - 1] + [10**k for k in range(19)]
+                      + [10**k - 1 for k in range(1, 19)], np.int64)
+    inc = rng.integers(10**12, 2 * 10**12, size)
+    inc[::64] = np.resize(edge, inc[::64].shape)
+    return (torch.as_tensor((rng.random(size) < 0.9).reshape(shape), device=dev),
+            torch.as_tensor(rng.integers(0, 4, size, dtype=np.int32).reshape(shape), device=dev),
+            torch.as_tensor(inc.reshape(shape), device=dev))
+
+
+def check_member_records(dev) -> dict:
+    """Phase 3, ``member_records``: the record kernel against its plain
+    version at the b32 ensemble's [32, 1024, 1024] cells, in the sparse
+    form (subjects of every member and out of range), at n = 1000 and 1001
+    and on a mixed-width universe (records of 23, 35, 36 and 41 bytes);
+    times at [32, 1024, 1024] beside the byte bound (known, status and
+    inc_ms read once, the records and lengths written once)."""
+    from ringpop_tpu_torch.models.sim.cluster import default_addresses
+    from ringpop_tpu_torch.ops import checksum_encode as ce
+    from ringpop_tpu_torch.ops import fused_checksum as fc
+
+    err = 0
+    for n, lead, digits in ((1000, (8,), (14,)), (1001, (8,), (14,)),
+                            (16, (37,), (1, 13, 14, 19))):
+        addrs = default_addresses(n) if n > 16 else (
+            ["127.0.0.1:%d" % (3000 + i) for i in range(13)] + ["a", "bb:1", "10.0.0.9:99"])
+        uni = ce.Universe.from_addresses(addrs)
+        present, status, inc = _record_cells(lead + (n, n) if n > 16 else lead + (n,), n, dev)
+        subject = torch.arange(present.numel(), device=dev).reshape(present.shape) % (n + 8) - 4
+        for d in digits:
+            err = max(err, _same(fc.member_records(uni, present, status, inc, d),
+                                 fc.member_records_plain(uni, present, status, inc, d),
+                                 "member_records n=%d digits=%d" % (n, d)))
+            err = max(err, _same(fc.member_records_at(uni, subject, status, inc, present, d),
+                                 fc.member_records_plain(uni, present, status, inc, d,
+                                                         subject=subject),
+                                 "member_records_at n=%d digits=%d" % (n, d)))
+    uni = ce.Universe.from_addresses(default_addresses(N_HEAD))
+    args = (uni, *_record_cells((32, N_HEAD, N_HEAD), 21, dev), 14)
+    got = fc.member_records(*args)
+    t0 = time.perf_counter()
+    want = fc.member_records_plain(*args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(err, _same(got, want, "member_records [32, 1024, 1024]"))
+    del want
+    sub = (args[1][0, :64], args[2][0, :64], args[3][0, :64])
+    subject = torch.arange(64 * N_HEAD, device=dev).reshape(64, N_HEAD) % (N_HEAD + 8) - 4
+    err = max(err, _same(fc.member_records_at(uni, subject, sub[1], sub[2], sub[0], 14),
+                         fc.member_records_plain(uni, *sub, 14, subject=subject),
+                         "member_records_at 64 x 1024 cells"))
+    print("member_records bitwise equal to its plain version at [32, 1024, 1024], n = 1000 and "
+          "1001 dense and sparse, and a mixed-width universe at 1, 13, 14 and 19 digits",
+          flush=True)
+    cells = got[1].numel()
+    r = dict(
+        _times(lambda: fc.member_records(*args), 10, "member_records_kernel"),
+        plain_ms=plain_s * 1e3,
+        # about 150 integer operations a record (address words, status,
+        # 13-14 digits at a multiply-high each); the bytes bound it
+        bound=_bound(_nbytes(args[1:4]) + _nbytes(got), 150.0 * cells),
+        cells=cells,
+        max_abs_err=err,
+    )
+    print("member_records [32, 1024, 1024]: device %.4f ms, call %.4f ms, plain %.4f ms, bound "
+          "%.4f ms (%s)" % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
+                            r["bound"][1]), flush=True)
+    return r
 
 
 def check_kernels(dev):
@@ -2037,13 +2116,15 @@ LIVE_N, LIVE_BASE_PORT, LIVE_KEYS = 5, 47300, 100
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from ringpop_tpu_torch.ops import block_loop, exchange, fused_apply, fused_piggyback, stream_hash
+    from ringpop_tpu_torch.ops import (block_loop, exchange, fused_apply, fused_checksum,
+                                       fused_piggyback, stream_hash)
 
     return {"apply_updates": fused_apply.apply_updates,
             "pb_budget": fused_piggyback.pb_budget,
             "fused_stream": stream_hash.fused_stream,
             "exchange": exchange.exchange,
-            "block_loop": block_loop.block_loop}
+            "block_loop": block_loop.block_loop,
+            "member_records": fused_checksum.member_records}
 
 
 def _kernel_counts() -> dict:
@@ -2434,14 +2515,9 @@ def obs_host_path(n: int = N_HEAD, n_mid: int = N_MID, device="cuda") -> dict:
     from ringpop_tpu_torch.obs.sim_tap import SimTracerHost
     from ringpop_tpu_torch.obs.statsd_bridge import StatsdBridge
     from ringpop_tpu_torch.ops import toolkit
-    from ringpop_tpu_torch.ops import (
-        block_loop, exchange, fused_apply, fused_piggyback, stream_hash,
-    )
     from ringpop_tpu_torch.utils.trace import Tracer
 
-    wrappers = {"apply_updates": fused_apply.apply_updates, "pb_budget": fused_piggyback.pb_budget,
-                "fused_stream": stream_hash.fused_stream, "exchange": exchange.exchange,
-                "block_loop": block_loop.block_loop}
+    wrappers = _wrappers()
     params = engine.SimParams(n=n, checksum_mode="farmhash", flight_recorder=True,
                               histograms=True, event_capacity=1 << 22)
     sim = SimCluster(n=n, params=params, device=device)
@@ -2672,7 +2748,7 @@ FUZZ_SCALABLE = dict(engine="scalable", n=32, ticks=24, loss_levels=(0.0, 0.05, 
 # the port's kernel modules and the kernel each one's batching rule launches
 RULE_MODULES = (("fused_apply", "apply_updates"), ("fused_piggyback", "pb_budget"),
                 ("stream_hash", "fused_stream"), ("block_loop", "block_loop"),
-                ("exchange", "exchange"))
+                ("exchange", "exchange"), ("fused_checksum", "member_records"))
 
 
 def _shape_key(x):
@@ -2732,6 +2808,7 @@ def _plain_clusters(kernel, args):
     from ringpop_tpu_torch.ops import block_loop as bl
     from ringpop_tpu_torch.ops import exchange as ex
     from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_checksum as fc
     from ringpop_tpu_torch.ops import fused_piggyback as fp
     from ringpop_tpu_torch.ops import stream_hash as sh
 
@@ -2745,6 +2822,9 @@ def _plain_clusters(kernel, args):
         return tuple(fp.pb_budget_plain(*args[:5], want_content=args[5]))
     if kernel == "exchange":
         return ex.exchange_plain(*args[:4], want_counts=args[4])
+    if kernel == "member_records":
+        present, status, inc_ms, subject, addr_pad, addr_len, _, max_digits = args
+        return fc._plain(addr_pad, addr_len, subject, present, status, inc_ms, max_digits)
     # the hash loops: rows are independent, so the B clusters' rows are
     # one plain call
     ops = args[0] if kernel == "fused_stream" else args
@@ -2828,16 +2908,19 @@ def check_batch_rules(dev) -> dict:
     B = 1 runs the first cluster of the B = 4 operands."""
     import numpy as np
 
+    from ringpop_tpu_torch.models.sim.cluster import default_addresses
     from ringpop_tpu_torch.ops import block_loop as bl
+    from ringpop_tpu_torch.ops import checksum_encode as ce
     from ringpop_tpu_torch.ops import exchange as ex
     from ringpop_tpu_torch.ops import fused_apply as fa
+    from ringpop_tpu_torch.ops import fused_checksum as fc
     from ringpop_tpu_torch.ops import fused_piggyback as fp
     from ringpop_tpu_torch.ops import stream_hash as sh
     from ringpop_tpu_torch.ops import u32
 
     top = max(BATCHES)
     report = {k: {} for k in ("apply_updates", "pb_budget", "fused_stream", "block_loop",
-                              "exchange")}
+                              "exchange", "member_records")}
 
     def run(name, call, plain_call, per, label, timed, rows_plain=None):
         want = (_rows_plain(rows_plain, per) if rows_plain is not None
@@ -2849,7 +2932,8 @@ def check_batch_rules(dev) -> dict:
             if timed:
                 report[name]["B=%d" % b] = r
 
-    mod = dict(apply_updates=fa, pb_budget=fp, fused_stream=sh, block_loop=bl, exchange=ex)
+    mod = dict(apply_updates=fa, pb_budget=fp, fused_stream=sh, block_loop=bl, exchange=ex,
+               member_records=fc)
     site = dict(want_masks=True, want_count=False, want_refute=True)
     counted = dict(want_masks=False, want_count=True, want_refute=False)
     for n in (N_HEAD, 1001):
@@ -2885,6 +2969,17 @@ def check_batch_rules(dev) -> dict:
         run("exchange", lambda a, c=counts: ex.exchange(*a, want_counts=c),
             lambda a, c=counts: ex.exchange_plain(*a, want_counts=c), per,
             "N=100001 W=16 counts=%s" % counts, not counts)
+    # the record encode: each cluster's [N, N] view (the b32 tick's
+    # shape a cluster), and the sparse form on 4096 cells a cluster
+    uni = ce.Universe.from_addresses(default_addresses(N_HEAD))
+    per = [_record_cells((N_HEAD, N_HEAD), 90 + i, dev) for i in range(top)]
+    run("member_records", lambda a: fc.member_records(uni, *a, 14),
+        lambda a: fc.member_records_plain(uni, *a, 14), per, "N x N=1024", True)
+    per = [_record_cells((4096,), 95 + i, dev)
+           + (torch.arange(4096, device=dev) * (7 + i) % (N_HEAD + 8) - 4,) for i in range(top)]
+    run("member_records", lambda a: fc.member_records_at(uni, a[3], a[1], a[2], a[0], 14),
+        lambda a: fc.member_records_plain(uni, *a[:3], 14, subject=a[3]), per,
+        "4096 sparse cells", False)
     for name, cases in report.items():
         print("%s batched: %s" % (name, ", ".join(
             "%s device %.4f ms call %.4f ms bound %.4f ms" % (k, v["device_ms"], v["call_ms"],
@@ -4512,8 +4607,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
     from ringpop_tpu_torch.models.sim import batched, engine
     from ringpop_tpu_torch.models.sim.cluster import EventSchedule, SimCluster
     from ringpop_tpu_torch.models.sim.recovery import states_to
-    from ringpop_tpu_torch.ops import block_loop, exchange, farmhash, fused_apply
-    from ringpop_tpu_torch.ops import fused_piggyback, stream_hash
+    from ringpop_tpu_torch.ops import exchange, farmhash
 
     from ringpop_tpu_torch.analysis import (
         cost, donation, manifests, overflow, retrace, scale_budget, traffic,
@@ -4561,9 +4655,7 @@ def analysis_path(n: int = N_HEAD, device="cuda") -> dict:
         raise AssertionError("the scale budget %d exceeds the card's %d bytes"
                              % (budget["hbm_budget_bytes"], budget["total_memory"]))
 
-    wrappers = {"apply_updates": fused_apply.apply_updates, "pb_budget": fused_piggyback.pb_budget,
-                "fused_stream": stream_hash.fused_stream, "block_loop": block_loop.block_loop,
-                "exchange": exchange.exchange}
+    wrappers = _wrappers()
     k0 = {k: w.launches for k, w in wrappers.items()}
     dev = torch.device(device)
     entries = {}
@@ -4786,7 +4878,8 @@ def _run(argv) -> int:
     report = check_kernels(dev)
     report["exchange"] = check_exchange(dev)
     report["block_loop"] = check_block_loop(dev)
-    print("check_kernels, check_exchange, check_block_loop: %.1f s"
+    report["member_records"] = check_member_records(dev)
+    print("check_kernels, check_exchange, check_block_loop, check_member_records: %.1f s"
           % (time.perf_counter() - t0), flush=True)
     t0 = time.perf_counter()
     batch_report = check_batch_rules(dev)
@@ -4801,7 +4894,7 @@ def _run(argv) -> int:
     # each main path and the kernels it must launch
     paths = (
         ("SimCluster n=1024", lambda: [headline(m) for m in ("fast", "farmhash")],
-         ("apply_updates", "pb_budget", "fused_stream")),
+         ("apply_updates", "pb_budget", "fused_stream", "member_records")),
         # the full engine on a 4-shard mesh: each shard launches the kernels
         # on its own rows (and the classic bootstrap's block_loop, n=8192)
         ("SimCluster n=1024 on the shard mesh", sharded_sim_paths,
@@ -4830,7 +4923,8 @@ def _run(argv) -> int:
         ("obs host layer", obs_host_path,
          ("apply_updates", "pb_budget", "fused_stream", "exchange")),
         # the batch axis: B clusters a tick, and the fuzz campaigns
-        ("BatchedSimClusters n=1024", batched_paths, ("apply_updates", "pb_budget", "fused_stream")),
+        ("BatchedSimClusters n=1024", batched_paths,
+         ("apply_updates", "pb_budget", "fused_stream", "member_records")),
         ("fuzz sweeps", fuzz_throughput, ("apply_updates", "pb_budget")),
         # the port's engine in lockstep with the port's host oracle
         # (parity/oracle.py), fused and classic, and five live node processes

@@ -104,7 +104,8 @@ TRACED_ENTRIES: Dict[str, Set[str]] = {
     "ops/exchange.py": {"exchange", "exchange_plain", "exchange_local"},
     # the hash and checksum ops the ticks call across modules
     "ops/farmhash.py": {"hash32_rows"},
-    "ops/fused_checksum.py": {"membership_checksums"},
+    "ops/fused_checksum.py": {"membership_checksums", "member_records", "member_records_at",
+                              "member_records_plain"},
     "ops/checksum_encode.py": {"membership_rows"},
     "ops/histogram.py": {"record", "record_count"},
 }

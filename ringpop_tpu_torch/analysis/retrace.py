@@ -113,7 +113,7 @@ def run_probes(probes: Optional[Iterable[Probe]] = None, device="cpu",
                sync_error: bool = False) -> Dict[str, list]:
     """Run every probe; a broken one gives a single ``{"error": ...}`` step."""
     from ringpop_tpu_torch.ops import (  # noqa: F401  every custom op registered first
-        block_loop, exchange, fused_apply, fused_piggyback, stream_hash)
+        block_loop, exchange, fused_apply, fused_checksum, fused_piggyback, stream_hash)
 
     out: Dict[str, list] = {}
     for p in DEFAULT_PROBES if probes is None else probes:

@@ -42,6 +42,7 @@ ENTRY_POINTS = {
     "ringpop_fused_stream": (9, 3),
     "ringpop_exchange": (7, 8),
     "ringpop_block_loop": (8, 3),
+    "ringpop_member_records": (8, 4),
 }
 # how many of each entry point's pointers are operands it reads: the rest
 # are the results it writes (chip_smoke.py holds them apart: no result
@@ -52,6 +53,7 @@ READ_POINTERS = {
     "ringpop_fused_stream": 6,
     "ringpop_exchange": 4,
     "ringpop_block_loop": 5,
+    "ringpop_member_records": 6,
 }
 
 

@@ -5,7 +5,9 @@ Counterpart of ``ringpop_tpu/ops/fused_checksum.py``:
 
 1. **Record encode** (:func:`member_records` / :func:`member_records_at`):
    each member's ``addr + status + incarnation + ';'`` record is built
-   elementwise at record granularity.  A record only changes when its
+   at record granularity: on the card by one kernel,
+   ``csrc/member_records.cu`` (a thread a cell), on the CPU by its plain
+   version :func:`member_records_plain`.  A record only changes when its
    ``(known, status, incarnation)`` cell changes, so the engine caches the
    bytes per (observer, subject) and re-encodes only changed cells.
 2. **Fused assemble+hash** (:func:`fused_hash_rows`): the stream hash
@@ -22,16 +24,20 @@ from __future__ import annotations
 
 import functools
 import sys
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ringpop_tpu_torch.obs import perf
+from ringpop_tpu_torch.ops import _build, toolkit
 from ringpop_tpu_torch.ops import checksum_encode as ce
 from ringpop_tpu_torch.ops import farmhash as fh
 from ringpop_tpu_torch.ops import stream_hash, u32
 
 MAX_DIGITS = ce.MAX_DIGITS
+# the widest record the kernel takes: 32 words (its shared memory a block)
+MAX_RECORD_WORDS = 32
 
 
 def record_width(universe: ce.Universe, max_digits: int = MAX_DIGITS) -> int:
@@ -55,18 +61,17 @@ def _status_tables(device: torch.device):
 
 
 def _universe_tables(universe: ce.Universe, width: int, device: torch.device):
-    """(addr_pad [N, width] uint8, addr_len [N] int32) on ``device``,
-    built once per (universe, width, device)."""
+    """(addr_pad [N, width] uint8, addr_len [N] int32, addr_words
+    [N, ceil(width / 4)] int32: ``addr_pad``'s little-endian words) on
+    ``device``, built once per (universe, width, device)."""
     cache = universe.__dict__.setdefault("_port_tables", {})
     key = (width, str(device))
     got = cache.get(key)
     if got is None:
         addr_pad = np.zeros((universe.n, width), np.uint8)
         addr_pad[:, : universe.addr_width] = universe.addr_bytes
-        got = (
-            torch.as_tensor(addr_pad, device=device),
-            torch.as_tensor(universe.addr_len, device=device),
-        )
+        pad = torch.as_tensor(addr_pad, device=device)
+        got = (pad, torch.as_tensor(universe.addr_len, device=device), pack_record_words(pad))
         cache[key] = got
     return got
 
@@ -122,6 +127,36 @@ def _records_core(
     return out.to(torch.uint8), rec_len
 
 
+def _plain(addr_pad, addr_len, subject, present, status, inc_ms, max_digits):
+    """The plain encode from the universe tables: dense (``subject`` None:
+    member = last-axis index) or sparse (member = ``subject``, clamped)."""
+    width = addr_pad.shape[-1]
+    if subject is None:
+        lead = tuple(present.shape[:-1])
+        ap = addr_pad.expand(lead + tuple(addr_pad.shape))
+        al = addr_len.expand(lead + (addr_len.shape[0],))
+    else:
+        subj = subject.to(torch.int64).clamp(0, addr_len.shape[0] - 1)
+        ap, al = addr_pad[subj], addr_len[subj]
+    return _records_core(ap, al, status, inc_ms, present, max_digits, width)
+
+
+def member_records_plain(
+    universe: ce.Universe,
+    present: torch.Tensor,  # [..., N] bool ([...] with ``subject``)
+    status: torch.Tensor,  # int codes, present's shape
+    inc_ms: torch.Tensor,  # int64, present's shape
+    max_digits: int = MAX_DIGITS,
+    subject: Optional[torch.Tensor] = None,  # [...] member (universe) indices
+):
+    """Plain PyTorch version of :func:`member_records` (``subject`` None)
+    and :func:`member_records_at` (the cells' members in ``subject``): the
+    JAX encode's elementwise ops, on any device."""
+    width = record_width(universe, max_digits)
+    addr_pad, addr_len, _ = _universe_tables(universe, width, present.device)
+    return _plain(addr_pad, addr_len, subject, present, status, inc_ms, max_digits)
+
+
 def member_records(
     universe: ce.Universe,
     present: torch.Tensor,  # [..., N] bool
@@ -132,13 +167,12 @@ def member_records(
     """Dense per-member records for full rows (member = last-axis index).
 
     Returns ``(rec_bytes [..., N, R] uint8, rec_len [..., N] int32)``;
-    absent members have length 0 and all-zero bytes."""
-    width = record_width(universe, max_digits)
-    addr_pad, addr_len = _universe_tables(universe, width, present.device)
-    lead = tuple(present.shape[:-1])
-    ap = addr_pad.expand(lead + tuple(addr_pad.shape))
-    al = addr_len.expand(lead + (universe.n,))
-    return _records_core(ap, al, status, inc_ms, present, max_digits, width)
+    absent members have length 0 and all-zero bytes.  A CUDA tensor
+    launches ``csrc/member_records.cu``; a CPU tensor runs
+    :func:`member_records_plain`.  Inside ``torch.func.vmap`` the call goes
+    through the custom op ``ringpop_torch::member_records``, whose batching
+    rule encodes the cells of every cluster in one launch."""
+    return _records(universe, None, present, status, inc_ms, max_digits)
 
 
 def member_records_at(
@@ -150,13 +184,98 @@ def member_records_at(
     max_digits: int = MAX_DIGITS,
 ):
     """Sparse form: records for an arbitrary set of (subject, status,
-    incarnation) cells — the incremental cache-update path."""
+    incarnation) cells — the incremental cache-update path.  The same
+    kernel as :func:`member_records`, given the subjects."""
+    return _records(universe, subject, present, status, inc_ms, max_digits)
+
+
+def _records(universe, subject, present, status, inc_ms, max_digits):
     width = record_width(universe, max_digits)
-    addr_pad, addr_len = _universe_tables(universe, width, subject.device)
-    subj = subject.to(torch.int64).clamp(0, universe.n - 1)
-    return _records_core(
-        addr_pad[subj], addr_len[subj], status, inc_ms, present, max_digits, width
-    )
+    cells = (present, status, inc_ms, subject)
+    if perf.active() is not None:
+        # read from shapes, every vmapped cluster included: no device read
+        perf.count("cells_encoded", max(toolkit.unbatched(t).numel() for t in cells
+                                        if t is not None))
+    dev = toolkit.unbatched(present).device
+    tables = _universe_tables(universe, width, dev)
+    if toolkit.is_batched(*cells):
+        return tuple(_records_op(present, status, inc_ms, subject, *tables, max_digits))
+    return _clusters(present, status, inc_ms, subject, *tables, max_digits)
+
+
+def _clusters(present, status, inc_ms, subject, addr_pad, addr_len, addr_words, max_digits):
+    """One encode of any cell shape (one cluster's, or the batching rule's
+    ``[B, ...]`` clusters: the cells are independent), routed by device:
+    the plain version on the CPU, one kernel launch on the card."""
+    if present.device.type == "cpu":
+        return _plain(addr_pad, addr_len, subject, present, status, inc_ms, max_digits)
+    return _launch(present, status, inc_ms, subject, addr_len, addr_words, max_digits,
+                   addr_pad.shape[-1])
+
+
+def _launch(present, status, inc_ms, subject, addr_len, addr_words, max_digits, width):
+    dev = present.device
+    shape = tuple(present.shape)
+    n, rw = addr_words.shape
+    if subject is None and (not shape or shape[-1] != n):
+        raise ValueError("member_records: present has shape %s, expected [..., %d]" % (shape, n))
+    if rw > MAX_RECORD_WORDS or not 1 <= max_digits <= MAX_DIGITS:
+        raise ValueError("member_records: the kernel takes records of at most %d bytes and "
+                         "1..%d digits, got %d bytes and %d digits"
+                         % (4 * MAX_RECORD_WORDS, MAX_DIGITS, width, max_digits))
+    present = present.to(torch.bool).contiguous()
+    status = status.to(torch.int32).contiguous()
+    inc_ms = inc_ms.to(torch.int64).contiguous()
+    ops = [("present", present, torch.bool, shape), ("status", status, torch.int32, shape),
+           ("inc_ms", inc_ms, torch.int64, shape), ("addr_len", addr_len, torch.int32, (n,)),
+           ("addr_words", addr_words, torch.int32, (n, rw))]
+    if subject is not None:
+        subject = subject.to(torch.int64).contiguous()
+        ops.append(("subject", subject, torch.int64, shape))
+    _build.check("member_records", dev, ops)
+    rec_bytes = torch.empty(shape + (width,), dtype=torch.uint8, device=dev)
+    rec_len = torch.empty(shape, dtype=torch.int32, device=dev)
+    if present.numel() == 0:
+        return rec_bytes, rec_len
+    ptrs = [_build.ptr(t) for t in (present, status, inc_ms, subject, addr_words, addr_len,
+                                    rec_bytes, rec_len)]
+    _build.library().call("ringpop_member_records", dev, ptrs, present.numel(), n, width,
+                          max_digits)
+    member_records.launches += 1
+    return rec_bytes, rec_len
+
+
+member_records.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: the cells of B clusters in one launch
+
+
+@torch.library.custom_op(toolkit.LIB + "::member_records", mutates_args=())
+def _records_op(
+    present: torch.Tensor, status: torch.Tensor, inc_ms: torch.Tensor,
+    subject: Optional[torch.Tensor], addr_pad: torch.Tensor, addr_len: torch.Tensor,
+    addr_words: torch.Tensor, max_digits: int,
+) -> List[torch.Tensor]:
+    """One cluster's cells through the op (the wrapper calls it only inside
+    vmap, where the rule below runs instead)."""
+    return list(_clusters(present, status, inc_ms, subject, addr_pad, addr_len, addr_words,
+                          max_digits))
+
+
+def _records_rule(info, in_dims, present, status, inc_ms, subject, addr_pad, addr_len,
+                  addr_words, max_digits):
+    if any(d is not None for d in in_dims[4:7]):
+        raise ValueError("member_records: the universe tables are one for every cluster")
+    b = info.batch_size
+    cells = [toolkit.batch_front(t, d, b)
+             for t, d in zip((present, status, inc_ms, subject), in_dims[:4])]
+    out = _clusters(*cells, addr_pad, addr_len, addr_words, max_digits)
+    return list(out), [0, 0]
+
+
+torch.library.register_vmap(toolkit.LIB + "::member_records", _records_rule)
 
 
 def pack_record_words(rec_bytes: torch.Tensor) -> torch.Tensor:

@@ -103,6 +103,33 @@ def unbatched(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def leads_contiguous(t: torch.Tensor) -> bool:
+    """True when every ``torch.func.vmap`` level of ``t`` keeps its batch
+    axis first over contiguous storage: ``t``'s rows are then contiguous
+    in memory too, so a reinterpreting view of them is valid."""
+    while torch._C._functorch.is_batchedtensor(t):
+        if torch._C._functorch.maybe_get_bdim(t) != 0:
+            return False
+        t = torch._C._functorch.get_unwrapped(t)
+    return t.is_contiguous()
+
+
+def view_storage(t: torch.Tensor, fn):
+    """``fn`` (a view of the trailing axes, such as ``view(dtype)``) applied
+    to the storage under every ``torch.func.vmap`` level of ``t``, and the
+    result wrapped back at the same levels, batch axis first.  For a ``t``
+    of which :func:`leads_contiguous` holds: functorch has no batching
+    rule for some views (``view.dtype``)."""
+    levels = []
+    while torch._C._functorch.is_batchedtensor(t):
+        levels.append(torch._C._functorch.maybe_get_level(t))
+        t = torch._C._functorch.get_unwrapped(t)
+    out = fn(t)
+    for level in reversed(levels):
+        out = torch._C._functorch._add_batch_dim(out, 0, level)
+    return out
+
+
 def batch_front(t: Optional[torch.Tensor], dim: Optional[int], b: int) -> Optional[torch.Tensor]:
     """A vmap rule's operand with its batch axis first: ``[B, ...]``.  An
     operand that is not batched (``dim`` None) is expanded, a stride-0
@@ -152,7 +179,8 @@ class KernelTwin:
     ``plain_entry``: its plain PyTorch version in the same module;
     ``jax_entry``: the JAX function (``module:function``) the plain version
     is held against on the CPU; ``gate_test``: the test file doing that;
-    ``replaces``: the Pallas kernel's file:line; ``also_replaces``: other
+    ``replaces``: the Pallas kernel's file:line (for a kernel that replaces
+    none, the JAX function it stands in for); ``also_replaces``: other
     Pallas kernels the same CUDA kernel stands for; ``batch_gate_test``:
     the test holding the kernel's batching rule (the custom op
     ``torch.ops.ringpop_torch.<kernel_entry>``, which launches the kernel
@@ -216,5 +244,15 @@ TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
         "tests/test_torch_block_loop.py",
         "ringpop_tpu/ops/pallas_farmhash.py:36",
         ("ringpop_tpu/ops/pallas_farmhash.py:429",),
+    ),
+    # replaces no Pallas kernel: it stands in for XLA's elementwise encode
+    KernelTwin(
+        "fused_checksum",
+        "member_records",
+        "member_records_plain",
+        "ringpop_tpu_torch/csrc/member_records.cu",
+        "ringpop_tpu.ops.fused_checksum:member_records",
+        "tests/test_torch_hash.py",
+        "ringpop_tpu/ops/fused_checksum.py:113",
     ),
 )

@@ -75,9 +75,14 @@ def uge(a, b):
 
 def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
     """[..., 4k] uint8 -> [..., k] int32: little-endian words of the bytes
-    (contiguous, 4-byte aligned storage outside vmap)."""
+    (contiguous, 4-byte aligned storage outside vmap).  Inside
+    ``torch.func.vmap`` a tensor whose batch axes lead its contiguous
+    storage (a batching rule's output) is viewed as well; any other is
+    assembled from its bytes."""
     if not toolkit.is_batched(b):
         return b.contiguous().view(torch.int32)
+    if toolkit.leads_contiguous(b):
+        return toolkit.view_storage(b, lambda t: t.view(torch.int32))
     q = b.reshape(tuple(b.shape[:-1]) + (-1, 4)).to(torch.int64)
     return from_u64(q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24))
 

@@ -132,6 +132,46 @@ def test_member_records_and_packing_match_jax(max_digits):
     assert np.array_equal(pl2.numpy(), np.asarray(jl2))
 
 
+def _edge_incarnations():
+    """0, every digit count 1..19, the int64 extremes and negatives."""
+    vals = [0, 1, 9, 10, 2**63 - 1, -1, -7, -10, -(2**63)]
+    vals += [10**k for k in range(19)] + [10**k - 1 for k in range(1, 19)]
+    vals += [10**k + 7 for k in range(1, 19)]
+    return np.asarray(vals, np.int64)
+
+
+@pytest.mark.parametrize("max_digits", [1, 14, 19])
+def test_member_records_plain_matches_jax_on_edge_cells(max_digits):
+    """``member_records_plain`` (the record kernel's oracle) in both forms
+    against the JAX encode: every status code (and -1, which both tables
+    wrap to 3), incarnation 0, 1- to 19-digit values, values wider than
+    ``max_digits``, negatives, absent cells, addresses of unequal widths."""
+    uni_j, uni_p, _, _, _ = _views()
+    n = uni_j.n
+    vals = _edge_incarnations()
+    codes = np.asarray([0, 1, 2, 3, -1], np.int32)
+    inc = np.broadcast_to(vals[:, None], (len(vals), n)).copy()
+    status = codes[(np.arange(len(vals))[:, None] + np.arange(n)[None, :]) % len(codes)]
+    present = (np.arange(len(vals))[:, None] + 2 * np.arange(n)[None, :]) % 7 != 0
+    jb, jl = jfc.member_records(
+        uni_j, jnp.asarray(present), jnp.asarray(status), jnp.asarray(inc), max_digits
+    )
+    pb, pl = pfc.member_records_plain(
+        uni_p, torch.as_tensor(present), torch.as_tensor(status), torch.as_tensor(inc), max_digits
+    )
+    assert np.array_equal(pb.numpy(), np.asarray(jb))
+    assert np.array_equal(pl.numpy(), np.asarray(jl))
+    subj = np.random.default_rng(5).integers(0, n, inc.size).astype(np.int32)
+    flat = [a.reshape(-1) for a in (status, inc, present)]
+    jb2, jl2 = jfc.member_records_at(uni_j, *(jnp.asarray(a) for a in (subj, *flat)), max_digits)
+    pb2, pl2 = pfc.member_records_plain(
+        uni_p, torch.as_tensor(flat[2]), torch.as_tensor(flat[0]), torch.as_tensor(flat[1]),
+        max_digits, subject=torch.as_tensor(subj),
+    )
+    assert np.array_equal(pb2.numpy(), np.asarray(jb2))
+    assert np.array_equal(pl2.numpy(), np.asarray(jl2))
+
+
 def test_fused_stream_plain_matches_fused_stream_xla():
     uni_j, uni_p, present, status, inc = _views(4)
     jb, jl = jfc.member_records(uni_j, jnp.asarray(present), jnp.asarray(status), jnp.asarray(inc), 14)

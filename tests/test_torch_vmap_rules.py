@@ -27,9 +27,12 @@ import torch
 from torch.func import vmap
 
 from ringpop_tpu_torch.models.sim import engine_scalable as pes
+from ringpop_tpu_torch.models.sim.cluster import default_addresses
 from ringpop_tpu_torch.ops import block_loop as pbl
+from ringpop_tpu_torch.ops import checksum_encode as pce
 from ringpop_tpu_torch.ops import exchange as pex
 from ringpop_tpu_torch.ops import fused_apply as pfa
+from ringpop_tpu_torch.ops import fused_checksum as pfc
 from ringpop_tpu_torch.ops import fused_piggyback as pfp
 from ringpop_tpu_torch.ops import stream_hash as psh
 from ringpop_tpu_torch.ops import toolkit, u32
@@ -159,6 +162,61 @@ def test_fused_stream_rule_equals_stacked_plain():
                                       args[4][i], args[5][i])
         for g, w in zip(got, want):
             assert torch.equal(g[i], w)
+
+
+def _records_inputs(b, rows, n, seed, dev="cpu"):
+    """B clusters' (known, status, inc_ms) views of an n-node universe,
+    every status, 1- to 14-digit incarnations, and B x 40 sparse cells."""
+    rng = np.random.default_rng(seed)
+    shape = (b, rows, n)
+    present = torch.as_tensor(rng.random(shape) < 0.8, device=dev)
+    status = torch.as_tensor(rng.integers(0, 4, shape).astype(np.int32), device=dev)
+    inc = torch.as_tensor(10 ** rng.integers(0, 14, shape) + rng.integers(0, 9, shape),
+                          device=dev)
+    subject = torch.as_tensor(rng.integers(0, n, (b, 40)), device=dev)
+    return present, status, inc, subject
+
+
+def test_member_records_rule_equals_stacked_plain():
+    uni = pce.Universe.from_addresses(default_addresses(33))
+    present, status, inc, subject = _records_inputs(B, 5, uni.n, seed=16)
+    got = vmap(lambda p, s, i: pfc.member_records(uni, p, s, i, 14))(present, status, inc)
+    for i in range(B):
+        want = pfc.member_records_plain(uni, present[i], status[i], inc[i], 14)
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    # the sparse form, one cluster's statuses shared by every cluster
+    # (in_dims None)
+    cells = [t.reshape(B, -1)[:, :40] for t in (present, status, inc)]
+
+    def sparse(subj, p, i):
+        return pfc.member_records_at(uni, subj, cells[1][0], i, p, 14)
+
+    got = vmap(sparse)(subject, cells[0], cells[2])
+    for i in range(B):
+        want = pfc.member_records_plain(uni, cells[0][i], cells[1][0], cells[2][i], 14,
+                                        subject=subject[i])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.parametrize("layout", ["front", "moved", "nested"])
+def test_bytes_to_words_under_vmap_equals_per_cluster_words(layout):
+    """Record bytes whose batch axes lead contiguous storage (a batching
+    rule's output) are viewed as words under vmap; any other layout is
+    assembled from its bytes: the same words either way."""
+    rec = torch.as_tensor(np.random.default_rng(17).integers(0, 256, (B, 5, 36), dtype=np.uint8))
+    want = torch.stack([u32.bytes_to_words(rec[i]) for i in range(B)])
+    if layout == "front":
+        got = vmap(u32.bytes_to_words)(rec)
+        assert vmap(lambda t: torch.tensor(toolkit.leads_contiguous(t)))(rec).all()
+    elif layout == "moved":
+        moved = rec.transpose(0, 1).contiguous()
+        got = vmap(u32.bytes_to_words, in_dims=1)(moved)
+        assert not vmap(lambda t: torch.tensor(toolkit.leads_contiguous(t)), in_dims=1)(moved).any()
+    else:
+        got = vmap(vmap(u32.bytes_to_words))(rec.reshape(B, 5, 1, 36)).reshape(want.shape)
+    assert torch.equal(got, want)
 
 
 def _loop_inputs(b, rows, n_iter, seed, dev="cpu"):
@@ -360,6 +418,22 @@ def test_batched_launches_equal_single_launches_on_card(cuda_device):
         for i in range(4):
             for g, w in zip(got, plain(*(a[i] for a in args))):
                 assert torch.equal(g[i], w)
+    uni = pce.Universe.from_addresses(default_addresses(1001))
+    present, status, inc, subject = _records_inputs(4, 3, 1001, 16, dev)
+    before = pfc.member_records.launches
+    got = vmap(lambda p, s, i: pfc.member_records(uni, p, s, i, 14))(present, status, inc)
+    sparse = vmap(lambda su, p, s, i: pfc.member_records_at(uni, su, s, i, p, 14))(
+        subject, present[:, 0, :40], status[:, 0, :40], inc[:, 0, :40])
+    assert pfc.member_records.launches - before == 2
+    for i in range(4):
+        single = pfc.member_records(uni, present[i], status[i], inc[i], 14)
+        for g, s, w in zip(got, single, pfc.member_records_plain(uni, present[i], status[i],
+                                                                 inc[i], 14)):
+            assert torch.equal(g[i], s) and torch.equal(s, w)
+        want = pfc.member_records_plain(uni, present[i, 0, :40], status[i, 0, :40],
+                                        inc[i, 0, :40], 14, subject=subject[i])
+        for g, w in zip(sparse, want):
+            assert torch.equal(g[i], w)
     heard, pulled, pushed, delta = _exchange_inputs(4, 100_001, 16, 15, dev)
     before = pex.exchange.launches
     got = vmap(pex.exchange)(heard, pulled, pushed, delta)
