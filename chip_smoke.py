@@ -29,7 +29,9 @@ It imports ``torch`` and ``ringpop_tpu_torch`` (never JAX) and, in order:
    the ragged B=1000 with I in {1, 7} and zero trip counts, and
    ``hash32_rows`` (kernel vs plain) on the real n=1024 checksum rows, and
    ``member_records`` at the b32 ensemble's [32, 1024, 1024] cells, in the
-   sparse form, at n=1000 and 1001 and on a mixed-width universe;
+   sparse form, at n=1000 and 1001 and on a mixed-width universe, and
+   ``prp_walk`` at n = 1, 37, 1000, 100,000 and 1M, forward and inverse,
+   for four key sets and at a shard's ids;
    prints each kernel's two times, its plain version's time and its
    bounds (bytes or operations; for the two hash loops also the
    dependency chain of one row): ``device_ms``, the mean CUDA duration of
@@ -745,6 +747,60 @@ def check_member_records(dev) -> dict:
     print("member_records [32, 1024, 1024]: device %.4f ms, call %.4f ms, plain %.4f ms, bound "
           "%.4f ms (%s)" % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0],
                             r["bound"][1]), flush=True)
+    return r
+
+
+def check_prp_walk(dev) -> dict:
+    """Phase 3, ``prp_walk``: the walk kernel against its plain version,
+    forward and inverse, for four key sets and for one at a shard's ids, at
+    n = 1, 37, 1000, 100,000 (the lossy cell's: n / 4^9 = 0.38) and 1M (the
+    storm's); times at 100,000 beside its bound (the ids read and the
+    values written once, about 40 operations a pass of the mean 4^hb / n
+    passes a value)."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import prp_walk as pw
+
+    rng = np.random.default_rng(23)
+
+    def key_sets(shape):
+        return torch.as_tensor(rng.integers(0, 2**32, shape, dtype=np.uint32).view(np.int32),
+                               device=dev)
+
+    err = 0
+    for n in (1, 37, 1000, 100_000, 1_000_000):
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        keys = key_sets((4, pw.ROUNDS))
+        part = ids[n // 3:n // 3 + max(1, n // 4)]
+        for inverse in (False, True):
+            err = max(err, _same(pw.prp_walk(ids, keys, n, inverse),
+                                 pw.prp_walk_plain(ids, keys, n, inverse),
+                                 "prp_walk n=%d inverse=%s" % (n, inverse)))
+            err = max(err, _same(pw.prp_walk(part, keys[0], n, inverse),
+                                 pw.prp_walk_plain(part, keys[0], n, inverse),
+                                 "prp_walk n=%d inverse=%s at a shard's ids" % (n, inverse)))
+    n = 100_000
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    keys = key_sets((pw.ROUNDS,))
+    got = pw.prp_walk(ids, keys, n, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pw.prp_walk_plain(ids, keys, n, False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(err, _same(got, want, "prp_walk n=100000"))
+    print("prp_walk bitwise equal to its plain version at n = 1, 37, 1000, 100,000 and 1M, "
+          "forward and inverse, four key sets and a shard's ids", flush=True)
+    passes = 4 ** pw.half_bits(n) / n
+    r = dict(
+        _times(lambda: pw.prp_walk(ids, keys, n, False), 10, "prp_walk_kernel"),
+        plain_ms=plain_s * 1e3,
+        bound=_bound(_nbytes((ids, keys, got)), 40.0 * passes * n),
+        max_abs_err=err,
+    )
+    print("prp_walk n=100,000: device %.4f ms, call %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+          % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0], r["bound"][1]),
+          flush=True)
     return r
 
 
@@ -2117,14 +2173,15 @@ LIVE_N, LIVE_BASE_PORT, LIVE_KEYS = 5, 47300, 100
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from ringpop_tpu_torch.ops import (block_loop, exchange, fused_apply, fused_checksum,
-                                       fused_piggyback, stream_hash)
+                                       fused_piggyback, prp_walk, stream_hash)
 
     return {"apply_updates": fused_apply.apply_updates,
             "pb_budget": fused_piggyback.pb_budget,
             "fused_stream": stream_hash.fused_stream,
             "exchange": exchange.exchange,
             "block_loop": block_loop.block_loop,
-            "member_records": fused_checksum.member_records}
+            "member_records": fused_checksum.member_records,
+            "prp_walk": prp_walk.prp_walk}
 
 
 def _kernel_counts() -> dict:
@@ -2915,12 +2972,13 @@ def check_batch_rules(dev) -> dict:
     from ringpop_tpu_torch.ops import fused_apply as fa
     from ringpop_tpu_torch.ops import fused_checksum as fc
     from ringpop_tpu_torch.ops import fused_piggyback as fp
+    from ringpop_tpu_torch.ops import prp_walk as pw
     from ringpop_tpu_torch.ops import stream_hash as sh
     from ringpop_tpu_torch.ops import u32
 
     top = max(BATCHES)
     report = {k: {} for k in ("apply_updates", "pb_budget", "fused_stream", "block_loop",
-                              "exchange", "member_records")}
+                              "exchange", "member_records", "prp_walk")}
 
     def run(name, call, plain_call, per, label, timed, rows_plain=None):
         want = (_rows_plain(rows_plain, per) if rows_plain is not None
@@ -2933,7 +2991,7 @@ def check_batch_rules(dev) -> dict:
                 report[name]["B=%d" % b] = r
 
     mod = dict(apply_updates=fa, pb_budget=fp, fused_stream=sh, block_loop=bl, exchange=ex,
-               member_records=fc)
+               member_records=fc, prp_walk=pw)
     site = dict(want_masks=True, want_count=False, want_refute=True)
     counted = dict(want_masks=False, want_count=True, want_refute=False)
     for n in (N_HEAD, 1001):
@@ -2980,6 +3038,12 @@ def check_batch_rules(dev) -> dict:
     run("member_records", lambda a: fc.member_records_at(uni, a[3], a[1], a[2], a[0], 14),
         lambda a: fc.member_records_plain(uni, *a[:3], 14, subject=a[3]), per,
         "4096 sparse cells", False)
+    # the walk: B key sets over the lossy cell's 100,000 ids
+    ids = torch.arange(100_000, dtype=torch.int32, device=dev)
+    per = [(torch.as_tensor(rng.integers(0, 2**32, pw.ROUNDS, dtype=np.uint32).view(np.int32),
+                            device=dev),) for _ in range(top)]
+    run("prp_walk", lambda a: (pw.prp_walk(ids, a[0], 100_000, False),),
+        lambda a: (pw.prp_walk_plain(ids, a[0], 100_000, False),), per, "N=100000", True)
     for name, cases in report.items():
         print("%s batched: %s" % (name, ", ".join(
             "%s device %.4f ms call %.4f ms bound %.4f ms" % (k, v["device_ms"], v["call_ms"],
@@ -4879,8 +4943,9 @@ def _run(argv) -> int:
     report["exchange"] = check_exchange(dev)
     report["block_loop"] = check_block_loop(dev)
     report["member_records"] = check_member_records(dev)
-    print("check_kernels, check_exchange, check_block_loop, check_member_records: %.1f s"
-          % (time.perf_counter() - t0), flush=True)
+    report["prp_walk"] = check_prp_walk(dev)
+    print("check_kernels, check_exchange, check_block_loop, check_member_records, "
+          "check_prp_walk: %.1f s" % (time.perf_counter() - t0), flush=True)
     t0 = time.perf_counter()
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
@@ -4899,11 +4964,11 @@ def _run(argv) -> int:
         # on its own rows (and the classic bootstrap's block_loop, n=8192)
         ("SimCluster n=1024 on the shard mesh", sharded_sim_paths,
          ("apply_updates", "pb_budget", "fused_stream", "block_loop")),
-        ("1M storm", storm_headline, ("exchange",)),
+        ("1M storm", storm_headline, ("exchange", "prp_walk")),
         # killed mid-save and resumed: held to the 1M storm's warm run
         ("checkpointed storms", ckpt_paths, ("exchange",)),
         # the 1M storm on a 4-shard mesh: one exchange launch a shard a tick
-        ("1M storm on the shard mesh", mesh_headline, ("exchange",)),
+        ("1M storm on the shard mesh", mesh_headline, ("exchange", "prp_walk")),
         ("SimCluster n=1024 classic", classic_headline, ("block_loop",)),
         ("routed storm", route_headline, ("exchange",)),
         # the obs planes at full width, each against its planes-off run

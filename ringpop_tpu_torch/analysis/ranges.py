@@ -380,7 +380,7 @@ WRAP_CONTRACT: Dict[str, str] = {
         "the scalable engine's counter RNG: the flat-index counter mixed as "
         "key + i * 0x01000193 and onward into uint32 bits, not an index"
     ),
-    "models/sim/engine_scalable.py:_prp_f": (
+    "ops/prp_walk.py:feistel_f": (
         "the PRP's Feistel round function (lowbias32-style multiplies): "
         "uint32 in JAX"
     ),

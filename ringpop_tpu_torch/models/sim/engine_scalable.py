@@ -57,6 +57,7 @@ from ringpop_tpu_torch import resolve_device
 from ringpop_tpu_torch.obs import perf
 from ringpop_tpu_torch.ops import exchange as _exchange
 from ringpop_tpu_torch.ops import histogram as hg
+from ringpop_tpu_torch.ops import prp_walk as prp
 from ringpop_tpu_torch.ops import toolkit, u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
 
@@ -239,10 +240,17 @@ def _agreed(gate: bool, pred):
     ungated (its TRUE branch is a masked no-op on empty inputs), else the
     predicate agreed across the shards and read on the host once — the
     JAX engine's ``gating.phase``, whose ``lax.cond`` takes one global
-    predicate."""
+    predicate.  The span log's counter ``gate.open`` counts the gated
+    phases that ran, once for the cluster: on a mesh, where every shard
+    body makes the read, in shard 0's body only (nothing with no log)."""
     if not gate:
         return True
-    return (yield ("pred", pred))
+    if (yield ("pred", pred)):
+        timer = perf.active()
+        if timer is not None and not timer.body:
+            perf.count("gate.open")
+        return True
+    return False
 
 
 class Solo:
@@ -399,70 +407,44 @@ def sharded_mean_f32(parts) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # sortless partner permutation: keyed 4-round Feistel PRP, cycle-walked
-
-_PRP_ROUNDS = 4
-
-
-def _prp_f(r: torch.Tensor, k: torch.Tensor, mask: int) -> torch.Tensor:
-    """Feistel round function truncated to the half-width."""
-    x = r * u32.s32(0x7FEB352D) + k
-    x = x ^ u32.srl(x, 15)
-    x = x * u32.s32(0x846CA68B)
-    x = x ^ u32.srl(x, 13)
-    return x & mask
-
-
-def _prp_half_bits(n: int) -> int:
-    """Half-width of the Feistel domain: smallest hb with 4^hb >= n."""
-    return max(1, (max(n - 1, 1).bit_length() + 1) // 2)
-
-
-def _prp_apply(v: torch.Tensor, keys: torch.Tensor, hb: int, inverse: bool = False) -> torch.Tensor:
-    """One PRP pass over [0, 4^hb); ``inverse`` runs the rounds backwards.
-    ``keys``: [ROUNDS], or [B, ROUNDS] with ``v`` [B, N] (one key set a row)."""
-    mask = (1 << hb) - 1
-    left = u32.srl(v, hb)
-    right = v & mask
-    if not inverse:
-        for r in range(_PRP_ROUNDS):
-            left, right = right, left ^ _prp_f(right, keys[..., r, None], mask)
-    else:
-        for r in reversed(range(_PRP_ROUNDS)):
-            left, right = right ^ _prp_f(left, keys[..., r, None], mask), left
-    return (left << hb) | right
+# (ops/prp_walk.py)
 
 
 def _prp_walk_rows(key: torch.Tensor, ids: torch.Tensor, n: int, salt: int, inverse: bool):
     """The keyed bijection over [0, n) at ``ids`` (a shard body's
-    generator), cycle-walked back into range: each step of the walk reads
-    whether any value, of any row and any shard, is still out of range —
-    one agreed host read a step."""
+    generator), cycle-walked back into range.  On the card one launch of
+    the walk kernel, every value walked in its own thread, with no read;
+    elsewhere each step of the walk reads whether any value, of any row
+    and any shard, is still out of range — one agreed host read a step."""
     with perf.span("prp_walk"):
-        hb = _prp_half_bits(n)
-        keys = _rand_u32(key, (_PRP_ROUNDS,), salt)
-        x = _prp_apply(ids, keys, hb, inverse)
+        keys = _rand_u32(key, (prp.ROUNDS,), salt)
+        if ids.is_cuda:
+            return prp.prp_walk(ids, keys, n, inverse)
+        hb = prp.half_bits(n)
+        x = prp.feistel(ids, keys, hb, inverse)
         while True:
             out = u32.uge(x, n)
             if not (yield ("pred", out.any())):
                 return x
-            x = torch.where(out, _prp_apply(x, keys, hb, inverse), x)
+            x = torch.where(out, prp.feistel(x, keys, hb, inverse), x)
 
 
 def _prp_walk(key: torch.Tensor, n: int, salt: int, inverse: bool) -> torch.Tensor:
     """The keyed bijection over [0, n) for a [2] key ([N]) or for B keys
-    ``[B, 2]`` ([B, N]), cycle-walked back into range: each step of the
-    walk is one host read, of every row at once."""
+    ``[B, 2]`` ([B, N]), cycle-walked back into range: on the card one
+    launch for every row, elsewhere one host read a step, of every row at
+    once."""
     ids = torch.arange(n, dtype=torch.int32, device=key.device)
     return run_solo(_prp_walk_rows(key, ids, n, salt, inverse))
 
 
 def _prp_perm(key: torch.Tensor, n: int, salt: int, inverse: bool = False) -> torch.Tensor:
     """[N] int32 keyed bijection over [0, n), cycle-walked back into range
-    (each step of the walk is one host read); ``inverse=True`` evaluates
-    the analytic inverse.  Inside ``torch.func.vmap`` (a batched key) the
-    custom op ``ringpop_torch::prp_perm`` walks all B rows together, as the
-    JAX engine's vmapped ``while_loop`` does: until every row is in range,
-    the rows already done masked, one host read a step."""
+    (:func:`_prp_walk_rows`); ``inverse=True`` evaluates the analytic
+    inverse.  Inside ``torch.func.vmap`` (a batched key) the custom op
+    ``ringpop_torch::prp_perm`` walks all B rows together, as the JAX
+    engine's vmapped ``while_loop`` does: on the CPU until every row is in
+    range, the rows already done masked, one host read a step."""
     if toolkit.is_batched(key):
         return _prp_perm_op(key, n, salt, inverse)
     return _prp_walk(key, n, salt, inverse)
@@ -1049,33 +1031,35 @@ def shard_tick(sh, state: ScalableState, inputs: ChurnInputs, params: ScalablePa
     any_responder = torch.zeros(rows, dtype=torch.bool, device=dev)
     any_reached = torch.zeros(rows, dtype=torch.bool, device=dev)
     if (yield from _agreed(gate, need_ind.any())):
-        for k in range(1, k_total):
-            m = _partner(k)
-            loss = losses[k]
-            part_m = take(partition_all, m)
-            conn = partition == part_m
-            alive_m = take(alive_all, m)
-            use = need_ind & alive_m & conn & ~loss
-            inv = _inv(k)
-            # row m[i] to row i, and row inv[i] to row i (routed on a mesh)
-            rows_m = yield from sh.route_rows(new_heard, inv, m)
-            use_all = yield ("gather", use)
-            rows_inv = yield from sh.route_rows(new_heard, m, inv)
-            pulled_k = torch.where(use[:, None], rows_m, 0)
-            pushed_k = torch.where(take(use_all, inv)[:, None], rows_inv, 0)
-            new_heard = (new_heard | (pulled_k & active_words[None, :])
-                         | (pushed_k & active_words[None, :]))
-            responder = alive_m & conn & ~loss
-            # intermediary -> target probe leg: its own loss draw
-            loss_probe = _uniform(rng, (rows,), salt=0xD0DE + k, offset=lo) < params.packet_loss
-            reached = (
-                responder
-                & take(alive_all, partner0)
-                & (part_m == take(partition_all, partner0))
-                & ~loss_probe
-            )
-            any_responder = any_responder | responder
-            any_reached = any_reached | reached
+        # the fanout's span: on a mesh its routes' agreed reads lie inside
+        with perf.span("ping_req"):
+            for k in range(1, k_total):
+                m = _partner(k)
+                loss = losses[k]
+                part_m = take(partition_all, m)
+                conn = partition == part_m
+                alive_m = take(alive_all, m)
+                use = need_ind & alive_m & conn & ~loss
+                inv = _inv(k)
+                # row m[i] to row i, and row inv[i] to row i (routed on a mesh)
+                rows_m = yield from sh.route_rows(new_heard, inv, m)
+                use_all = yield ("gather", use)
+                rows_inv = yield from sh.route_rows(new_heard, m, inv)
+                pulled_k = torch.where(use[:, None], rows_m, 0)
+                pushed_k = torch.where(take(use_all, inv)[:, None], rows_inv, 0)
+                new_heard = (new_heard | (pulled_k & active_words[None, :])
+                             | (pushed_k & active_words[None, :]))
+                responder = alive_m & conn & ~loss
+                # intermediary -> target probe leg: its own loss draw
+                loss_probe = _uniform(rng, (rows,), salt=0xD0DE + k, offset=lo) < params.packet_loss
+                reached = (
+                    responder
+                    & take(alive_all, partner0)
+                    & (part_m == take(partition_all, partner0))
+                    & ~loss_probe
+                )
+                any_responder = any_responder | responder
+                any_reached = any_reached | reached
 
     # incremental checksum: every newly-set heard bit adds its delta (the
     # fused modes got the direct round's sum from the exchange)

@@ -43,6 +43,7 @@ ENTRY_POINTS = {
     "ringpop_exchange": (7, 8),
     "ringpop_block_loop": (8, 3),
     "ringpop_member_records": (8, 4),
+    "ringpop_prp_walk": (3, 5),
 }
 # how many of each entry point's pointers are operands it reads: the rest
 # are the results it writes (chip_smoke.py holds them apart: no result
@@ -54,6 +55,7 @@ READ_POINTERS = {
     "ringpop_exchange": 4,
     "ringpop_block_loop": 5,
     "ringpop_member_records": 6,
+    "ringpop_prp_walk": 2,
 }
 
 

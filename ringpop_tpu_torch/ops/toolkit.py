@@ -255,4 +255,15 @@ TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
         "tests/test_torch_hash.py",
         "ringpop_tpu/ops/fused_checksum.py:113",
     ),
+    # replaces no Pallas kernel: it stands in for the JAX engine's
+    # while_loop walk
+    KernelTwin(
+        "prp_walk",
+        "prp_walk",
+        "prp_walk_plain",
+        "ringpop_tpu_torch/csrc/prp_walk.cu",
+        "ringpop_tpu.models.sim.engine_scalable:_prp_perm",
+        "tests/test_torch_prp_walk.py",
+        "ringpop_tpu/models/sim/engine_scalable.py:484",
+    ),
 )

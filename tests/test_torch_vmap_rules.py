@@ -34,6 +34,7 @@ from ringpop_tpu_torch.ops import exchange as pex
 from ringpop_tpu_torch.ops import fused_apply as pfa
 from ringpop_tpu_torch.ops import fused_checksum as pfc
 from ringpop_tpu_torch.ops import fused_piggyback as pfp
+from ringpop_tpu_torch.ops import prp_walk as pprp
 from ringpop_tpu_torch.ops import stream_hash as psh
 from ringpop_tpu_torch.ops import toolkit, u32
 
@@ -200,6 +201,16 @@ def test_member_records_rule_equals_stacked_plain():
             assert torch.equal(g[i], w)
 
 
+def test_prp_walk_rule_equals_stacked_plain():
+    n = 37  # 4^3 = 64 > 37: walks take several steps
+    ids = torch.arange(n, dtype=torch.int32)
+    keys = _i32(np.random.default_rng(18).integers(0, 2**32, (B, pprp.ROUNDS)), "cpu")
+    for inverse in (False, True):
+        got = vmap(lambda k: pprp.prp_walk(ids, k, n, inverse))(keys)
+        for i in range(B):
+            assert torch.equal(got[i], pprp.prp_walk_plain(ids, keys[i], n, inverse))
+
+
 @pytest.mark.parametrize("layout", ["front", "moved", "nested"])
 def test_bytes_to_words_under_vmap_equals_per_cluster_words(layout):
     """Record bytes whose batch axes lead contiguous storage (a batching
@@ -329,12 +340,12 @@ def test_delta_sum_plain_under_vmap_equals_per_row_loop():
 
 def _walk_steps(key, n, salt, inverse):
     """Walk steps of the solo cycle walk, counted outside the engine."""
-    hb = pes._prp_half_bits(n)
-    keys = pes._rand_u32(key, (pes._PRP_ROUNDS,), salt)
-    x = pes._prp_apply(torch.arange(n, dtype=torch.int32), keys, hb, inverse)
+    hb = pprp.half_bits(n)
+    keys = pes._rand_u32(key, (pprp.ROUNDS,), salt)
+    x = pprp.feistel(torch.arange(n, dtype=torch.int32), keys, hb, inverse)
     steps = 0
     while bool(u32.uge(x, n).any()):
-        x = torch.where(u32.uge(x, n), pes._prp_apply(x, keys, hb, inverse), x)
+        x = torch.where(u32.uge(x, n), pprp.feistel(x, keys, hb, inverse), x)
         steps += 1
     return steps
 
@@ -434,6 +445,15 @@ def test_batched_launches_equal_single_launches_on_card(cuda_device):
                                         inc[i, 0, :40], 14, subject=subject[i])
         for g, w in zip(sparse, want):
             assert torch.equal(g[i], w)
+    ids = torch.arange(100_000, dtype=torch.int32, device=dev)
+    keys = _i32(np.random.default_rng(19).integers(0, 2**32, (4, pprp.ROUNDS)), dev)
+    before = pprp.prp_walk.launches
+    got = vmap(lambda k: pprp.prp_walk(ids, k, 100_000, False))(keys)
+    assert pprp.prp_walk.launches - before == 1
+    for i in range(4):
+        single = pprp.prp_walk(ids, keys[i], 100_000, False)
+        assert torch.equal(got[i], single)
+        assert torch.equal(single, pprp.prp_walk_plain(ids, keys[i], 100_000, False))
     heard, pulled, pushed, delta = _exchange_inputs(4, 100_001, 16, 15, dev)
     before = pex.exchange.launches
     got = vmap(pex.exchange)(heard, pulled, pushed, delta)
