@@ -330,13 +330,14 @@ def _evict_l2() -> None:
     _L2_SCRATCH[0].fill_(1)
 
 
-def _device_ms(fn, reps: int, symbol: str, evict: bool = False):
+def _device_ms(fn, reps: int, symbol, evict: bool = False):
     """Mean CUDA duration (ms) of the kernels whose name holds ``symbol``,
     over ``reps`` calls of ``fn`` under ``torch.profiler``: the kernel's
-    time on the card, apart from the host's cost to call it.  ``evict``:
-    flush the L2 before each call, so operands that would fit there are
-    read from HBM as on the path.  Returns it with the number of launches
-    the profiler reported."""
+    time on the card, apart from the host's cost to call it.  A tuple of
+    symbols, each launched once a call, gives the sum of their means.
+    ``evict``: flush the L2 before each call, so operands that would fit
+    there are read from HBM as on the path.  Returns it with the number
+    of launches the profiler reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -358,13 +359,18 @@ def _device_ms(fn, reps: int, symbol: str, evict: bool = False):
                     _evict_l2()
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and symbol in e.key]
-        count = sum(e.count for e in rows)
-        us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                 for e in rows)
-        if count and us > 0:
-            return us / count / 1e3, count
+        ms, seen = 0.0, 0
+        for sym in (symbol,) if isinstance(symbol, str) else symbol:
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and sym in e.key]
+            count = sum(e.count for e in rows)
+            us = sum(getattr(e, "self_device_time_total", 0)
+                     or getattr(e, "self_cuda_time_total", 0) for e in rows)
+            if not (count and us > 0):
+                break
+            ms, seen = ms + us / count / 1e3, seen + count
+        else:
+            return ms, seen
     print("%s: profiler saw no launch in 3 x %d calls; timed with CUDA events" % (symbol, reps),
           flush=True)
     return _events_device_ms(fn, reps, evict), 0
@@ -802,6 +808,182 @@ def check_prp_walk(dev) -> dict:
           % (r["device_ms"], r["call_ms"], r["plain_ms"], r["bound"][0], r["bound"][1]),
           flush=True)
     return r
+
+
+# the ping-req pieces: each wrapper, its kernels' names (the combine is
+# three launches a call) and, for the select, its slot count
+PING_REQ_K = 3
+# b32's ping-req traffic, read from ringpop-1k.churn-b32 as the benchmark
+# runs it (two seeds, 240 ticks each, on an H100): the share of rows
+# needing a ping-req (450.3 of 32 x 1,024 a tick), and of their valid
+# slots whose intermediary answers (1,332.3 of 1,350.9)
+PING_REQ_SPARSE = (0.0137, 0.986)
+PING_REQ_SYMBOLS = {
+    "ping_req_select": "ping_req_select_kernel",
+    "ping_req_combine": ("ping_req_combine_clear_kernel", "ping_req_combine_scatter_kernel",
+                         "ping_req_combine_fill_kernel"),
+    "ping_req_hits": "ping_req_hits_kernel",
+    "ping_req_respond": "ping_req_respond_kernel",
+}
+
+
+def _ping_req_inputs(b, n, seed, dev, need, respond=0.9, pingable=0.97, k=PING_REQ_K):
+    """The four ping-req pieces' operands for ``b`` clusters of ``n``
+    ([B, ...], cluster first), from a seed: a share ``need`` of the rows
+    needing a ping-req, ``pingable`` of each row's columns candidates, the
+    first five rows of cluster 0 with none; the intermediaries (``k`` a
+    row) from the plain select, a share ``respond`` of the valid slots
+    answering."""
+    import numpy as np
+
+    from ringpop_tpu_torch.ops import ping_req as prk
+    from ringpop_tpu_torch.ops import u32
+
+    rng = np.random.default_rng(seed)
+
+    def planes(lo, hi):
+        return torch.as_tensor(rng.integers(lo, hi, (b, n, n), dtype=np.int32), device=dev)
+
+    def mask(p, shape=(n, n)):
+        return torch.as_tensor(rng.random((b,) + shape) < p, device=dev)
+
+    ok = mask(pingable)
+    ok[0, :5] = False
+    sel_args = (ok, torch.as_tensor(rng.integers(-1, n, (b, n), dtype=np.int32), device=dev),
+                mask(need, (n,)),
+                u32.from_numpy(rng.integers(0, 2**32, (b, n, 2), dtype=np.uint32), dev))
+    sel, valid = prk.ping_req_select_plain(*sel_args, k)
+    responder = valid & mask(respond, (n, k))
+    inc = planes(0, 1 << 20)
+    own = torch.arange(n, device=dev)
+    inc[:, own, own] = planes(1, 1 << 20)[:, 0]
+    self_inc = torch.as_tensor(rng.integers(1, 1 << 20, (b, n), dtype=np.int32), device=dev)
+    source = planes(-1, n)
+    # half the cells name their source at its own incarnation (the hits
+    # count those)
+    own_inc = torch.gather(self_inc, 1, source.clamp(0).reshape(b, -1).long()).reshape(b, n, n)
+    return {
+        "ping_req_select": sel_args,
+        "ping_req_combine": (sel, responder, mask(0.3), planes(0, 40),
+                             torch.as_tensor(rng.integers(30, 46, (b, n), dtype=np.int32),
+                                             device=dev),
+                             inc, planes(0, 4), source, planes(0, 1 << 20)),
+        "ping_req_hits": (sel, responder, mask(0.3), source,
+                          torch.where(mask(0.5), own_inc, planes(0, 1 << 20)), self_inc),
+        "ping_req_respond": (sel, responder, mask(0.02), source, planes(0, 1 << 20),
+                             mask(0.98), planes(0, 4), inc, planes(0, 4), planes(0, 1 << 20),
+                             self_inc,
+                             torch.as_tensor(rng.integers(0, 3, (b, n), dtype=np.int32),
+                                             device=dev)),
+    }
+
+
+def _ping_req_call(name, plain=False, k=PING_REQ_K):
+    """A ping-req piece as a function of its operand tuple, returning a
+    tuple."""
+    from ringpop_tpu_torch.ops import ping_req as prk
+
+    fn = getattr(prk, name + ("_plain" if plain else ""))
+    extra = (k,) if name == "ping_req_select" else ()
+
+    def call(a):
+        out = fn(*a, *extra)
+        return out if isinstance(out, tuple) else (out,)
+    return call
+
+
+def _ping_req_bytes(name, args, got) -> int:
+    """What a piece must read and write for these operands: every output
+    once, the per-row selections once, and each plane row the answering
+    slots (or, for the select, the rows needing a ping-req) reach, once."""
+    b, n = args[0].shape[:2]
+    k = PING_REQ_K
+    out = _nbytes(got)
+    if name == "ping_req_select":
+        rows_needing = int(args[2].sum())
+        return out + b * n + rows_needing * (n + 4 + 8)
+    sel_bytes = b * n * k * 9  # pr_sel (int64) and responder
+    if name == "ping_req_combine":
+        # each answering slot's sender row (active, pb, ch_inc, ch_status),
+        # and the winners' sources at their cells
+        senders = int(args[1].any(dim=-1).sum())
+        return out + sel_bytes + b * n * 4 + senders * n * 13 + int(got[0].sum()) * 8
+    if name == "ping_req_hits":
+        active = int(args[2].sum())
+        return out + sel_bytes + b * n * n + active * 8 + b * n * 4
+    # respond: each intermediary row an answering slot reaches, eight
+    # planes of it
+    cluster = torch.arange(b, device=args[0].device)[:, None, None]
+    reached = int((cluster * n + args[0])[args[1]].unique().numel())
+    return out + sel_bytes + b * n * 8 + reached * n * 26
+
+
+def check_ping_req(dev) -> dict:
+    """Phase 3, the ping-req pieces (``ping_req_select``,
+    ``ping_req_combine``, ``ping_req_hits``, ``ping_req_respond``): each
+    against its plain version, batched (one launch for the B clusters,
+    under ``vmap``) and alone, at B = 4 of n = 1000 (K = 3 and 19) and 45
+    (rows needing a ping-req 2%, 50% and all, rows with no candidate among
+    them) and at the b32 ensemble's [32, 1024, 1024] with K = 3; times
+    there for b32's traffic (:data:`PING_REQ_SPARSE`) and the dense worst
+    case (every row, every valid slot answering), each piece beside
+    its byte bound (what these operands need: :func:`_ping_req_bytes`) and
+    the plain phase's pieces, vmapped as the engine runs them."""
+    from torch.func import vmap
+
+    err = 0
+    for n, need, k in ((1000, 0.5, 3), (45, 0.02, 3), (45, 1.0, 3), (1000, 0.5, 19)):
+        for name, args in _ping_req_inputs(4, n, n + int(need * 10), dev, need, k=k).items():
+            call, plain = _ping_req_call(name, k=k), _ping_req_call(name, True, k)
+            got = vmap(lambda *a: call(a))(*args)
+            what = "%s n=%d need=%s K=%d cluster" % (name, n, need, k)
+            for i in range(4):
+                want = plain(tuple(a[i] for a in args))
+                err = max(err, _same(tuple(g[i] for g in _leaves(tuple(got))), tuple(_leaves(
+                    tuple(want))), "%s %d batched" % (what, i)))
+                err = max(err, _same(tuple(_leaves(tuple(call(tuple(a[i] for a in args))))),
+                                     tuple(_leaves(tuple(want))), "%s %d" % (what, i)))
+    report = {}
+    phase = {}
+    for case, need, respond in (("sparse",) + PING_REQ_SPARSE, ("dense", 1.0, 1.0)):
+        args_all = _ping_req_inputs(32, N_HEAD, 31 if case == "sparse" else 37, dev, need,
+                                    respond)
+        totals = dict(device_ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for name, args in args_all.items():
+            vcall = vmap(lambda *a, c=_ping_req_call(name): tuple(_leaves(tuple(c(a)))))
+            vplain = vmap(lambda *a, c=_ping_req_call(name, True): tuple(_leaves(tuple(c(a)))))
+            got = vcall(*args)
+            want = vplain(*args)
+            torch.cuda.synchronize()
+            err = max(err, _same(got, want, "%s [32, 1024, 1024] %s" % (name, case)))
+            del want
+            r = dict(
+                _times(lambda: vcall(*args), 20, PING_REQ_SYMBOLS[name]),
+                plain_ms=_time_ms(lambda: vplain(*args), 3),
+                bound=_bound(_ping_req_bytes(name, args, got), 0.0),
+                slots=int(args[1].sum()) if name != "ping_req_select" else None,
+            )
+            r["share_of_bound"] = r["bound"][0] / r["device_ms"]
+            for k in ("device_ms", "call_ms", "plain_ms"):
+                totals[k] += r[k]
+            totals["bound_ms"] += r["bound"][0]
+            print("%s [32, 1024, 1024] K=3 %s: device %.4f ms, call %.4f ms, plain %.4f ms, "
+                  "bound %.4f ms (%s)" % (name, case, r["device_ms"], r["call_ms"],
+                                          r["plain_ms"], r["bound"][0], r["bound"][1]),
+                  flush=True)
+            if case == "sparse":
+                report[name] = r
+            else:
+                report[name]["dense"] = dict(
+                    {k: r[k] for k in ("device_ms", "call_ms", "plain_ms", "share_of_bound")},
+                    bound_ms=r["bound"][0], **_events_method(r))
+        phase[case] = totals
+    print("ping_req pieces bitwise equal to their plain versions at B = 4 of n = 1000 (K = 3 "
+          "and 19) and 45 and at [32, 1024, 1024], sparse and dense", flush=True)
+    print("ping_req phase " + json.dumps(phase), flush=True)
+    for r in report.values():
+        r["max_abs_err"] = err
+    return report
 
 
 def check_kernels(dev):
@@ -2173,7 +2355,7 @@ LIVE_N, LIVE_BASE_PORT, LIVE_KEYS = 5, 47300, 100
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from ringpop_tpu_torch.ops import (block_loop, exchange, fused_apply, fused_checksum,
-                                       fused_piggyback, prp_walk, stream_hash)
+                                       fused_piggyback, ping_req, prp_walk, stream_hash)
 
     return {"apply_updates": fused_apply.apply_updates,
             "pb_budget": fused_piggyback.pb_budget,
@@ -2181,7 +2363,8 @@ def _wrappers() -> dict:
             "exchange": exchange.exchange,
             "block_loop": block_loop.block_loop,
             "member_records": fused_checksum.member_records,
-            "prp_walk": prp_walk.prp_walk}
+            "prp_walk": prp_walk.prp_walk,
+            **{k: getattr(ping_req, k) for k in PING_REQ_SYMBOLS}}
 
 
 def _kernel_counts() -> dict:
@@ -2977,8 +3160,10 @@ def check_batch_rules(dev) -> dict:
     from ringpop_tpu_torch.ops import u32
 
     top = max(BATCHES)
+    from ringpop_tpu_torch.ops import ping_req as prk
+
     report = {k: {} for k in ("apply_updates", "pb_budget", "fused_stream", "block_loop",
-                              "exchange", "member_records", "prp_walk")}
+                              "exchange", "member_records", "prp_walk", *PING_REQ_SYMBOLS)}
 
     def run(name, call, plain_call, per, label, timed, rows_plain=None):
         want = (_rows_plain(rows_plain, per) if rows_plain is not None
@@ -2986,12 +3171,12 @@ def check_batch_rules(dev) -> dict:
         for b in BATCHES:
             r = _batch_case(getattr(mod[name], name), call, per[:b],
                             tuple(w[:b] for w in want), "%s B=%d %s" % (name, b, label),
-                            "%s_kernel" % name if timed else None)
+                            PING_REQ_SYMBOLS.get(name, "%s_kernel" % name) if timed else None)
             if timed:
                 report[name]["B=%d" % b] = r
 
     mod = dict(apply_updates=fa, pb_budget=fp, fused_stream=sh, block_loop=bl, exchange=ex,
-               member_records=fc, prp_walk=pw)
+               member_records=fc, prp_walk=pw, **{k: prk for k in PING_REQ_SYMBOLS})
     site = dict(want_masks=True, want_count=False, want_refute=True)
     counted = dict(want_masks=False, want_count=True, want_refute=False)
     for n in (N_HEAD, 1001):
@@ -3044,6 +3229,11 @@ def check_batch_rules(dev) -> dict:
                             device=dev),) for _ in range(top)]
     run("prp_walk", lambda a: (pw.prp_walk(ids, a[0], 100_000, False),),
         lambda a: (pw.prp_walk_plain(ids, a[0], 100_000, False),), per, "N=100000", True)
+    # the ping-req pieces: each cluster's [N, N] planes, half the rows
+    # needing a ping-req
+    for name, args in _ping_req_inputs(top, N_HEAD, 97, dev, 0.5).items():
+        run(name, _ping_req_call(name), _ping_req_call(name, True),
+            [tuple(a[i] for a in args) for i in range(top)], "N x N=1024", True)
     for name, cases in report.items():
         print("%s batched: %s" % (name, ", ".join(
             "%s device %.4f ms call %.4f ms bound %.4f ms" % (k, v["device_ms"], v["call_ms"],
@@ -4944,8 +5134,9 @@ def _run(argv) -> int:
     report["block_loop"] = check_block_loop(dev)
     report["member_records"] = check_member_records(dev)
     report["prp_walk"] = check_prp_walk(dev)
+    report.update(check_ping_req(dev))
     print("check_kernels, check_exchange, check_block_loop, check_member_records, "
-          "check_prp_walk: %.1f s" % (time.perf_counter() - t0), flush=True)
+          "check_prp_walk, check_ping_req: %.1f s" % (time.perf_counter() - t0), flush=True)
     t0 = time.perf_counter()
     batch_report = check_batch_rules(dev)
     print("check_batch_rules: %.1f s" % (time.perf_counter() - t0), flush=True)
@@ -4989,7 +5180,7 @@ def _run(argv) -> int:
          ("apply_updates", "pb_budget", "fused_stream", "exchange")),
         # the batch axis: B clusters a tick, and the fuzz campaigns
         ("BatchedSimClusters n=1024", batched_paths,
-         ("apply_updates", "pb_budget", "fused_stream", "member_records")),
+         ("apply_updates", "pb_budget", "fused_stream", "member_records", *PING_REQ_SYMBOLS)),
         ("fuzz sweeps", fuzz_throughput, ("apply_updates", "pb_budget")),
         # the port's engine in lockstep with the port's host oracle
         # (parity/oracle.py), fused and classic, and five live node processes
@@ -5029,7 +5220,7 @@ def _run(argv) -> int:
     for twin in toolkit.TWIN_REGISTRY:
         r = report[twin.kernel_entry]
         extra = {k: r[k] for k in ("chain_bound_ms", "new_bits_per_word", "share_of_bound", "plan",
-                                   "shard_tile") if k in r}
+                                   "shard_tile", "dense") if k in r}
         # exchange's other timed operand sets: no new bit, the storm's own,
         # the small and ragged shapes
         for k in ("no_new_bits", "storm_operands", "ragged"):

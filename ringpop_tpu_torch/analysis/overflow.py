@@ -145,11 +145,13 @@ ALLOWED: Tuple[AllowRow, ...] = (
     ),
     AllowRow(
         entries=_FULL,
-        keys=("dtype-overflow:mul@models/sim/engine.py:_pack_key",),
+        keys=("dtype-overflow:mul@models/sim/engine.py:_pack_key",
+              "dtype-overflow:mul@ops/ping_req.py:_pack_key"),
         why=(
-            "engine._pack_key computes inc * 4 + status in int32 under the invariant "
-            "stamps < ticks + 2 (the packed key stays < 2^22); the flagged range "
-            "inherits the widened inc carry, the mint-site bound holds (JAX's row)"
+            "engine._pack_key (and its copy in the ping-req legs) computes inc * 4 + "
+            "status in int32 under the invariant stamps < ticks + 2 (the packed key "
+            "stays < 2^22); the flagged range inherits the widened inc carry, the "
+            "mint-site bound holds (JAX's row)"
         ),
     ),
     AllowRow(

@@ -384,6 +384,11 @@ WRAP_CONTRACT: Dict[str, str] = {
         "the PRP's Feistel round function (lowbias32-style multiplies): "
         "uint32 in JAX"
     ),
+    "ops/ping_req.py:select_scores": (
+        "the full engine's counter RNG at the ping-req salt (engine._uniform's "
+        "arithmetic): the column counter j mixed as base + j * 0x01000193 and "
+        "onward into uint32 bits, not an index"
+    ),
 }
 
 

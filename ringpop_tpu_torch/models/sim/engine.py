@@ -70,6 +70,7 @@ from ringpop_tpu_torch.ops import fused_apply as fap
 from ringpop_tpu_torch.ops import fused_checksum as fc
 from ringpop_tpu_torch.ops import fused_piggyback as fpb
 from ringpop_tpu_torch.ops import histogram as hg
+from ringpop_tpu_torch.ops import ping_req as prk
 from ringpop_tpu_torch.ops import toolkit
 from ringpop_tpu_torch.ops import u32
 from ringpop_tpu_torch.ops.record_mix import record_mix
@@ -265,6 +266,15 @@ def resolve_sharded_fused_tick(params: SimParams, device_type: str) -> str:
     return "plain" if resolved == "kernel" else resolved
 
 
+def _ping_req_kernels(ft: str, sh, n: int) -> bool:
+    """Whether the ping-req phase launches ``ops/ping_req.py``'s kernels:
+    with the tick's kernels (``ft`` "kernel", :func:`resolve_fused_tick`)
+    on one shard holding every row.  A mesh runs the phase's legs
+    (``ops/ping_req.py``'s plain legs) with collectives between its
+    shards, the CPU as plain ops."""
+    return ft == "kernel" and sh.rows == n
+
+
 def resolve_hash_impl(params: SimParams, device_type: str) -> str:
     """The two hash kernels (``fused_stream``, ``block_loop``): "kernel" or
     "plain" — the counterpart of the JAX engine's ``hash_impl`` knob."""
@@ -419,14 +429,6 @@ def _smallest_k(score: torch.Tensor, k: int) -> torch.Tensor:
     among ties — ``lax.top_k(-score, k)``'s order (a stable sort, since
     ``torch.topk`` promises no tie order)."""
     return torch.argsort(score, dim=1, stable=True)[:, :k]
-
-
-def _segment_reduce(values, seg, n, reduce, identity):
-    """``jax.ops.segment_{max,min}(values, seg, num_segments=n+1)[:n]`` for
-    [R, C] int32 ``values`` and [R] segment ids in [0, n]."""
-    out = torch.full((n + 1, values.shape[1]), identity, dtype=values.dtype, device=values.device)
-    idx = seg.to(torch.int64)[:, None].expand(values.shape)
-    return out.scatter_reduce(0, idx, values, reduce, include_self=True)[:n]
 
 
 def _segment_sum(values, seg, n):
@@ -1241,21 +1243,21 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         # each sender's row folds onto its target's row: a segment
         # reduction over the senders, reduce-scattered to the receivers
         keys = torch.where(msg_content, _pack_key(state.ch_inc, state.ch_status), -1)
-        recv_key = yield ("rs_max", _segment_reduce(keys, seg, n, "amax", INT32_MIN))
+        recv_key = yield ("rs_max", toolkit.segment_reduce(keys, seg, n, "amax", INT32_MIN))
         recv_mask = recv_key >= 0
         # winning sender (lowest index among ties) recovers source fields
         (recv_at_target,) = yield from _fetch(tclip, recv_key)
         is_winner = (keys == recv_at_target) & msg_content
         sender_ids = node.expand(rows, n)
-        winner_sender = yield ("rs_min", _segment_reduce(
+        winner_sender = yield ("rs_min", toolkit.segment_reduce(
             torch.where(is_winner, sender_ids, n), seg, n, "amin", INT32_MAX
         ))
         (winner_at_target,) = yield from _fetch(tclip, winner_sender)
         final_w = is_winner & (sender_ids == winner_at_target)
-        u_source = yield ("rs_max", _segment_reduce(
+        u_source = yield ("rs_max", toolkit.segment_reduce(
             torch.where(final_w, state.ch_source, INT32_MIN), seg, n, "amax", INT32_MIN
         ))
-        u_source_inc = yield ("rs_max", _segment_reduce(
+        u_source_inc = yield ("rs_max", toolkit.segment_reduce(
             torch.where(final_w, state.ch_source_inc, INT32_MIN), seg, n, "amax", INT32_MIN
         ))
         state, union, applied, applied_rows, refute_diag, _ = _apply_site(
@@ -1366,12 +1368,14 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
     need_pr = valid_send & ~delivered
     K = params.ping_req_size
 
+    on_card = _ping_req_kernels(ft, sh, n)
+
     def _ping_req_phase(state, union):
-        pr_rand = _uniform(state.rng, (rows, n), salt=29)
-        pr_ok = pingable & (subject != target[:, None]) & need_pr[:, None]
-        pr_score = torch.where(pr_ok, pr_rand, 2.0)
-        pr_sel = _smallest_k(pr_score, K)
-        pr_valid = torch.gather(pr_score, 1, pr_sel) < 1.5
+        if on_card:
+            with perf.span("ping_req.select"):
+                pr_sel, pr_valid = prk.ping_req_select(pingable, target, need_pr, state.rng, K)
+        else:
+            pr_sel, pr_valid = prk.ping_req_select_plain(pingable, target, need_pr, state.rng, K)
 
         m_alive = alive_all[pr_sel]
         m_conn = partition_all[pr_sel] == partition[:, None]
@@ -1403,66 +1407,29 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
             state = state._replace(ch_pb=new_pb, ch_active=active0 & ~over_pr)
             pb_drops_pr = over_pr.sum(dtype=i32)
 
-        karange = torch.arange(K, dtype=i32, device=dev)
-        send_k = (
-            active0[:, None, :]
-            & (pb0[:, None, :] + karange[None, :, None] + 1 <= max_pb[:, None, None])
-            & pr_valid[:, :, None]
-        )
-        arrive = send_k & responder[:, :, None]
-
         # -- leg 2: intermediaries apply (winner-combine per subject) --
-        # slot (i, k) is global slot i*K + k; its row folds onto the
-        # intermediary's row, reduce-scattered to the intermediaries
-        nk, nkl = n * K, rows * K
-        segf = torch.where(responder, pr_sel.to(i32), n).reshape(nkl)
-        sclip = segf.clamp(0, n - 1).to(torch.int64)
-        keysf = torch.where(
-            arrive, _pack_key(state.ch_inc, state.ch_status)[:, None, :], -1
-        ).reshape(nkl, n)
-        recv_key_pr = yield ("rs_max", _segment_reduce(keysf, segf, n, "amax", INT32_MIN))
-        (recv_at_m,) = yield from _fetch(sclip, recv_key_pr)
-        is_w = (keysf == recv_at_m) & (keysf >= 0)
-        flat_ids = torch.arange(lo * K, lo * K + nkl, dtype=i32, device=dev)[:, None].expand(nkl, n)
-        winner_flat = yield ("rs_min", _segment_reduce(
-            torch.where(is_w, flat_ids, nk), segf, n, "amin", INT32_MAX
-        ))
-        (winner_at_m,) = yield from _fetch(sclip, winner_flat)
-        final_w = is_w & (flat_ids == winner_at_m)
-        src3 = state.ch_source[:, None, :].expand(rows, K, n).reshape(nkl, n)
-        srcinc3 = state.ch_source_inc[:, None, :].expand(rows, K, n).reshape(nkl, n)
-        u_source_pr = yield ("rs_max", _segment_reduce(
-            torch.where(final_w, src3, INT32_MIN), segf, n, "amax", INT32_MIN
-        ))
-        u_srcinc_pr = yield ("rs_max", _segment_reduce(
-            torch.where(final_w, srcinc3, INT32_MIN), segf, n, "amax", INT32_MIN
-        ))
+        if on_card:
+            with perf.span("ping_req.combine"):
+                *update_prm, prrecv = prk.ping_req_combine(
+                    pr_sel, responder, active0, pb0, max_pb, state.ch_inc, state.ch_status,
+                    state.ch_source, state.ch_source_inc)
+        else:
+            update_prm = yield from prk.combine_legs(
+                pr_sel, responder, active0, pb0, max_pb, state.ch_inc, state.ch_status,
+                state.ch_source, state.ch_source_inc, lo=lo)
         state, union, applied_prm, rows_prm, refute_m, _ = _apply_site(
-            ft, state, union, recv_key_pr >= 0, recv_key_pr % 4,
-            torch.div(recv_key_pr, 4, rounding_mode="floor"), u_source_pr, u_srcinc_pr,
-            now, deadline, want_masks=want_masks, lo=lo,
+            ft, state, union, *update_prm, now, deadline, want_masks=want_masks, lo=lo,
         )
 
         # -- leg 3: responses (issueAsReceiver per arriving ping-req) --
-        # [M, sender] arrivals: written into the intermediaries' rows at
-        # the senders' columns, reduce-scattered to the intermediaries
-        cnt_sm = _zeros((n, n), i32, dev)
-        cols = torch.arange(lo, lo + rows, dtype=torch.int64, device=dev)
-        for k in range(K):
-            cnt_sm = cnt_sm.index_put(
-                (pr_sel[:, k], cols), responder[:, k].to(i32), accumulate=True
-            )
-        cnt_sm = yield ("rs_sum", cnt_sm)
-        prrecv = cnt_sm.sum(dim=1, dtype=i32)
-        pr_self_inc_all = yield ("gather", pr_self_inc)
-        src_c = state.ch_source.clamp(0, n - 1).to(torch.int64)
-        hits = torch.where(
-            state.ch_active
-            & (state.ch_source >= 0)
-            & (state.ch_source_inc == pr_self_inc_all[src_c]),
-            torch.gather(cnt_sm, 1, src_c),
-            0,
-        )
+        if on_card:
+            with perf.span("ping_req.respond"):
+                hits = prk.ping_req_hits(pr_sel, responder, state.ch_active, state.ch_source,
+                                         state.ch_source_inc, pr_self_inc)
+        else:
+            hits, prrecv = yield from prk.hits_legs(pr_sel, responder, state.ch_active,
+                                                    state.ch_source, state.ch_source_inc,
+                                                    pr_self_inc, lo=lo)
         if ft_on:
             out3 = _budget(ft, state.ch_active, state.ch_pb, prrecv, max_pb, hits)
             respondable_pr = out3.content
@@ -1478,44 +1445,22 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
             pb_drops_pr = pb_drops_pr + over2.sum(dtype=i32)
 
         # response content per slot, winner-combined at the sender (max
-        # key; ties keep the lowest slot)
-        best_key = torch.full((rows, n), -1, dtype=i32, device=dev)
-        best_src = torch.full((rows, n), -1, dtype=i32, device=dev)
-        best_srcinc = _zeros((rows, n), i32, dev)
-        self_inc_all = yield ("gather", _diag(state.inc, lo))
-        # per-slot full syncs and their record counts, stacked [R, K]: the
-        # metrics are their sums, the flight recorder emits them per event
-        fs_list, fs_rec_list = [], []
-        for k in range(K):
-            mk = pr_sel[:, k]
-            ex_k = responder[:, k]
-            (m_respondable, m_source, m_source_inc, m_known, m_status, m_inc, m_ch_status,
-             m_ch_inc) = yield from _fetch(
-                mk, respondable_pr, state.ch_source, state.ch_source_inc, state.known,
-                state.status, state.inc, state.ch_status, state.ch_inc)
-            resp_k = (
-                ex_k[:, None]
-                & m_respondable
-                & ~((m_source == node) & (m_source_inc == pr_self_inc[:, None]))
-            )
-            fs_k = ex_k & ~resp_k.any(dim=1) & (mid_all[mk] != mid_checksum)
-            fs_mask_k = fs_k[:, None] & m_known
-            fs_list.append(fs_k)
-            fs_rec_list.append(fs_mask_k.sum(dim=1, dtype=i32))
-            mask_k = resp_k | fs_mask_k
-            st_k = torch.where(fs_mask_k, m_status, m_ch_status)
-            inc_k = torch.where(fs_mask_k, m_inc, m_ch_inc)
-            src_k = torch.where(fs_mask_k, mk.to(i32)[:, None], m_source)
-            srcinc_k = torch.where(fs_mask_k, self_inc_all[mk][:, None], m_source_inc)
-            key_k = torch.where(mask_k, _pack_key(inc_k, st_k), -1)
-            better = key_k > best_key
-            best_key = torch.where(better, key_k, best_key)
-            best_src = torch.where(better, src_k, best_src)
-            best_srcinc = torch.where(better, srcinc_k, best_srcinc)
+        # key; ties keep the lowest slot); per-slot full syncs and their
+        # record counts, [R, K]: the metrics are their sums, the flight
+        # recorder emits them per event
+        if on_card:
+            with perf.span("ping_req.respond"):
+                *update_prr, pr_fs, pr_fs_rec = prk.ping_req_respond(
+                    pr_sel, responder, respondable_pr, state.ch_source, state.ch_source_inc,
+                    state.known, state.status, state.inc, state.ch_status, state.ch_inc,
+                    pr_self_inc, mid_checksum)
+        else:
+            *update_prr, pr_fs, pr_fs_rec = yield from prk.respond_legs(
+                pr_sel, responder, respondable_pr, state.ch_source, state.ch_source_inc,
+                state.known, state.status, state.inc, state.ch_status, state.ch_inc,
+                pr_self_inc, mid_checksum, mid_all, lo=lo)
         state, union, applied_prr, rows_prr, refute_rr, _ = _apply_site(
-            ft, state, union, best_key >= 0, best_key % 4,
-            torch.div(best_key, 4, rounding_mode="floor"), best_src, best_srcinc,
-            now, deadline, want_masks=want_masks, lo=lo,
+            ft, state, union, *update_prr, now, deadline, want_masks=want_masks, lo=lo,
         )
 
         # -- suspect verdict, on post-response state (the sender's own row) --
@@ -1534,8 +1479,8 @@ def shard_tick(sh, state: SimState, inputs: TickInputs, params: SimParams,
         applied_pr = (applied_prm | applied_prr | applied_sus) if dense else None
         return (
             state, union, applied_sus, applied_pr, rows_prm | rows_prr | rows_sus, sus_cnt,
-            ping_req_count, pr_inconclusive, pb_drops_pr, refute_m, refute_rr,
-            torch.stack(fs_list, dim=1), torch.stack(fs_rec_list, dim=1), pr_sel,
+            ping_req_count, pr_inconclusive, pb_drops_pr, refute_m, refute_rr, pr_fs, pr_fs_rec,
+            pr_sel,
         )
 
     (

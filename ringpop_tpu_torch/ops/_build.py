@@ -44,6 +44,10 @@ ENTRY_POINTS = {
     "ringpop_block_loop": (8, 3),
     "ringpop_member_records": (8, 4),
     "ringpop_prp_walk": (3, 5),
+    "ringpop_ping_req_select": (6, 3),
+    "ringpop_ping_req_combine": (16, 3),
+    "ringpop_ping_req_hits": (7, 3),
+    "ringpop_ping_req_respond": (19, 3),
 }
 # how many of each entry point's pointers are operands it reads: the rest
 # are the results it writes (chip_smoke.py holds them apart: no result
@@ -56,6 +60,10 @@ READ_POINTERS = {
     "ringpop_block_loop": 5,
     "ringpop_member_records": 6,
     "ringpop_prp_walk": 2,
+    "ringpop_ping_req_select": 4,
+    "ringpop_ping_req_combine": 9,
+    "ringpop_ping_req_hits": 6,
+    "ringpop_ping_req_respond": 12,
 }
 
 

@@ -3,7 +3,7 @@
 Counterpart of ``ringpop_tpu/ops/toolkit.py`` (lines 64-171 and the twin
 registry at :340): knob resolution and its run-log note
 (:func:`resolution_note`, :func:`emit_resolution`), the packed bool-row
-bitmask helpers, and :data:`TWIN_REGISTRY` — one row per CUDA kernel of the port naming its
+bitmask helpers, the segment reduction, and :data:`TWIN_REGISTRY` — one row per CUDA kernel of the port naming its
 wrapper, its plain PyTorch version, the JAX function it is held against
 and the test that holds it — and the batch axis shared by every kernel
 wrapper (:func:`is_batched`, :func:`batch_front`): inside
@@ -161,6 +161,15 @@ def pack_bool_rows(mask: torch.Tensor) -> torch.Tensor:
     return ((packed ^ (1 << 31)) - (1 << 31)).to(torch.int32)
 
 
+def segment_reduce(values, seg, n: int, reduce: str, identity: int) -> torch.Tensor:
+    """``jax.ops.segment_{max,min}(values, seg, num_segments=n+1)[:n]`` for
+    [R, C] int32 ``values`` and [R] segment ids in [0, n]: segment n is
+    dropped."""
+    out = torch.full((n + 1, values.shape[1]), identity, dtype=values.dtype, device=values.device)
+    idx = seg.to(torch.int64)[:, None].expand(values.shape)
+    return out.scatter_reduce(0, idx, values, reduce, include_self=True)[:n]
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Set bits per int32 (uint32) word."""
     x = words.to(torch.int64) & 0xFFFFFFFF
@@ -265,5 +274,20 @@ TWIN_REGISTRY: Tuple[KernelTwin, ...] = (
         "ringpop_tpu.models.sim.engine_scalable:_prp_perm",
         "tests/test_torch_prp_walk.py",
         "ringpop_tpu/models/sim/engine_scalable.py:484",
+    ),
+    # replace no Pallas kernel: the four pieces stand in for the JAX
+    # engine's ping-req phase, held through the engine's tick
+    *(
+        KernelTwin(
+            "ping_req",
+            entry,
+            entry + "_plain",
+            "ringpop_tpu_torch/csrc/%s.cu" % entry,
+            "ringpop_tpu.models.sim.engine:tick",
+            "tests/test_torch_ping_req.py",
+            "ringpop_tpu/models/sim/engine.py:2031",
+            batch_gate_test="tests/test_torch_ping_req.py",
+        )
+        for entry in ("ping_req_select", "ping_req_combine", "ping_req_hits", "ping_req_respond")
     ),
 )

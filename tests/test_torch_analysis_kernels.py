@@ -33,7 +33,8 @@ def test_every_kernel_source_is_registered():
     got = {p.name for p in kc.kernel_sources(Path(kc.__file__).resolve().parents[1] / "csrc")}
     assert {Path(s).name for s in rows} == got == {
         "apply_updates.cu", "pb_budget.cu", "fused_stream.cu", "exchange.cu", "block_loop.cu",
-        "member_records.cu", "prp_walk.cu"}
+        "member_records.cu", "prp_walk.cu", "ping_req_select.cu", "ping_req_combine.cu",
+        "ping_req_hits.cu", "ping_req_respond.cu"}
 
 
 LAUNCHER = """

@@ -523,7 +523,7 @@ def test_every_kernel_launch_names_its_card():
                 assert isinstance(device, (ast.Name, ast.Attribute)), \
                     "%s:%d passes no device" % (path.name, node.lineno)
     # one launch site for each entry point of the library
-    assert sites == len(_build.ENTRY_POINTS) == 7
+    assert sites == len(_build.ENTRY_POINTS) == 11
 
 
 @pytest.mark.cuda
